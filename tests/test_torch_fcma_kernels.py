@@ -1,0 +1,187 @@
+"""Kernels K1 (fcma_gram) and K3 (fcma_corr_normalize) of
+brainiak_tpu_torch against the JAX package's Pallas kernels, run in
+interpreter mode on the CPU.
+
+On a CPU tensor each wrapper runs its plain PyTorch version; the CUDA
+kernels themselves are held against those plain versions on the card
+(tests/test_torch_gpu.py, chip_smoke.py).  Tolerances:
+
+* normalized correlation: atol 1e-4 outside the (voxel-pair, subject)
+  groups that hold an |r| > 0.999, where the Fisher-z derivative
+  diverges and last-ulp differences of the two matmuls legally explode
+  (the JAX package's own clamp-confinement rule);
+* Gram: 1e-4 of each voxel's K[0, 0] (fp32 accumulation order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from brainiak_tpu.ops.correlation import normalize_for_correlation
+from brainiak_tpu.ops.pallas_kernels import fcma_corr_normalize as jk3
+from brainiak_tpu.ops.pallas_kernels import fcma_gram as jk1
+from brainiak_tpu_torch.ops import fcma_kernels as tk
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _normalized(rng, e, t, v):
+    """[E, T, V] float32 epoch data, z-scored over T and scaled."""
+    data = rng.randn(e, t, v).astype(np.float32)
+    return np.asarray(normalize_for_correlation(
+        jnp.asarray(data).transpose(0, 2, 1), 2)).transpose(0, 2, 1)
+
+
+def _two_mask(seed, e, t, b, v):
+    """Disjoint block / all-voxel sets: no |r| near 1."""
+    norm = _normalized(np.random.RandomState(seed), e, t, v + b)
+    return (np.ascontiguousarray(norm[:, :, v:]),
+            np.ascontiguousarray(norm[:, :, :v]))
+
+
+def _pad(x, n):
+    return np.concatenate(
+        [x, np.zeros(x.shape[:2] + (n - x.shape[2],), x.dtype)], axis=2)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _assert_gram_close(got, want):
+    scale = np.abs(want[:, 0, 0])[:, None, None]
+    assert np.all(np.abs(got - want) <= 1e-4 * scale)
+
+
+def test_k3_plain_matches_pallas_interpret_ragged():
+    """B=13, V=37: the JAX kernel takes zero-padded inputs (tiles 8 x
+    16), the port the ragged ones."""
+    e, t, b, v, eps = 8, 40, 13, 37, 4
+    blk, data = _two_mask(0, e, t, b, v)
+    want = np.asarray(jk3(jnp.asarray(_pad(blk, 16)),
+                          jnp.asarray(_pad(data, 48)), eps, tile_b=8,
+                          tile_v=16, interpret=True))[:b, :, :v]
+    got = tk.fcma_corr_normalize(_t(blk), _t(data), eps).numpy()
+    assert got.shape == (b, e, v)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_k1_plain_matches_pallas_interpret_ragged():
+    e, t, b, v, eps = 8, 40, 13, 37, 4
+    blk, data = _two_mask(1, e, t, b, v)
+    want = np.asarray(jk1(jnp.asarray(_pad(blk, 16)),
+                          jnp.asarray(_pad(data, 48)), eps, tile_b=8,
+                          tile_v=16, interpret=True))[:b]
+    got = tk.fcma_gram(_t(blk), _t(data), eps).numpy()
+    assert got.shape == (b, e, e)
+    _assert_gram_close(got, want)
+    corr = tk.fcma_corr_normalize(_t(blk), _t(data), eps)
+    _assert_gram_close(got, torch.einsum('bev,bfv->bef', corr,
+                                         corr).numpy())
+
+
+def test_zero_padded_voxels_contribute_exactly_zero():
+    e, t, b, v, eps = 8, 24, 6, 20, 2
+    blk, data = _two_mask(2, e, t, b, v)
+    g = tk.fcma_gram(_t(blk), _t(data), eps)
+    g_pad = tk.fcma_gram(_t(blk), _t(_pad(data, v + 12)), eps)
+    assert torch.equal(g, g_pad)
+    c_pad = tk.fcma_corr_normalize(_t(blk), _t(_pad(data, v + 12)), eps)
+    assert torch.all(c_pad[:, :, v:] == 0)
+
+
+def test_k3_plain_clamp_confinement():
+    """One-mask input with planted r = +-1 pairs: outside the poisoned
+    subject groups the plain version agrees with the Pallas kernel."""
+    e, t, b, v, eps = 8, 20, 16, 32, 4
+    rng = np.random.RandomState(3)
+    data = rng.randn(e, t, v).astype(np.float32)
+    data[:, :, 21] = data[:, :, 5]
+    data[:, :, 27] = -data[:, :, 11]
+    norm = np.asarray(normalize_for_correlation(
+        jnp.asarray(data).transpose(0, 2, 1), 2)).transpose(0, 2, 1)
+    blk = np.ascontiguousarray(norm[:, :, :b])
+    want = np.asarray(jk3(jnp.asarray(blk), jnp.asarray(norm), eps,
+                          tile_b=8, tile_v=16, interpret=True))
+    got = tk.fcma_corr_normalize(_t(blk), _t(norm), eps).numpy()
+    corr = np.einsum('etb,etv->bev', blk.astype(np.float64),
+                     norm.astype(np.float64))
+    near = (np.abs(corr) > 0.999).reshape(b, e // eps, eps, v)
+    poisoned = np.broadcast_to(near.any(axis=2, keepdims=True),
+                               near.shape).reshape(b, e, v)
+    assert poisoned[5, :, 21].all() and poisoned[11, :, 27].all()
+    assert (~poisoned).mean() > 0.9
+    np.testing.assert_allclose(got[~poisoned], want[~poisoned],
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("n_epochs,eps,expect", [
+    (8, 4, (16, 16, 1)),
+    (12, 6, (16, 12, 1)),
+    (16, 4, (16, 16, 1)),
+    (32, 4, (32, 32, 1)),
+    (40, 10, (32, 30, 2)),
+    (216, 12, (32, 24, 9)),
+])
+def test_epoch_tiles(n_epochs, eps, expect):
+    assert tk.epoch_tiles(n_epochs, eps) == expect
+
+
+def test_epoch_tiles_forced_capacity():
+    assert tk.epoch_tiles(16, 4, ept=32) == (32, 32, 1)
+    assert tk.epoch_tiles(40, 10, ept=16) == (16, 10, 4)
+    with pytest.raises(ValueError, match="16 or 32"):
+        tk.epoch_tiles(16, 4, ept=8)
+
+
+def test_epoch_tiles_refuses():
+    with pytest.raises(ValueError, match="multiple"):
+        tk.epoch_tiles(10, 4)
+    with pytest.raises(ValueError, match="at most 32 epochs per subject"):
+        tk.epoch_tiles(66, 33)
+
+
+def _tiled_gram(blk, data, eps):
+    """The kernel's epoch-tile decomposition in plain PyTorch: each
+    pair of tiles (A <= C) normalizes only its own epochs and gives the
+    Gram's A x C block, mirrored into C x A."""
+    n_e = blk.shape[0]
+    _, tile_len, n_tiles = tk.epoch_tiles(n_e, eps)
+    out = torch.full((blk.shape[2], n_e, n_e), float("nan"))
+    spans = [(k * tile_len, min(n_e, (k + 1) * tile_len))
+             for k in range(n_tiles)]
+    for i, (a0, a1) in enumerate(spans):
+        za = tk.fcma_corr_normalize_plain(blk[a0:a1], data[a0:a1], eps)
+        for c0, c1 in spans[i:]:
+            zc = tk.fcma_corr_normalize_plain(blk[c0:c1], data[c0:c1],
+                                              eps)
+            g = torch.einsum('bev,bfv->bef', za, zc)
+            out[:, a0:a1, c0:c1] = g
+            out[:, c0:c1, a0:a1] = g.transpose(1, 2)
+    return out
+
+
+@pytest.mark.parametrize("n_epochs,eps", [(40, 10), (48, 4)])
+def test_epoch_tile_pairs_cover_the_gram(n_epochs, eps):
+    blk, data = _two_mask(4, n_epochs, 12, 5, 9)
+    got = _tiled_gram(_t(blk), _t(data), eps)
+    want = tk.fcma_gram_plain(_t(blk), _t(data), eps)
+    assert not torch.isnan(got).any()
+    _assert_gram_close(got.numpy(), want.numpy())
+
+
+def test_kernel_entry_checks_refuse_cpu_tensors():
+    blk = torch.zeros(4, 6, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk._check_inputs(blk, blk)
+    tk.reset_launches()
+    tk.fcma_gram(blk, blk, 2)
+    tk.fcma_corr_normalize(blk, blk, 2)
+    assert tk.launches() == {"fcma_gram": 0, "fcma_corr_normalize": 0}

@@ -10,7 +10,9 @@ version beside it that runs for CPU tensors.
 
 Ported so far: FCMA stage-1 voxel selection
 (:mod:`brainiak_tpu_torch.fcma.preprocessing`,
-:mod:`brainiak_tpu_torch.fcma.voxelselector`) and the ops it runs on.
+:mod:`brainiak_tpu_torch.fcma.voxelselector`), FCMA stage-2
+classification (:mod:`brainiak_tpu_torch.fcma.classifier`,
+:mod:`brainiak_tpu_torch.fcma.util`) and the ops they run on.
 """
 
 from .device import resolve_device, resolve_precision, set_fp32_defaults

@@ -1,7 +1,9 @@
-"""FCMA stage 1 on a CUDA device: data preparation and voxel
-selection."""
+"""FCMA on a CUDA device: data preparation, voxel selection (stage 1)
+and correlation-based classification (stage 2)."""
 
+from .classifier import Classifier
 from .preprocessing import RandomType, prepare_fcma_data
 from .voxelselector import VoxelSelector
 
-__all__ = ["RandomType", "VoxelSelector", "prepare_fcma_data"]
+__all__ = ["Classifier", "RandomType", "VoxelSelector",
+           "prepare_fcma_data"]

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..device import matmul_precision, resolve_device, resolve_precision
-from ..ops.fcma_kernels import epoch_tiles, fcma_corr_normalize, fcma_gram
+from ..ops.fcma_kernels import fcma_corr_normalize, fcma_gram
 from ..ops.svm import stratified_kfold, svm_cv_accuracy
 
 logger = logging.getLogger(__name__)
@@ -117,9 +117,6 @@ class VoxelSelector:
                              'element by element')
         if self.num_voxels == 0 or self.num_voxels2 == 0:
             raise ValueError('Zero processed voxels')
-        if self.device.type == "cuda":
-            # the kernels' epoch tiling, refused here before any upload
-            epoch_tiles(len(self.labels), epochs_per_subj)
 
     def _stack(self):
         """[E, T, V] float32 tensors of raw_data (and raw_data2) on the

@@ -1,9 +1,9 @@
-"""Fused FCMA correlation kernels K1 (``fcma_gram``) and K3
-(``fcma_corr_normalize``).
+"""Fused FCMA correlation kernels K1 (``fcma_gram``), K3
+(``fcma_corr_normalize``) and K4 (``fcma_sample_gram``).
 
 PyTorch counterpart of ``brainiak_tpu/ops/pallas_kernels.py``'s
-``fcma_gram`` and ``fcma_corr_normalize``.  Both take the epoch data
-time-major, ``blk [E, T, B]`` and ``data [E, T, V]`` float32,
+``fcma_gram``, ``fcma_corr_normalize`` and ``fcma_sample_gram``.  All
+three take the epoch data time-major, ``[E, T, n]`` float32,
 epoch-normalized, and run per-epoch correlation -> clamped Fisher-z ->
 z-score across each subject's epochs:
 
@@ -12,16 +12,23 @@ z-score across each subject's epochs:
   device memory.
 * K3 :func:`fcma_corr_normalize` writes the normalized correlation
   ``[B, E, V]`` once.
+* K4 :func:`fcma_sample_gram` is the classifier's: samples in place of
+  epochs, groups of ``norm_unit`` samples in place of subjects (or the
+  raw correlation when ``norm_unit <= 1``), reduced over both voxel
+  axes into the unshrunk sample Gram ``[N, N]``.
 
-On a CUDA tensor each wrapper launches its hand-written kernel in
-``csrc/fcma_corr.cu`` (source note there: operation-bound at the
-whole-brain shape, a voxel-tile loop inside each block, partial Grams
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/fcma_corr.cu``, ``csrc/fcma_sample_gram.cu``, on the tile of
+``csrc/fcma_tile.cuh``; source notes there: operation-bound at the
+whole-brain shape, a voxel-tile loop inside each block, partials
 summed in a fixed order, no atomics).  The kernels compute in fp32
-FMA whatever ``precision`` says.  On a CPU tensor the wrapper runs the
-plain version in this module (:func:`fcma_gram_plain`,
-:func:`fcma_corr_normalize_plain`): ``correlate_epochs`` then
-``within_subject_normalization`` (then the Gram einsum), which honors
-``precision``.
+FMA whatever ``precision`` says.  A subject (or sample group) may be
+longer than one epoch tile: the kernels then run a first pass for its
+z-score statistics.  On a CPU tensor the wrapper runs the plain
+version in this module (:func:`fcma_gram_plain`,
+:func:`fcma_corr_normalize_plain`, :func:`fcma_sample_gram_plain`):
+``correlate_epochs`` then ``within_subject_normalization`` (then the
+Gram), which honors ``precision``.
 """
 
 import ctypes
@@ -35,15 +42,19 @@ from .kernels import _build
 
 __all__ = ["epoch_tiles", "fcma_corr_normalize",
            "fcma_corr_normalize_plain", "fcma_gram", "fcma_gram_plain",
-           "launches", "reset_launches"]
+           "fcma_sample_gram", "fcma_sample_gram_plain", "launches",
+           "reset_launches"]
 
-_launches = {"fcma_gram": 0, "fcma_corr_normalize": 0}
+_launches = {"fcma_gram": 0, "fcma_corr_normalize": 0,
+             "fcma_sample_gram": 0}
 
 #: threads of a kernel block; a block holds 512 // ept block voxels
 _THREADS = 512
 #: waves of one block per SM that the V split aims for
 _WAVES = 16
 _TV = 32
+#: voxels of x1 per block of the plain sample Gram
+_PLAIN_BLOCK = 128
 
 
 def launches():
@@ -74,13 +85,44 @@ def fcma_gram_plain(blk, data, epochs_per_subj, precision=None):
         return torch.einsum('bev,bfv->bef', corr, corr).float()
 
 
-def epoch_tiles(n_epochs, epochs_per_subj, ept=None):
-    """``(ept, tile_len, n_tiles)``: the kernel's epoch-tile capacity
-    (16 or 32; by default 16 when ``n_epochs <= 16``), the epochs in
-    each tile (whole subjects) and the tile count.
+def _check_norm_unit(n_samples, norm_unit):
+    if norm_unit > 1 and n_samples % norm_unit:
+        raise ValueError(
+            f"number of samples ({n_samples}) must be a multiple of "
+            f"norm_unit ({norm_unit}); check that data splits respect "
+            "subject boundaries")
 
-    A subject's epochs must fit one tile: more than 32 epochs per
-    subject is refused (such a design runs with ``device='cpu'``).
+
+def fcma_sample_gram_plain(x1, x2, norm_unit, precision=None):
+    """Plain version of K4: the unshrunk ``[N, N]`` sample Gram of the
+    correlation features, built in blocks of 128 voxels of x1."""
+    _check_norm_unit(x1.shape[0], norm_unit)
+    n = x1.shape[0]
+    gram = torch.zeros((n, n), dtype=torch.float32, device=x1.device)
+    for s in range(0, x1.shape[2], _PLAIN_BLOCK):
+        blk = x1[:, :, s:s + _PLAIN_BLOCK]
+        if norm_unit > 1:
+            feats = fcma_corr_normalize_plain(blk, x2, norm_unit,
+                                              precision=precision)
+        else:
+            feats = correlate_epochs(blk.transpose(1, 2),
+                                     x2.transpose(1, 2),
+                                     precision=precision)
+        with matmul_precision(precision) as dtype:
+            feats = feats.transpose(0, 1).reshape(n, -1).to(dtype)
+            gram += torch.matmul(feats, feats.T).float()
+    return gram
+
+
+def epoch_tiles(n_epochs, epochs_per_subj, ept=None):
+    """``(ept, tile_len, n_tiles)``: the kernels' epoch-tile capacity
+    (16 or 32; by default 16 when ``n_epochs <= 16``), the epochs in
+    each tile and the tile count.
+
+    A tile holds whole subjects when a subject fits one
+    (``tile_len`` is then a multiple of ``epochs_per_subj``).  A longer
+    subject spans several full tiles (``tile_len = ept``), and the
+    kernels take its z-score statistics from a first pass.
     """
     if n_epochs % epochs_per_subj:
         raise ValueError(
@@ -92,16 +134,14 @@ def epoch_tiles(n_epochs, epochs_per_subj, ept=None):
     elif ept not in (16, 32):
         raise ValueError(f"ept must be 16 or 32, got {ept}")
     if epochs_per_subj > ept:
-        raise ValueError(
-            f"the fused FCMA kernels take at most {ept} epochs per "
-            f"subject; got epochs_per_subj={epochs_per_subj} (run such "
-            "a design with device='cpu')")
-    tile_len = (ept // epochs_per_subj) * epochs_per_subj
+        tile_len = ept
+    else:
+        tile_len = (ept // epochs_per_subj) * epochs_per_subj
     return ept, tile_len, -(-n_epochs // tile_len)
 
 
-def _check_inputs(blk, data):
-    for name, x in (("blk", blk), ("data", data)):
+def _check_inputs(blk, data, names=("blk", "data")):
+    for name, x in zip(names, (blk, data)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
         if x.dtype != torch.float32:
@@ -110,9 +150,10 @@ def _check_inputs(blk, data):
             raise ValueError(f"{name} must be [E, T, n], got "
                              f"{tuple(x.shape)}")
     if blk.device != data.device:
-        raise ValueError("blk and data must be on the same device")
+        raise ValueError(f"{names[0]} and {names[1]} must be on the same "
+                         "device")
     if blk.shape[:2] != data.shape[:2]:
-        raise ValueError(f"blk {tuple(blk.shape)} and data "
+        raise ValueError(f"{names[0]} {tuple(blk.shape)} and {names[1]} "
                          f"{tuple(data.shape)} differ in [E, T]")
     return blk.contiguous(), data.contiguous()
 
@@ -125,13 +166,30 @@ def _n_split(device, n_blocks, n_vox):
                       -(-_WAVES * sms // max(1, n_blocks))))
 
 
-def _fn(name):
-    fn = getattr(_build.load("fcma_corr"), name)
+def _stats(blk, data, epochs_per_subj, tile_len):
+    """Scratch of the statistics pass, ``[2, B, E / eps, V]``, when a
+    subject spans several epoch tiles; else None."""
+    if epochs_per_subj <= tile_len:
+        return None
+    return torch.empty((2, blk.shape[2], blk.shape[0] // epochs_per_subj,
+                        data.shape[2]), dtype=torch.float32,
+                       device=blk.device)
+
+
+_N_PTRS = {"fcma_gram_f32": 5, "fcma_corr_normalize_f32": 4,
+           "fcma_sample_gram_f32": 5}
+
+
+def _fn(source, name):
+    fn = getattr(_build.load(source), name)
     fn.restype = ctypes.c_int
-    n_ptr = 4 if name == "fcma_gram_f32" else 3
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * _N_PTRS[name] + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     return fn
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _kernel_gram(blk, data, epochs_per_subj, ept=None):
@@ -150,12 +208,13 @@ def _kernel_gram(blk, data, epochs_per_subj, ept=None):
                        n_v)
     partial = torch.empty((n_split, n_pairs, n_b, ept, ept),
                           dtype=torch.float32, device=blk.device)
+    stats = _stats(blk, data, epochs_per_subj, tile_len)
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     with torch.cuda.device(blk.device):
-        err = _fn("fcma_gram_f32")(
+        err = _fn("fcma_corr", "fcma_gram_f32")(
             blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n_e, n_t, n_b, n_v, epochs_per_subj, ept,
-            tile_len, n_tiles, n_split, stream)
+            _ptr(stats), out.data_ptr(), n_e, n_t, n_b, n_v,
+            epochs_per_subj, ept, tile_len, n_tiles, n_split, stream)
     _build.check(err, "fcma_gram")
     _launches["fcma_gram"] += 1
     return out
@@ -172,14 +231,44 @@ def _kernel_corr_normalize(blk, data, epochs_per_subj):
         return out
     n_split = _n_split(blk.device, -(-n_b // (_THREADS // ept)) * n_tiles,
                        n_v)
+    stats = _stats(blk, data, epochs_per_subj, tile_len)
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     with torch.cuda.device(blk.device):
-        err = _fn("fcma_corr_normalize_f32")(
-            blk.data_ptr(), data.data_ptr(), out.data_ptr(), n_e, n_t,
-            n_b, n_v, epochs_per_subj, ept, tile_len, n_tiles, n_split,
-            stream)
+        err = _fn("fcma_corr", "fcma_corr_normalize_f32")(
+            blk.data_ptr(), data.data_ptr(), _ptr(stats), out.data_ptr(),
+            n_e, n_t, n_b, n_v, epochs_per_subj, ept, tile_len, n_tiles,
+            n_split, stream)
     _build.check(err, "fcma_corr_normalize")
     _launches["fcma_corr_normalize"] += 1
+    return out
+
+
+def _kernel_sample_gram(x1, x2, norm_unit):
+    x1, x2 = _check_inputs(x1, x2, ("x1", "x2"))
+    # the features of (x1, x2) are those of (x2, x1): the narrower
+    # region is the block operand
+    blk, data = (x2, x1) if x2.shape[2] < x1.shape[2] else (x1, x2)
+    n, n_t, n_b = blk.shape
+    n_v = data.shape[2]
+    group = max(norm_unit, 1)
+    ept, tile_len, n_tiles = epoch_tiles(n, group)
+    n_pairs = n_tiles * (n_tiles + 1) // 2
+    if n == 0 or n_b == 0 or n_v == 0:
+        return torch.zeros((n, n), dtype=torch.float32, device=blk.device)
+    out = torch.empty((n, n), dtype=torch.float32, device=blk.device)
+    n_bt = -(-n_b // (_THREADS // ept))
+    n_split = _n_split(blk.device, n_bt * n_pairs, n_v)
+    partial = torch.empty((n_split * n_bt, n_pairs, ept, ept),
+                          dtype=torch.float32, device=blk.device)
+    stats = _stats(blk, data, group, tile_len)
+    stream = torch.cuda.current_stream(blk.device).cuda_stream
+    with torch.cuda.device(blk.device):
+        err = _fn("fcma_sample_gram", "fcma_sample_gram_f32")(
+            blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
+            _ptr(stats), out.data_ptr(), n, n_t, n_b, n_v, norm_unit, ept,
+            tile_len, n_tiles, n_split, stream)
+    _build.check(err, "fcma_sample_gram")
+    _launches["fcma_sample_gram"] += 1
     return out
 
 
@@ -207,3 +296,22 @@ def fcma_corr_normalize(blk, data, epochs_per_subj, precision=None):
         return _kernel_corr_normalize(blk, data, epochs_per_subj)
     return fcma_corr_normalize_plain(blk, data, epochs_per_subj,
                                      precision)
+
+
+def fcma_sample_gram(x1, x2, norm_unit, precision=None):
+    """K4: the classifier's fused correlation-feature sample Gram.
+
+    x1 : [N, T, V1]; x2 : [N, T, V2], epoch-normalized.  Sample n's
+    features are the correlations of every (v1, v2) pair over T; with
+    ``norm_unit > 1`` they are Fisher-z'd and z-scored across each
+    group of ``norm_unit`` consecutive samples (``N % norm_unit`` must
+    be 0, else ``ValueError``), with ``norm_unit <= 1`` they are the
+    raw correlations.  Returns the unshrunk ``[N, N]`` float32 Gram
+    features @ features.T (callers apply the digit shrink).  A CUDA
+    tensor goes to the kernel (fp32 FMA; ``precision`` is not used
+    there), a CPU tensor to :func:`fcma_sample_gram_plain`.
+    """
+    _check_norm_unit(x1.shape[0], norm_unit)
+    if x1.is_cuda:
+        return _kernel_sample_gram(x1, x2, norm_unit)
+    return fcma_sample_gram_plain(x1, x2, norm_unit, precision)

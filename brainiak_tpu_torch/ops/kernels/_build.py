@@ -13,9 +13,10 @@ to agree with its plain version.
 
 The build happens on first use, or for all sources at once through
 :func:`build` (one ``nvcc`` per source, all started together).  The
-library name carries a hash of the source, so an edited source is
-rebuilt; it is written to a temporary file and renamed, so concurrent
-processes never load half a library.  A failed build raises
+library name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt; it is
+written to a temporary file and renamed, so concurrent processes never
+load half a library.  A failed build raises
 ``RuntimeError`` with nvcc's output: there is no fallback.
 """
 
@@ -33,7 +34,7 @@ __all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "build", "check",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "brainiak_tpu_torch"
-SOURCES = ("epoch_norm", "fcma_corr")
+SOURCES = ("epoch_norm", "fcma_corr", "fcma_sample_gram")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -57,8 +58,10 @@ def _nvcc():
 
 def library_path(name):
     """Path of the shared library built from ``csrc/<name>.cu``."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FCMA voxel-selection path on one CUDA card.
+"""Drive the PyTorch port's FCMA paths (voxel selection, then
+classification) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -13,29 +14,45 @@ first one that goes wrong:
    per source, started together), with each kernel's registers and
    spills as ptxas reports them.
 2. Each kernel against its plain PyTorch version at the shapes the
-   main path gives it (inputs from a numpy seed, TF32 off, two-mask
+   main paths give it (inputs from a numpy seed, TF32 off, two-region
    inputs so that no |r| is near 1):
      K2 epoch_zscore [32, 150, 65536];
      K1 fcma_gram E=32, T=150, B=1024, V=65536 (whole brain);
      K1 fcma_gram E=16, T=150, B=V=8192 (one mask: the 16-epoch
         tiling, and the 32-epoch tiling forced, both checked and timed);
-     K3 fcma_corr_normalize E=32, T=150, B=128, V=65536.
+     K3 fcma_corr_normalize E=32, T=150, B=128, V=65536;
+     K4 fcma_sample_gram N=32, T=150, 65536 x 1024 (the classifier's
+        whole-brain shape) with norm_unit 4 and 0 (raw features), and
+        N=96, 8192 x 1024, norm_unit 12 (four sample tiles);
+     K1, K3 and K4 with subjects of 40 epochs (E=80, 512 x 4096; K3 on
+        128 block voxels): each subject spans two epoch tiles, so the
+        statistics pass runs.
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and fp32
-   operations / 67 TFLOP/s for this run's shapes (K1's Gram counted
-   as its E (E + 1) / 2 distinct entries, the Gram being symmetric).
+   operations / 67 TFLOP/s for this run's shapes (the Grams counted
+   as their E (E + 1) / 2 distinct entries, being symmetric).
 3. Main path, whole brain: 8 subjects x 600 TRs on a 64x64x16 volume
    (65,536 voxels), 2 conditions x 2 epochs of 150 TRs each (E=32,
    4 epochs per subject), mask1 = 1024 voxels, mask2 = the whole volume;
    ``prepare_fcma_data`` then ``VoxelSelector(..., num_folds=4)
    .run('svm')``.  The K1 and K2 launch counts of that run must be > 0.
    A warm run is timed, and one more runs under ``torch.profiler`` for
-   the device time by kernel and the device's busy share.
-4. Main path, one mask: V=8192, E=16, T=150, 4 epochs per subject,
+   the device time by kernel and the device's busy share.  Then the
+   host-CV branch, ``run(clf)`` with a precomputed-kernel classifier,
+   which goes through K3 per block of voxels.
+4. Stage 2 on the same data, trained on the first 6 subjects' 24
+   epochs and tested on the last 2 subjects' 8: a portioned
+   ``Classifier`` fit through K4 over mask1 x the whole volume (its
+   test similarities and predictions held against the plain K4), and
+   a single-portion fit on the self-correlation of the 512 voxels
+   stage 1 ranked first; warm fit and predict seconds, peak device
+   memory, and a held-out accuracy of at least 0.75 for both.
+5. Main path, one mask: V=8192, E=16, T=150, 4 epochs per subject,
    4 folds, through ``run('svm')``; kernel-vs-plain voxel accuracies
    on 256 voxels.
-5. The host-CV branch, ``run(clf)`` with a precomputed-kernel
-   classifier, which goes through K3 per block of voxels.
+6. Subjects of 40 epochs (E=80, 2048 + 512 voxels): ``run('svm')``
+   through K1, the host-CV branch through K3 and a portioned
+   ``Classifier`` fit through K4, each held against its plain path.
 
 It prints progress lines, then one JSON line with every kernel's
 figures, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -62,7 +79,16 @@ K1_RTOL = 1e-4      # of each voxel's K[0, 0]: f32 accumulation order
 # by sigma, so f32 rounding of r (sum over T) shows up amplified by
 # 1/sigma; scaled back, the difference is in Fisher-z units.
 K3_ZTOL = 1e-5
+# K4 and the stage-2 test similarities, two readings.  Entries within
+# a sample group are of the order of K[0, 0] ~ V1 V2, those across
+# groups of its square root, which at 65536 x 1024 is 1.2e-4 of K[0, 0]:
+# so every entry is held to 1e-5 of K[0, 0] (f32 accumulation order of
+# the large entries), and the cross-group entries, where a wrong
+# product would show, to 1e-3 of their own RMS.
+K4_RTOL = 1e-5
+K4_XTOL = 1e-3
 ACC_AGREE = 0.95    # share of voxels whose accuracies are equal
+STAGE2_ACC = 0.75   # held-out accuracy of stage 2 on the planted data
 
 
 def log(msg):
@@ -191,10 +217,109 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None):
     return row
 
 
-def phase_kernels(torch, dev):
+def check_k3(torch, blk, data, eps, reps):
+    """K3 against its plain version; the row of its figures.  The
+    difference is held in Fisher-z units: times the std of each
+    subject group's Fisher-z values."""
     from brainiak_tpu_torch.ops import fcma_kernels as fk
     from brainiak_tpu_torch.ops.correlation import correlate_epochs
     from brainiak_tpu_torch.ops.fisherz import fisher_z
+
+    n_e, n_t, n_b = blk.shape
+    n_v = data.shape[2]
+    got = fk.fcma_corr_normalize(blk, data, eps)
+    want = fk.fcma_corr_normalize_plain(blk, data, eps)
+    z = fisher_z(correlate_epochs(blk.transpose(1, 2),
+                                  data.transpose(1, 2)))
+    zr = z.reshape(n_b, n_e // eps, eps, n_v)
+    var = (zr * zr).mean(dim=2, keepdim=True) - \
+        zr.mean(dim=2, keepdim=True) ** 2
+    sigma = var.clamp(min=0).sqrt().expand_as(zr).reshape(z.shape)
+    diff = (got - want).abs()
+    err = diff.max().item()
+    zerr = (diff * sigma).max().item()
+    log(f"K3 fcma_corr_normalize E={n_e} eps={eps} T={n_t} B={n_b} "
+        f"V={n_v} max_abs_err {err:.3e} max err*sigma {zerr:.3e} "
+        f"(tol {K3_ZTOL}); share of |err| > 1e-4: "
+        f"{(diff > 1e-4).float().mean().item():.2e}")
+    if not zerr <= K3_ZTOL:
+        fail(f"K3 (E={n_e}, eps={eps}) disagrees with its plain version")
+    del z, zr, var, sigma, diff, got, want
+    b_ms, b_by = bound_ms(4 * (n_e * n_t * (n_b + n_v) + n_b * n_e * n_v),
+                          2 * n_e * n_t * n_b * n_v)
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: fk.fcma_corr_normalize(blk, data,
+                                                            eps), reps),
+        "plain_ms": cuda_ms(torch, lambda: fk.fcma_corr_normalize_plain(
+            blk, data, eps), 2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(torch, lambda: torch.einsum(
+            'etb,etv->bev', blk, data), reps)}
+
+
+def k4_errors(got, want, k00, cross):
+    """The largest |got - want| over K[0, 0], and the largest over the
+    entries ``cross`` (a mask) over those entries' RMS in ``want``."""
+    diff = np.abs(got - want)
+    rms = np.sqrt(np.mean(want[cross] ** 2))
+    return diff.max() / abs(k00), diff[cross].max() / rms
+
+
+def check_k4_errors(what, errors):
+    rel, xrel = errors
+    log(f"  {what}: max err/K[0,0] {rel:.3e} (rtol {K4_RTOL}), max "
+        f"cross-group err/RMS {xrel:.3e} (tol {K4_XTOL})")
+    if not (rel <= K4_RTOL and xrel <= K4_XTOL):
+        fail(f"{what} disagrees with the plain version")
+
+
+def check_k4(torch, x1, x2, norm_unit, reps):
+    """K4 against its plain version (blocks of 128 voxels of x1) on
+    x1 [N, T, V1] and x2 [N, T, V2]; the row of its figures.  The
+    cross-group entries are those of samples in different groups of
+    ``norm_unit`` (of different samples for raw features)."""
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
+
+    n, n_t, v1 = x1.shape
+    v2 = x2.shape[2]
+    chunk = 128
+    group = np.arange(n) // max(norm_unit, 1)
+    cross = group[:, None] != group[None, :]
+
+    def library():
+        gram = torch.zeros((n, n), device=x1.device)
+        for s in range(0, v1, chunk):
+            corr = torch.einsum('ntb,ntv->nbv', x1[:, :, s:s + chunk], x2)
+            feats = corr.reshape(n, -1)
+            gram.addmm_(feats, feats.T)
+        return gram
+
+    want = fk.fcma_sample_gram_plain(x1, x2, norm_unit)
+    got = fk.fcma_sample_gram(x1, x2, norm_unit)
+    err = (got - want).abs().max().item()
+    log(f"K4 fcma_sample_gram N={n} T={n_t} V1={v1} V2={v2} "
+        f"norm_unit={norm_unit} max_abs_err {err:.3e}")
+    got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
+    check_k4_errors(f"K4 (N={n}, norm_unit={norm_unit})",
+                    k4_errors(got, want, want[0, 0], cross))
+    b_ms, b_by = bound_ms(4 * (n * n_t * (v1 + v2) + n * n),
+                          gram_flops(n, n_t, v1, v2))
+    row = {"max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: fk.fcma_sample_gram(x1, x2,
+                                                            norm_unit),
+                         reps),
+           "plain_ms": cuda_ms(torch, lambda: fk.fcma_sample_gram_plain(
+               x1, x2, norm_unit), 1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(torch, library, 1)}
+    log(f"  fcma_sample_gram N={n} norm_unit={norm_unit}: ms "
+        f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} bound_ms "
+        f"{b_ms:.3f} ({b_by}) library_ms {row['library_ms']:.3f}")
+    return row
+
+
+def phase_kernels(torch, dev):
     from brainiak_tpu_torch.ops.kernels import epoch_norm as en
 
     rng = np.random.default_rng(SEED)
@@ -233,40 +358,38 @@ def phase_kernels(torch, dev):
     rows["fcma_gram_e16"] = check_k1(torch, blk16, data16, eps, 5,
                                      alt_ept=32)
     del blk16, data16
-    chunk = 128
+    torch.cuda.empty_cache()
 
     # K3 at the host-CV branch's block shape
-    blk = blk[:, :, :chunk].contiguous()
-    got = fk.fcma_corr_normalize(blk, data, eps)
-    want = fk.fcma_corr_normalize_plain(blk, data, eps)
-    z = fisher_z(correlate_epochs(blk.transpose(1, 2),
-                                  data.transpose(1, 2)))
-    zr = z.reshape(chunk, n_e // eps, eps, n_v)
-    var = (zr * zr).mean(dim=2, keepdim=True) - \
-        zr.mean(dim=2, keepdim=True) ** 2
-    sigma = var.clamp(min=0).sqrt().expand_as(zr).reshape(z.shape)
-    diff = (got - want).abs()
-    err = diff.max().item()
-    zerr = (diff * sigma).max().item()
-    log(f"K3 fcma_corr_normalize E={n_e} T={n_t} B={chunk} V={n_v} "
-        f"max_abs_err {err:.3e} max err*sigma {zerr:.3e} "
-        f"(tol {K3_ZTOL}); share of |err| > 1e-4: "
-        f"{(diff > 1e-4).float().mean().item():.2e}")
-    if not zerr <= K3_ZTOL:
-        fail("K3 disagrees with its plain version")
-    del z, zr, var, sigma, diff, got, want
-    b_ms, b_by = bound_ms(
-        4 * (n_e * n_t * (chunk + n_v) + chunk * n_e * n_v),
-        2 * n_e * n_t * chunk * n_v)
-    rows["fcma_corr_normalize"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: fk.fcma_corr_normalize(blk, data,
-                                                            eps), 5),
-        "plain_ms": cuda_ms(torch, lambda: fk.fcma_corr_normalize_plain(
-            blk, data, eps), 2),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(torch, lambda: torch.einsum(
-            'etb,etv->bev', blk, data), 5)}
+    blk = blk[:, :, :128].contiguous()
+    rows["fcma_corr_normalize"] = check_k3(torch, blk, data, eps, 5)
+    del blk, data
+    torch.cuda.empty_cache()
+
+    # K4 at the classifier path's shape: x1 the wider region, as
+    # Classifier passes it; (b) raw features; (c) four sample tiles
+    x2 = normalized_epochs(torch, rng, 32, n_t, 1024, dev)
+    x1 = normalized_epochs(torch, rng, 32, n_t, 65536, dev)
+    rows["fcma_sample_gram"] = check_k4(torch, x1, x2, 4, 3)
+    check_k4(torch, x1, x2, 0, 3)
+    del x1, x2
+    torch.cuda.empty_cache()
+    x2 = normalized_epochs(torch, rng, 96, n_t, 1024, dev)
+    x1 = normalized_epochs(torch, rng, 96, n_t, 8192, dev)
+    check_k4(torch, x1, x2, 12, 3)
+    del x1, x2
+    torch.cuda.empty_cache()
+
+    # subjects of 40 epochs, two epoch tiles each: the statistics pass
+    n_e, eps = 80, 40
+    data = normalized_epochs(torch, rng, n_e, n_t, 4096, dev)
+    blk = normalized_epochs(torch, rng, n_e, n_t, 512, dev)
+    rows["fcma_gram_e80"] = check_k1(torch, blk, data, eps, 3)
+    rows["fcma_corr_normalize_e80"] = check_k3(
+        torch, blk[:, :, :128].contiguous(), data, eps, 3)
+    rows["fcma_sample_gram_n80"] = check_k4(torch, data, blk, eps, 3)
+    del blk, data
+    torch.cuda.empty_cache()
     for name, row in rows.items():
         log(f"  {name}: ms {row['ms']:.3f} plain_ms {row['plain_ms']:.3f} "
             f"bound_ms {row['bound_ms']:.3f} ({row['bound_by']}) "
@@ -414,8 +537,9 @@ def run_path(torch, label, images, conditions, mask1, mask2, n_folds,
 
 class _KernelNearestMean:
     """A precomputed-kernel classifier with the scikit-learn
-    fit/score interface: the class whose training samples have the
-    largest mean kernel value (less half the class's mean Gram)."""
+    fit/predict/decision_function/score interface: the class whose
+    training samples have the largest mean kernel value (less half the
+    class's mean Gram)."""
 
     kernel = "precomputed"
 
@@ -427,11 +551,131 @@ class _KernelNearestMean:
             for c in self.classes_])
         return self
 
-    def score(self, k_test, y):
+    def _scores(self, k_test):
         means = np.stack([k_test[:, self.y_ == c].mean(axis=1)
                           for c in self.classes_], axis=1)
-        pred = self.classes_[np.argmax(means - self.offset_, axis=1)]
-        return float(np.mean(pred == np.asarray(y)))
+        return means - self.offset_
+
+    def decision_function(self, k_test):
+        scores = self._scores(k_test)
+        return scores[:, 1] - scores[:, 0]
+
+    def predict(self, k_test):
+        return self.classes_[np.argmax(self._scores(k_test), axis=1)]
+
+    def score(self, k_test, y):
+        return float(np.mean(self.predict(k_test) == np.asarray(y)))
+
+
+def compare_classifier_with_plain(torch, clf, pairs, labels, n_train):
+    """A portioned fit's test similarities against the same fit through
+    K4's plain version (before the shrink), and its predictions against
+    those of an estimator fitted on the plain Gram.  The test block
+    pairs held-out subjects with training ones: every entry of it is
+    a cross-group entry."""
+    from brainiak_tpu_torch.ops.fcma_kernels import fcma_sample_gram_plain
+
+    x1, x2, _, _ = clf._stack_pairs(pairs)
+    plain = fcma_sample_gram_plain(x1, x2, clf.epochs_per_subj)
+    plain = plain.cpu().double().numpy()
+    scale = 10.0 ** min(0, 2 - clf.num_digits_)
+    test = plain[n_train:, :n_train]
+    errors = k4_errors(clf.test_data_ / scale, test, plain[0, 0],
+                       np.ones(test.shape, dtype=bool))
+    ref = _KernelNearestMean().fit(plain[:n_train, :n_train] * scale,
+                                   labels[:n_train])
+    same = np.array_equal(ref.predict(test * scale), clf.predict())
+    log(f"  K4 fit vs plain fit: predictions equal: {same}")
+    check_k4_errors("the K4 fit's test similarities", errors)
+    if not same:
+        fail("the K4 fit's predictions differ from the plain fit's")
+
+
+def run_stage2(torch, label, clf_kw, train, labels_train, test, y_test,
+               fit_kw=None):
+    """Fit twice (cold, warm) and predict twice; the warm seconds (and
+    those of the fit's stacking and upload of the epochs alone), the
+    peak device memory and the held-out accuracy.  ``test`` None: the
+    test samples were given to fit (num_training_samples)."""
+    from brainiak_tpu_torch.fcma import Classifier
+
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        clf = Classifier(_KernelNearestMean(), device="cuda", **clf_kw)
+        clf.fit(train, labels_train, **(fit_kw or {}))
+        torch.cuda.synchronize()
+        times["fit"] = time.perf_counter() - t0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pred = clf.predict(test)
+        times["predict"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clf._stack_pairs(train)
+    torch.cuda.synchronize()
+    times["stack"] = time.perf_counter() - t0
+    dec = np.asarray(clf.decision_function(test))
+    acc = clf.score(test, y_test)
+    if pred.shape != (len(y_test),) or dec.shape != (len(y_test),) or \
+            not np.all(np.isfinite(dec)):
+        fail(f"{label}: predictions or decision values are not "
+             f"{len(y_test)} finite values")
+    log(f"stage 2, {label}: warm fit {times['fit']:.3f} s (stacking "
+        f"and uploading the epochs alone {times['stack']:.3f} s), warm "
+        f"predict {times['predict']:.4f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held-out "
+        f"accuracy {acc:.3f} (min {STAGE2_ACC})")
+    if not acc >= STAGE2_ACC:
+        fail(f"stage 2, {label}: held-out accuracy below {STAGE2_ACC}")
+    return clf
+
+
+def run_long_subjects(torch, rows):
+    """The entry points on 2 subjects x 40 epochs (each subject spans
+    two epoch tiles: the kernels' statistics pass): run('svm') through
+    K1, the host-CV branch through K3 and a portioned Classifier fit
+    through K4, each held against its plain path."""
+    from brainiak_tpu_torch.fcma import Classifier
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
+
+    rng = np.random.default_rng(SEED + 2)
+    n_e, eps, n_v = 80, 40, 2048
+    x = normalized_epochs(torch, rng, n_e, 150, n_v + 512, "cpu").numpy()
+    raw1 = [e[:, :n_v] for e in x]
+    raw2 = [e[:, n_v:] for e in x]
+    labels = np.array([0, 1] * (n_e // 2))
+    pairs = list(zip(raw1, raw2))
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    vs = VoxelSelector(labels, eps, 4, raw1)
+    results = vs.run('svm')
+    hvs = VoxelSelector(labels, eps, 4, [m[:, :128] for m in raw1],
+                        raw_data2=raw1, voxel_unit=128)
+    host = hvs.run(_KernelNearestMean())
+    clf = Classifier(_KernelNearestMean(), num_processed_voxels=128,
+                     epochs_per_subj=eps, device="cuda")
+    clf.fit(pairs, labels, num_training_samples=n_e // 2)
+    pred = clf.predict()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = fk.launches()
+    log(f"long subjects (E={n_e}, {eps} epochs per subject, V={n_v}): "
+        f"run('svm'), host-CV on 128 voxels and a portioned fit in "
+        f"{t_all:.2f} s; launches {launches}")
+    for name, row in (("fcma_gram", "fcma_gram_e80"),
+                      ("fcma_corr_normalize", "fcma_corr_normalize_e80"),
+                      ("fcma_sample_gram", "fcma_sample_gram_n80")):
+        if launches[name] < 1:
+            fail(f"long subjects: {name} was not launched")
+        rows[row]["launches"] = launches[name]
+    accs = check_accuracies(results, n_v)
+    check_accuracies(host, 128)
+    if pred.shape != (n_e // 2,):
+        fail("long subjects: the classifier predicted the wrong shape")
+    compare_with_plain(torch, vs, accs, 256)
+    compare_classifier_with_plain(torch, clf, pairs, labels, n_e // 2)
 
 
 def main():
@@ -500,7 +744,34 @@ def main():
         f"{rows['fcma_corr_normalize']['launches']}")
     if rows["fcma_corr_normalize"]["launches"] < 1:
         fail("the host-CV branch did not run K3")
-    del vs, hvs, images
+    del hvs, images
+    torch.cuda.empty_cache()
+
+    # stage 2 on the whole-brain data: (i) portioned, through K4, on
+    # mask1 x the whole volume; (ii) single portion, self-correlation
+    # of the 512 voxels that stage 1 ranked first.  Train on the first
+    # 6 subjects' 24 epochs, test on the last 2 subjects' 8.
+    n_train = 24
+    labels = vs.labels
+    pairs = list(zip(vs.raw_data, vs.raw_data2))
+    fk.reset_launches()
+    clf = run_stage2(torch, "portioned (K4)",
+                     dict(num_processed_voxels=128, epochs_per_subj=4),
+                     pairs, labels, None, labels[n_train:],
+                     dict(num_training_samples=n_train))
+    rows["fcma_sample_gram"]["launches"] = fk.launches()["fcma_sample_gram"]
+    if rows["fcma_sample_gram"]["launches"] < 1:
+        fail("the portioned classifier did not run K4")
+    compare_classifier_with_plain(torch, clf, pairs, labels, n_train)
+    del clf, pairs
+    torch.cuda.empty_cache()
+    ranked = np.argsort(-accs, kind="stable")[:512]
+    raw = [m[:, ranked] for m in vs.raw_data]
+    run_stage2(torch, "single portion, self-correlation of 512 voxels",
+               dict(epochs_per_subj=4),
+               [(m, m) for m in raw[:n_train]], labels[:n_train],
+               [(m, m) for m in raw[n_train:]], labels[n_train:])
+    del vs, raw
     torch.cuda.empty_cache()
 
     # main path, one mask (V=8192, E=16)
@@ -512,21 +783,24 @@ def main():
     _, _, launches = run_path(torch, "one mask", images, conditions,
                               np.ones(shape, dtype=bool), None, 4, 256)
     rows["fcma_gram_e16"]["launches"] = launches["fcma_gram"]
+    torch.cuda.empty_cache()
 
-    replaces = {
-        "fcma_gram": "brainiak_tpu/ops/pallas_kernels.py:223",
-        "fcma_gram_e16": "brainiak_tpu/ops/pallas_kernels.py:223",
-        "epoch_zscore": "brainiak_tpu/ops/kernels/epoch_norm.py:118",
-        "fcma_corr_normalize": "brainiak_tpu/ops/pallas_kernels.py:168",
+    run_long_subjects(torch, rows)
+
+    csrc = "brainiak_tpu_torch/csrc/"
+    k1 = ("brainiak_tpu/ops/pallas_kernels.py:223", csrc + "fcma_corr.cu")
+    k3 = ("brainiak_tpu/ops/pallas_kernels.py:168", csrc + "fcma_corr.cu")
+    k4 = ("brainiak_tpu/ops/pallas_kernels.py:311",
+          csrc + "fcma_sample_gram.cu")
+    origin = {
+        "epoch_zscore": ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
+                         csrc + "epoch_norm.cu"),
+        "fcma_gram": k1, "fcma_gram_e16": k1, "fcma_gram_e80": k1,
+        "fcma_corr_normalize": k3, "fcma_corr_normalize_e80": k3,
+        "fcma_sample_gram": k4, "fcma_sample_gram_n80": k4,
     }
-    sources = {
-        "fcma_gram": "brainiak_tpu_torch/csrc/fcma_corr.cu",
-        "fcma_gram_e16": "brainiak_tpu_torch/csrc/fcma_corr.cu",
-        "epoch_zscore": "brainiak_tpu_torch/csrc/epoch_norm.cu",
-        "fcma_corr_normalize": "brainiak_tpu_torch/csrc/fcma_corr.cu",
-    }
-    kernels = [dict(name=name, route="cuda", source=sources[name],
-                    replaces=replaces[name], launches=row["launches"],
+    kernels = [dict(name=name, route="cuda", source=origin[name][1],
+                    replaces=origin[name][0], launches=row["launches"],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],

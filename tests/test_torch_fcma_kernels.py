@@ -1,6 +1,6 @@
-"""Kernels K1 (fcma_gram) and K3 (fcma_corr_normalize) of
-brainiak_tpu_torch against the JAX package's Pallas kernels, run in
-interpreter mode on the CPU.
+"""Kernels K1 (fcma_gram), K3 (fcma_corr_normalize) and K4
+(fcma_sample_gram) of brainiak_tpu_torch against the JAX package's
+Pallas kernels, run in interpreter mode on the CPU.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; the CUDA
 kernels themselves are held against those plain versions on the card
@@ -10,7 +10,9 @@ kernels themselves are held against those plain versions on the card
   groups that hold an |r| > 0.999, where the Fisher-z derivative
   diverges and last-ulp differences of the two matmuls legally explode
   (the JAX package's own clamp-confinement rule);
-* Gram: 1e-4 of each voxel's K[0, 0] (fp32 accumulation order).
+* Gram: 1e-4 of each voxel's K[0, 0] (fp32 accumulation order); the
+  sample Gram: 1e-4 of its K[0, 0], on two-region inputs (disjoint
+  voxels, so no r is 1 and no Fisher-z sits at the clamp).
 """
 
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ import torch
 from brainiak_tpu.ops.correlation import normalize_for_correlation
 from brainiak_tpu.ops.pallas_kernels import fcma_corr_normalize as jk3
 from brainiak_tpu.ops.pallas_kernels import fcma_gram as jk1
+from brainiak_tpu.ops.pallas_kernels import fcma_sample_gram as jk4
 from brainiak_tpu_torch.ops import fcma_kernels as tk
 
 
@@ -129,6 +132,10 @@ def test_k3_plain_clamp_confinement():
     (32, 4, (32, 32, 1)),
     (40, 10, (32, 30, 2)),
     (216, 12, (32, 24, 9)),
+    (40, 1, (32, 32, 2)),
+    (80, 40, (32, 32, 3)),
+    (96, 48, (32, 32, 3)),
+    (64, 64, (32, 32, 2)),
 ])
 def test_epoch_tiles(n_epochs, eps, expect):
     assert tk.epoch_tiles(n_epochs, eps) == expect
@@ -137,38 +144,51 @@ def test_epoch_tiles(n_epochs, eps, expect):
 def test_epoch_tiles_forced_capacity():
     assert tk.epoch_tiles(16, 4, ept=32) == (32, 32, 1)
     assert tk.epoch_tiles(40, 10, ept=16) == (16, 10, 4)
+    assert tk.epoch_tiles(40, 20, ept=16) == (16, 16, 3)
     with pytest.raises(ValueError, match="16 or 32"):
         tk.epoch_tiles(16, 4, ept=8)
 
 
 def test_epoch_tiles_refuses():
+    """Only designs that cut a subject are refused: a subject longer
+    than one tile spans several."""
     with pytest.raises(ValueError, match="multiple"):
         tk.epoch_tiles(10, 4)
-    with pytest.raises(ValueError, match="at most 32 epochs per subject"):
-        tk.epoch_tiles(66, 33)
+    with pytest.raises(ValueError, match="multiple"):
+        tk.epoch_tiles(66, 44)
+    assert tk.epoch_tiles(66, 33) == (32, 32, 3)
 
 
 def _tiled_gram(blk, data, eps):
     """The kernel's epoch-tile decomposition in plain PyTorch: each
-    pair of tiles (A <= C) normalizes only its own epochs and gives the
-    Gram's A x C block, mirrored into C x A."""
+    pair of tiles (A <= C) gives the Gram's A x C block, mirrored into
+    C x A.  A tile of whole subjects normalizes only its own epochs; a
+    subject longer than a tile is normalized with statistics over all
+    its epochs (the kernels' first pass)."""
     n_e = blk.shape[0]
     _, tile_len, n_tiles = tk.epoch_tiles(n_e, eps)
+    whole = tk.fcma_corr_normalize_plain(blk, data, eps)
+
+    def tile(e0, e1):
+        if eps > tile_len:
+            return whole[:, e0:e1]
+        return tk.fcma_corr_normalize_plain(blk[e0:e1], data[e0:e1], eps)
+
     out = torch.full((blk.shape[2], n_e, n_e), float("nan"))
     spans = [(k * tile_len, min(n_e, (k + 1) * tile_len))
              for k in range(n_tiles)]
     for i, (a0, a1) in enumerate(spans):
-        za = tk.fcma_corr_normalize_plain(blk[a0:a1], data[a0:a1], eps)
+        za = tile(a0, a1)
         for c0, c1 in spans[i:]:
-            zc = tk.fcma_corr_normalize_plain(blk[c0:c1], data[c0:c1],
-                                              eps)
+            zc = tile(c0, c1)
             g = torch.einsum('bev,bfv->bef', za, zc)
             out[:, a0:a1, c0:c1] = g
             out[:, c0:c1, a0:a1] = g.transpose(1, 2)
     return out
 
 
-@pytest.mark.parametrize("n_epochs,eps", [(40, 10), (48, 4)])
+@pytest.mark.parametrize("n_epochs,eps", [(40, 10), (48, 4), (80, 40),
+                                          (64, 64)])
 def test_epoch_tile_pairs_cover_the_gram(n_epochs, eps):
     blk, data = _two_mask(4, n_epochs, 12, 5, 9)
     got = _tiled_gram(_t(blk), _t(data), eps)
@@ -181,7 +201,57 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
     blk = torch.zeros(4, 6, 3)
     with pytest.raises(ValueError, match="CUDA"):
         tk._check_inputs(blk, blk)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk._check_inputs(blk, blk, ("x1", "x2"))
     tk.reset_launches()
     tk.fcma_gram(blk, blk, 2)
     tk.fcma_corr_normalize(blk, blk, 2)
-    assert tk.launches() == {"fcma_gram": 0, "fcma_corr_normalize": 0}
+    tk.fcma_sample_gram(blk, blk, 2)
+    assert tk.launches() == {"fcma_gram": 0, "fcma_corr_normalize": 0,
+                             "fcma_sample_gram": 0}
+
+
+def _jax_feature_gram(x1, x2, norm_unit):
+    """The JAX classifier's XLA features (one portion), then
+    features @ features.T in float64."""
+    from brainiak_tpu.fcma.classifier import _chunk_features
+
+    corr = np.asarray(_chunk_features(jnp.asarray(x1), jnp.asarray(x2), 0,
+                                      x1.shape[2], norm_unit))
+    feats = corr.reshape(corr.shape[0], -1).astype(np.float64)
+    return feats @ feats.T
+
+
+@pytest.mark.parametrize("n", [8, 12])
+@pytest.mark.parametrize("norm_unit", [0, 4])
+def test_k4_plain_matches_pallas_interpret_ragged(n, norm_unit):
+    """x1 13 voxels, x2 37: the JAX kernel takes zero-padded inputs
+    (tiles 16 x 16), the port the ragged ones; both against the JAX
+    package's XLA feature Gram too."""
+    t, v1, v2 = 30, 13, 37
+    x1, x2 = _two_mask(n + norm_unit, n, t, v1, v2)
+    want = np.asarray(jk4(jnp.asarray(_pad(x1, 16)),
+                          jnp.asarray(_pad(x2, 48)), norm_unit, tile_1=16,
+                          tile_2=16, interpret=True))
+    got = tk.fcma_sample_gram(_t(x1), _t(x2), norm_unit).numpy()
+    xla = _jax_feature_gram(x1, x2, norm_unit)
+    assert got.shape == (n, n)
+    for ref in (want, xla):
+        assert np.all(np.abs(got - ref) <= 1e-4 * abs(ref[0, 0]))
+
+
+def test_k4_plain_is_k1_summed_over_block_voxels():
+    """K4(x1, x2, u) = sum_b K1(x1, x2, u)[b], whichever region is the
+    block operand."""
+    x1, x2 = _two_mask(5, 12, 20, 150, 9)
+    g1 = tk.fcma_gram_plain(_t(x1), _t(x2), 4).sum(dim=0)
+    for a, b in ((x1, x2), (x2, x1)):
+        got = tk.fcma_sample_gram(_t(a), _t(b), 4)
+        assert torch.all((got - g1).abs() <= 1e-4 * g1[0, 0].abs())
+
+
+def test_k4_refuses_samples_that_cut_a_group():
+    x = torch.zeros(10, 6, 3)
+    with pytest.raises(ValueError, match="multiple"):
+        tk.fcma_sample_gram(x, x, 4)
+    assert tk.fcma_sample_gram(x, x, 0).shape == (10, 10)

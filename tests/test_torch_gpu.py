@@ -67,16 +67,19 @@ def test_epoch_zscore_kernel(cuda, dtype, shape):
 
 @pytest.mark.parametrize("e,t,b,v,eps", [
     (8, 40, 13, 37, 4), (16, 150, 40, 1000, 4), (32, 150, 130, 3000, 4),
-    (12, 20, 9, 70, 6), (40, 12, 10, 100, 10), (48, 9, 17, 65, 4)])
+    (12, 20, 9, 70, 6), (40, 12, 10, 100, 10), (48, 9, 17, 65, 4),
+    (80, 12, 10, 100, 40), (96, 9, 17, 65, 48), (64, 20, 33, 300, 64)])
 def test_fcma_kernels(cuda, e, t, b, v, eps):
     """Two-mask inputs (no |r| near 1); ragged B and V; one and several
-    epoch tiles."""
+    epoch tiles; subjects of more than 32 epochs, which span several
+    tiles (40 and 48 epochs per subject, and one subject of 64)."""
     d = _normalized(e + b, e, t, v + b, cuda)
     blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
     fk.reset_launches()
     gram = fk.fcma_gram(blk, data, eps)
     corr = fk.fcma_corr_normalize(blk, data, eps)
-    assert fk.launches() == {"fcma_gram": 1, "fcma_corr_normalize": 1}
+    assert fk.launches() == {"fcma_gram": 1, "fcma_corr_normalize": 1,
+                             "fcma_sample_gram": 0}
     want = fk.fcma_gram_plain(blk, data, eps)
     scale = want[:, :1, :1].abs()
     assert torch.all((gram - want).abs() <= 1e-4 * scale)
@@ -107,19 +110,40 @@ def test_fcma_gram_both_tilings_at_sixteen_epochs(cuda):
         assert torch.all((got - want).abs() <= 1e-4 * scale), ept
 
 
-def test_more_than_32_epochs_per_subject_is_refused_on_cuda(cuda):
-    """A known gap of the kernels: a subject's epochs must fit one
-    32-epoch tile.  The CPU path takes any number."""
-    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+@pytest.mark.parametrize("n,norm_unit", [
+    (12, 0), (12, 1), (12, 4), (12, 12), (32, 0), (32, 4), (40, 0),
+    (40, 4), (40, 40), (96, 0), (96, 12)])
+def test_fcma_sample_gram_kernel(cuda, n, norm_unit):
+    """K4 against its plain version on two-region inputs (no |r| near
+    1), ragged widths, both orientations of the regions; 40 samples in
+    one group span two sample tiles.  Every entry within 1e-4 of
+    K[0, 0]; the entries across sample groups, of the order of
+    sqrt(K[0, 0]), also within 1e-3 of their own RMS."""
+    d = _normalized(n + norm_unit, n, 20, 300 + 37, cuda)
+    x1, x2 = d[:, :, :300].contiguous(), d[:, :, 300:].contiguous()
+    group = torch.arange(n, device=cuda) // max(norm_unit, 1)
+    cross = group[:, None] != group[None, :]
+    fk.reset_launches()
+    for a, b in ((x1, x2), (x2, x1)):
+        got = fk.fcma_sample_gram(a, b, norm_unit)
+        want = fk.fcma_sample_gram_plain(a, b, norm_unit)
+        assert got.shape == (n, n)
+        diff = (got - want).abs()
+        assert torch.all(diff <= 1e-4 * want[0, 0].abs())
+        if cross.any():
+            rms = want[cross].pow(2).mean().sqrt()
+            assert torch.all(diff[cross] <= 1e-3 * rms)
+    assert fk.launches()["fcma_sample_gram"] == 2
 
-    x = torch.zeros(80, 6, 8, device=cuda)
-    with pytest.raises(ValueError, match="at most 32 epochs per subject"):
-        fk.fcma_gram(x, x, 40)
-    with pytest.raises(ValueError, match="at most 32 epochs per subject"):
-        fk.fcma_corr_normalize(x, x, 40)
-    raw = [np.zeros((6, 8), np.float32)] * 80
-    with pytest.raises(ValueError, match="at most 32 epochs per subject"):
-        VoxelSelector([0, 1] * 40, 40, 2, raw)
+
+def test_fcma_sample_gram_refuses_bad_inputs(cuda):
+    x = torch.zeros(8, 6, 5, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        fk.fcma_sample_gram(x, x, 3)
+    with pytest.raises(TypeError):
+        fk.fcma_sample_gram(x.double(), x.double(), 4)
+    with pytest.raises(ValueError):
+        fk.fcma_sample_gram(x, x[:, :5], 4)
 
 
 def test_voxel_selector_cuda_matches_cpu(cuda):
@@ -134,3 +158,67 @@ def test_voxel_selector_cuda_matches_cpu(cuda):
     g = np.array([got[k] for k in range(7)])
     w = np.array([want[k] for k in range(7)])
     assert np.max(np.abs(g - w)) <= 2 / 8 + 1e-6
+
+
+def test_voxel_selector_long_subjects_cuda_matches_cpu(cuda):
+    """40 epochs per subject (each subject spans two epoch tiles):
+    the card's accuracies are the CPU path's within one test sample
+    per fold."""
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+
+    d = _normalized(2, 80, 20, 57, torch.device("cpu")).numpy()
+    d1, d2 = list(d[:, :, :7]), list(d[:, :, 7:])
+    labels = [0, 1] * 40
+    got = dict(VoxelSelector(labels, 40, 2, d1, raw_data2=d2).run('svm'))
+    want = dict(VoxelSelector(labels, 40, 2, d1, raw_data2=d2,
+                              device="cpu").run('svm'))
+    g = np.array([got[k] for k in range(7)])
+    w = np.array([want[k] for k in range(7)])
+    assert np.max(np.abs(g - w)) <= 2 / 80 + 1e-6
+
+
+class _NearestMean:
+    """A precomputed-kernel estimator: the class with the larger mean
+    kernel value against its training samples."""
+
+    kernel = "precomputed"
+
+    def fit(self, k_train, y):
+        self.y_ = np.asarray(y)
+        return self
+
+    def decision_function(self, k_test):
+        return k_test[:, self.y_ == 1].mean(axis=1) - \
+            k_test[:, self.y_ == 0].mean(axis=1)
+
+    def predict(self, k_test):
+        return (self.decision_function(k_test) > 0).astype(int)
+
+
+@pytest.mark.parametrize("epochs_per_subj", [0, 4])
+def test_classifier_cuda_matches_cpu(cuda, epochs_per_subj):
+    """The portioned fit (K4 on the card, its plain version on the
+    CPU) and the single-portion fit (features on the device) give the
+    same test similarities and predictions on two-region inputs."""
+    from brainiak_tpu_torch.fcma import Classifier
+
+    d = _normalized(5, 24, 30, 40 + 9, torch.device("cpu")).numpy()
+    pairs = list(zip(d[:, :, :40], d[:, :, 40:]))
+    labels = [0, 1] * 12
+    for n_proc, n_train in ((8, 16), (2000, None)):
+        fits = [Classifier(_NearestMean(), num_processed_voxels=n_proc,
+                           epochs_per_subj=epochs_per_subj,
+                           device=dev).fit(pairs[:16] if n_train is None
+                                           else pairs,
+                                           labels[:16] if n_train is None
+                                           else labels,
+                                           num_training_samples=n_train)
+                for dev in ("cuda", "cpu")]
+        if n_train is None:
+            preds = [f.predict(pairs[16:]) for f in fits]
+        else:
+            preds = [f.predict() for f in fits]
+        got, want = (f.test_data_ for f in fits)
+        assert fits[0].num_digits_ == fits[1].num_digits_
+        assert np.all(np.abs(got - want) <= 1e-4 * np.abs(want).max())
+        np.testing.assert_array_equal(preds[0], preds[1])

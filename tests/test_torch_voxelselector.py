@@ -229,15 +229,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_cuda_selector_refuses_subjects_over_one_epoch_tile(monkeypatch):
-    """On the card a subject's epochs must fit one 32-epoch kernel
-    tile; the selector refuses a larger design when it is made, before
-    any upload.  The CPU path takes it."""
+    """A subject longer than one 32-epoch kernel tile spans several:
+    the selector takes such a design on CUDA, as on the CPU, and the
+    kernels' tiling covers it.  (The name is the one this test had
+    while such a design was refused; it is kept so that the test's id
+    stays the same across that change.)"""
+    from brainiak_tpu_torch.ops.fcma_kernels import epoch_tiles
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     prng = RandomState(0)
     data = [create_epoch(prng) for _ in range(80)]
     labels = [0, 1] * 40
-    with pytest.raises(ValueError, match="at most 32 epochs per subject"):
-        VoxelSelector(labels, 40, 2, data)
+    vs = VoxelSelector(labels, 40, 2, data)
+    assert vs.device == torch.device("cuda")
+    assert epoch_tiles(len(labels), vs.epochs_per_subj) == (32, 32, 3)
     vs = VoxelSelector(labels, 40, 2, data, device="cpu")
     assert vs.device == torch.device("cpu")
 
@@ -248,7 +253,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     code = (
         "import sys\n"
         "import brainiak_tpu_torch, brainiak_tpu_torch.convert\n"
+        "import brainiak_tpu_torch.fcma.classifier\n"
         "import brainiak_tpu_torch.fcma.preprocessing\n"
+        "import brainiak_tpu_torch.fcma.util\n"
         "import brainiak_tpu_torch.fcma.voxelselector\n"
         "import brainiak_tpu_torch.ops.fcma_kernels\n"
         "import brainiak_tpu_torch.ops.svm\n"

@@ -12,7 +12,11 @@ Ported so far: FCMA stage-1 voxel selection
 (:mod:`brainiak_tpu_torch.fcma.preprocessing`,
 :mod:`brainiak_tpu_torch.fcma.voxelselector`), FCMA stage-2
 classification (:mod:`brainiak_tpu_torch.fcma.classifier`,
-:mod:`brainiak_tpu_torch.fcma.util`) and the ops they run on.
+:mod:`brainiak_tpu_torch.fcma.util`), the single-process device mesh
+(:mod:`brainiak_tpu_torch.parallel`), the SUMMA ring Gram
+(:mod:`brainiak_tpu_torch.ops.distla`,
+:mod:`brainiak_tpu_torch.ops.ring`), ISC and ISFC
+(:mod:`brainiak_tpu_torch.isc`) and the ops they run on.
 """
 
 from .device import resolve_device, resolve_precision, set_fp32_defaults

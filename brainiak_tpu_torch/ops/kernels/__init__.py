@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels: the build (:mod:`._build`) and the
-ingest epoch normalization (:mod:`.epoch_norm`, kernel K2)."""
+"""Hand-written CUDA kernels: the build (:mod:`._build`), the ingest
+epoch normalization (:mod:`.epoch_norm`, kernel K2) and the SUMMA
+ring step (:mod:`.ring`, kernel K5)."""

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FCMA paths (voxel selection, then
-classification) on one CUDA card.
+"""Drive the PyTorch port's paths (FCMA voxel selection and
+classification, the SUMMA ring Gram, ISC/ISFC) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -53,6 +53,24 @@ first one that goes wrong:
 6. Subjects of 40 epochs (E=80, 2048 + 512 voxels): ``run('svm')``
    through K1, the host-CV branch through K3 and a portioned
    ``Classifier`` fit through K4, each held against its plain path.
+7. K5, the SUMMA ring step, against its plain version (``mma_update``)
+   on z-scored inputs at (a) T=600, n_local=B=65536, one shard (the
+   whole-brain one-card ring, a 17.2 GB block); (b) T=600,
+   n_local=B=16384, owner 2 of 4 (one step of the 4-position ring,
+   the other three blocks held bit-identical to a sentinel); (c)
+   T=7, n_local=130, B=67, owner 1 of 3 with a NaN column (ragged
+   edges); and at T=600, n_local=B=8192 (path C's step).
+8. Ring path A: ``distla.gram`` of one whole-brain subject (T=600,
+   V=65,536) on the one-card mesh at the default 8 GiB budget, which
+   the 17.3 GB working set exceeds, so the ring runs (one K5 launch);
+   held against the plain product in row slabs; warm seconds, K5's
+   device time in a profiled run, peak device memory.
+9. Ring path B: the same data on a 4-position mesh of the one card
+   (16 K5 launches, owners other than 0), held against path A.
+10. Ring path C: leave-one-out ``isfc(data, mesh=...)`` of 8 subjects
+   x 600 TRs x 8,192 voxels (planted shared signal) on the one-card
+   mesh (8 K5 launches), held against ``isfc(data)`` without a mesh;
+   ``isc`` leave-one-out and pairwise on the same data.
 
 It prints progress lines, then one JSON line with every kernel's
 figures, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -89,6 +107,11 @@ K4_RTOL = 1e-5
 K4_XTOL = 1e-3
 ACC_AGREE = 0.95    # share of voxels whose accuracies are equal
 STAGE2_ACC = 0.75   # held-out accuracy of stage 2 on the planted data
+# K5 and the ring paths: entries are Pearson r in [-1, 1] of z-scored
+# columns; f32 sums over T in another order than cuBLAS's
+K5_ATOL = 1e-5
+RING_AB_ATOL = 1e-6  # path B vs path A: the same kernel, per-shard z
+ISFC_ATOL = 1e-5     # ring ISFC vs the dense torch.matmul path
 
 
 def log(msg):
@@ -137,9 +160,9 @@ def ptxas_summary(output):
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(I(?:Li\d+E)+E|I[fd]E)?",
+            k = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E|I[fd]E)?",
                           m.group(1))
-            args = re.findall(r"Li(\d+)E|I([fd])E", k.group(2) or "")
+            args = re.findall(r"L[ib](\d+)E|I([fd])E", k.group(2) or "")
             name = k.group(1) + (
                 "<" + ",".join(a or {"f": "float", "d": "double"}[b]
                                for a, b in args) + ">" if args else "")
@@ -678,6 +701,266 @@ def run_long_subjects(torch, rows):
     compare_classifier_with_plain(torch, clf, pairs, labels, n_e // 2)
 
 
+def zscored_cols(torch, rng, n_t, n_v, dev):
+    """[T, V] float32 columns z-scored with 1/sqrt(T) (a product of
+    two columns is their Pearson r), made from a numpy seed."""
+    x = torch.from_numpy(rng.standard_normal((n_t, n_v),
+                                             dtype=np.float32)).to(dev)
+    x -= x.mean(dim=0, keepdim=True)
+    x /= x.std(dim=0, keepdim=True, correction=0) * n_t ** 0.5
+    return x.contiguous()
+
+
+def slab_max_err(torch, got, z, z_b, rows=4096):
+    """Largest |got - z.T @ z_b| (NaN-aware, positions must agree),
+    the product formed in row slabs so that no second full [V, V]
+    exists."""
+    worst = 0.0
+    for r in range(0, got.shape[0], rows):
+        want = torch.matmul(z[:, r:r + rows].T, z_b)
+        part = got[r:r + rows]
+        if not torch.equal(torch.isnan(part), torch.isnan(want)):
+            fail("NaN positions differ from the plain product")
+        diff = (part - want).abs().nan_to_num(0.0)
+        worst = max(worst, diff.max().item())
+        del want, diff
+    return worst
+
+
+def check_k5(torch, rng, n_t, n_local, n_block, n_shards, owner, dev,
+             reps, nan_col=None):
+    """K5 against mma_update on z-scored inputs; the other column
+    blocks held bit-identical to a sentinel.  The row of its figures
+    (reps > 0) or None."""
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+
+    z = zscored_cols(torch, rng, n_t, n_local, dev)
+    rot = z if n_shards == 1 and n_block == n_local else \
+        zscored_cols(torch, rng, n_t, n_block, dev)
+    if nan_col is not None:
+        z[:, nan_col] = float("nan")
+        rot[:, nan_col % n_block] = float("nan")
+    width = n_shards * n_block
+    out = torch.full((n_local, width), -7.0, device=dev)
+    got = kr.ring_mma(out, z, rot, owner, n_shards=n_shards)
+    torch.cuda.synchronize()
+    blk = slice(owner * n_block, (owner + 1) * n_block)
+    for k in range(n_shards):
+        if k != owner and not bool(
+                (got[:, k * n_block:(k + 1) * n_block] == -7.0).all()):
+            fail(f"K5 wrote outside its block (block {k})")
+    err = slab_max_err(torch, got[:, blk], z, rot)
+    label = (f"K5 ring_mma T={n_t} n_local={n_local} B={n_block} "
+             f"n={n_shards} owner={owner}")
+    if nan_col is not None:
+        n_nan = int(torch.isnan(got).sum())
+        label += f" NaN entries {n_nan} (want {n_local + n_block - 1})"
+        if n_nan != n_local + n_block - 1:
+            fail("K5 NaN entries are not one row and one column")
+    log(f"{label}: max_abs_err {err:.3e} (atol {K5_ATOL}); other blocks "
+        "bit-identical to the sentinel")
+    if not err <= K5_ATOL:
+        fail("K5 disagrees with its plain version")
+    if not reps:
+        return None
+    b_ms, b_by = bound_ms(4 * (n_t * n_local + n_t * n_block
+                               + n_local * n_block),
+                          2 * n_t * n_local * n_block)
+    row = {"max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: kr.ring_mma(
+               got, z, rot, owner, n_shards=n_shards), reps),
+           "plain_ms": cuda_ms(torch, lambda: kr.mma_update(
+               got, z, rot, owner * n_block), 1),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(torch, lambda: torch.matmul(z.T, rot),
+                                 reps)}
+    log(f"  ms {row['ms']:.3f} plain_ms {row['plain_ms']:.3f} bound_ms "
+        f"{b_ms:.3f} ({b_by}) library_ms {row['library_ms']:.3f}")
+    return row
+
+
+#: K5's shapes: (T, n_local, B, n_shards, owner, timed reps) of path A's
+#: one-card ring, one step of path B's 4-position ring, path C's step
+RING_SHAPES = {"ring_mma": (600, 65536, 65536, 1, 0, 3),
+               "ring_mma_n4": (600, 16384, 16384, 4, 2, 5),
+               "ring_mma_v8192": (600, 8192, 8192, 1, 0, 10)}
+
+
+def phase_ring_kernel(torch, dev, shapes=RING_SHAPES):
+    """K5 at the ring paths' shapes, then at a ragged shape with a NaN
+    column (checked, not timed)."""
+    rng = np.random.default_rng(SEED + 3)
+    rows = {}
+    for name, (n_t, n_local, n_block, n, owner, reps) in shapes.items():
+        rows[name] = check_k5(torch, rng, n_t, n_local, n_block, n, owner,
+                              dev, reps)
+        torch.cuda.empty_cache()
+    check_k5(torch, rng, 7, 130, 67, 3, 1, dev, 0, nan_col=5)
+    return rows
+
+
+def profile_once(torch, fn, kernel):
+    """One call of fn under torch.profiler: the device busy
+    milliseconds, and those of the kernels whose name holds
+    ``kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = mine = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += ev.self_device_time_total / 1e3
+        if kernel in ev.key:
+            mine += ev.self_device_time_total / 1e3
+    return busy, mine
+
+
+def run_ring_paths(torch, rows, n_t=600, n_v=65536):
+    """Ring paths A and B on one whole-brain subject (T=600, V=65,536,
+    the 64x64x16 volume)."""
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(SEED + 4)
+    data = rng.standard_normal((n_t, n_v), dtype=np.float32)
+    data[:, 7] = 1.5    # a constant voxel: its row and column are 0
+    mesh1 = make_mesh(("voxel",), (-1,))
+    log(f"ring path A: gram of [{n_t}, {n_v}] on {mesh1}, budget "
+        f"{distla.replicated_budget_bytes()} bytes, replicated working "
+        f"set {4 * (n_t * n_v + n_v * n_v)} bytes")
+
+    torch.cuda.reset_peak_memory_stats()
+    kr.reset_launches()
+    t0 = time.perf_counter()
+    out = distla.gram(data, mesh=mesh1)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = kr.launches()
+    rows["ring_mma"]["launches"] = launches
+    if launches < 1:
+        fail("ring path A did not run K5")
+    del out
+    t0 = time.perf_counter()
+    out_a = distla.gram(data, mesh=mesh1)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    z = distla._zscore_cols(torch.from_numpy(data).cuda())
+    err = slab_max_err(torch, out_a, z, z)
+    if not bool((out_a[7] == 0).all() and (out_a[:, 7] == 0).all()):
+        fail("ring path A: the constant voxel's row or column is not 0")
+    log(f"  path A: K5 launches {launches}, cold {t_cold:.3f} s, warm "
+        f"{t_warm:.3f} s, peak device memory {peak / 2**30:.2f} GiB, "
+        f"max err vs plain {err:.3e} (atol {K5_ATOL})")
+    if not err <= K5_ATOL:
+        fail("ring path A disagrees with the plain product")
+    del z
+    busy, k5 = profile_once(
+        torch, lambda: distla.gram(data, mesh=mesh1), "ring_mma_kernel")
+    log(f"  path A profiled: device busy {busy:.3f} ms, K5 {k5:.3f} ms "
+        f"({k5 / (1e3 * t_warm):.3f} of the unprofiled warm run)")
+
+    mesh4 = make_mesh(("voxel",), (4,), devices=["cuda"] * 4)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kr.reset_launches()
+    out_b = distla.gram(data, mesh=mesh4)
+    torch.cuda.synchronize()
+    launches = kr.launches()
+    rows["ring_mma_n4"]["launches"] = launches
+    if launches != 16:
+        fail(f"ring path B ran {launches} K5 launches, not 16")
+    del out_b
+    t0 = time.perf_counter()
+    out_b = distla.gram(data, mesh=mesh4)
+    torch.cuda.synchronize()
+    t_warm_b = time.perf_counter() - t0
+    peak_b = torch.cuda.max_memory_allocated() - held
+    worst, n_diff = 0.0, 0
+    for r in range(0, n_v, 4096):
+        diff = (out_b[r:r + 4096] - out_a[r:r + 4096]).abs()
+        worst = max(worst, diff.max().item())
+        n_diff += int((diff != 0).sum())
+    log(f"  path B: 4 positions on one card, K5 launches {launches}, warm "
+        f"{t_warm_b:.3f} s, peak device memory beyond A's output "
+        f"{peak_b / 2**30:.2f} GiB; vs path A max diff {worst:.3e} "
+        f"(atol {RING_AB_ATOL}), entries not bit-identical {n_diff}")
+    if not worst <= RING_AB_ATOL:
+        fail("ring path B disagrees with path A")
+    del out_a, out_b
+    torch.cuda.empty_cache()
+
+
+def run_isfc_path(torch, rows, n_s=8, n_t=600, n_v=8192):
+    """Ring path C: leave-one-out ISFC of 8 subjects x 600 TRs on the
+    one-mask volume (32x32x8, 8,192 voxels) on the one-card mesh,
+    against the dense path, then isc."""
+    from brainiak_tpu_torch import isc as tisc
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(SEED + 5)
+    signal = rng.standard_normal((n_t, n_v), dtype=np.float32)
+    data = np.stack([signal + rng.standard_normal((n_t, n_v),
+                                                  dtype=np.float32)
+                     for _ in range(n_s)], axis=2)
+    mesh1 = make_mesh(("voxel",), (-1,))
+    tisc.isfc(data, mesh=mesh1)
+    kr.reset_launches()
+    t0 = time.perf_counter()
+    ring = tisc.isfc(data, mesh=mesh1)
+    t_warm = time.perf_counter() - t0
+    launches = kr.launches()
+    rows["ring_mma_v8192"]["launches"] = launches
+    if launches != n_s:
+        fail(f"ring path C ran {launches} K5 launches, not {n_s}")
+    t0 = time.perf_counter()
+    tisc._isfc_ring(data, data, mesh1, True, True)
+    t_dev = time.perf_counter() - t0
+    busy, k5 = profile_once(
+        torch, lambda: tisc._isfc_ring(data, data, mesh1, True, True),
+        "ring_mma_kernel")
+    t0 = time.perf_counter()
+    dense = tisc.isfc(data)
+    t_dense = time.perf_counter() - t0
+    errs = [float(np.max(np.abs(r - d))) for r, d in zip(ring, dense)]
+    shapes = [r.shape for r in ring]
+    log(f"ring path C: isfc of {n_s} subjects x {n_t} TRs x {n_v} "
+        f"voxels, K5 launches {launches}; warm {t_warm:.3f} s, of which "
+        f"the {n_s} rings and their copies to the host {t_dev:.3f} s "
+        f"(profiled: device busy {busy:.3f} ms, K5 {k5:.3f} ms) and "
+        f"the host's float64 assembly and squareform the rest "
+        f"{t_warm - t_dev:.3f} s; dense isfc {t_dense:.3f} s; shapes "
+        f"{shapes}; max diff vs dense {max(errs):.3e} (atol {ISFC_ATOL})")
+    if shapes != [(n_s, n_v * (n_v - 1) // 2), (n_s, n_v)] or \
+            not all(np.all(np.isfinite(r)) for r in ring):
+        fail("ring path C: isfc returned the wrong shapes or non-finite "
+             "values")
+    if not max(errs) <= ISFC_ATOL:
+        fail("ring path C disagrees with the dense isfc")
+    ring_iscs = ring[1]
+    del ring, dense
+    t0 = time.perf_counter()
+    loo = tisc.isc(data)
+    pair = tisc.isc(data, pairwise=True)
+    t_isc = time.perf_counter() - t0
+    log(f"  isc leave-one-out {loo.shape} mean {loo.mean():.3f}, pairwise "
+        f"{pair.shape} mean {pair.mean():.3f}, both in {t_isc:.3f} s; "
+        f"the ring ISFC's diagonal vs isc max diff "
+        f"{float(np.max(np.abs(ring_iscs - loo))):.3e}")
+    if loo.shape != (n_s, n_v) or pair.shape != (n_s * (n_s - 1) // 2,
+                                                 n_v) \
+            or not (np.all(np.abs(loo) <= 1) and np.all(np.abs(pair) <= 1)):
+        fail("isc returned the wrong shapes or values outside [-1, 1]")
+    if not (loo.mean() > 0.3 and pair.mean() > 0.3):
+        fail("isc does not find the planted shared signal")
+
+
 def main():
     import torch
 
@@ -786,6 +1069,12 @@ def main():
     torch.cuda.empty_cache()
 
     run_long_subjects(torch, rows)
+    torch.cuda.empty_cache()
+
+    # the SUMMA ring: K5 at the paths' shapes, then paths A-C
+    rows.update(phase_ring_kernel(torch, dev))
+    run_ring_paths(torch, rows)
+    run_isfc_path(torch, rows)
 
     csrc = "brainiak_tpu_torch/csrc/"
     k1 = ("brainiak_tpu/ops/pallas_kernels.py:223", csrc + "fcma_corr.cu")
@@ -799,6 +1088,8 @@ def main():
         "fcma_corr_normalize": k3, "fcma_corr_normalize_e80": k3,
         "fcma_sample_gram": k4, "fcma_sample_gram_n80": k4,
     }
+    k5 = ("brainiak_tpu/ops/kernels/ring.py:116", csrc + "ring_mma.cu")
+    origin.update(ring_mma=k5, ring_mma_n4=k5, ring_mma_v8192=k5)
     kernels = [dict(name=name, route="cuda", source=origin[name][1],
                     replaces=origin[name][0], launches=row["launches"],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],

@@ -222,3 +222,108 @@ def test_classifier_cuda_matches_cpu(cuda, epochs_per_subj):
         assert fits[0].num_digits_ == fits[1].num_digits_
         assert np.all(np.abs(got - want) <= 1e-4 * np.abs(want).max())
         np.testing.assert_array_equal(preds[0], preds[1])
+
+
+def _zscored(seed, t, v, dev):
+    """[T, V] float32 columns z-scored with 1/sqrt(T), so that a product
+    of two columns is a Pearson r in [-1, 1]."""
+    x = torch.from_numpy(np.random.RandomState(seed).randn(t, v)
+                         .astype(np.float32)).to(dev)
+    x -= x.mean(dim=0, keepdim=True)
+    x /= x.std(dim=0, keepdim=True, correction=0) * t ** 0.5
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("t,n_local,b,n,owner", [
+    (7, 130, 67, 3, 1), (16, 256, 128, 4, 2), (150, 300, 300, 2, 0),
+    (33, 64, 16, 1, 0), (600, 512, 384, 3, 2)])
+def test_ring_mma_kernel(cuda, t, n_local, b, n, owner):
+    """K5 against its plain version: ragged and aligned widths, one
+    NaN column of each operand; the block written within 1e-5 with the
+    same NaN positions, every other block bit-identical to the
+    sentinel."""
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+
+    z = _zscored(t, t, n_local, cuda)
+    rot = _zscored(t + 1, t, b, cuda)
+    z[:, 3] = float("nan")
+    rot[:, b // 2] = float("nan")
+    sentinel = torch.full((n_local, n * b), -7.0, device=cuda)
+    kring.reset_launches()
+    got = kring.ring_mma(sentinel.clone(), z, rot, owner, n_shards=n)
+    assert kring.launches() == 1
+    want = kring.mma_update(sentinel.clone(), z, rot, owner * b)
+    torch.cuda.synchronize()
+    blk = slice(owner * b, (owner + 1) * b)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).sum()) == b + n_local - 1
+    diff = (got[:, blk] - want[:, blk]).abs()
+    assert diff[~torch.isnan(diff)].max().item() <= 1e-5
+    others = torch.ones(n * b, dtype=torch.bool, device=cuda)
+    others[blk] = False
+    assert torch.equal(got[:, others], sentinel[:, others])
+    with pytest.raises(ValueError, match="owner"):
+        kring.ring_mma(got, z, rot, n, n_shards=n)
+
+
+def test_ring_mma_writes_a_row_slab(cuda):
+    """A row slab of a wider buffer (stride n B, offset rows): the rows
+    outside the slab stay as they were."""
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+
+    z, rot = _zscored(1, 20, 64, cuda), _zscored(2, 20, 64, cuda)
+    full = torch.full((256, 256), 3.0, device=cuda)
+    kring.ring_mma(full[64:128], z, rot, 3, n_shards=4)
+    torch.cuda.synchronize()
+    want = z.T @ rot
+    assert (full[64:128, 192:] - want).abs().max().item() <= 1e-5
+    full[64:128, 192:] = 3.0
+    assert torch.all(full == 3.0)
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_summa_gram_cuda_matches_cpu(cuda, n_shards):
+    """The ring on a 1- and a 4-position mesh of the card against the
+    CPU port (uneven split, a cross Gram): n * n K5 launches."""
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    rng = np.random.RandomState(n_shards)
+    data = rng.randn(40, 203).astype(np.float32)
+    other = rng.randn(40, 203).astype(np.float32)
+    mesh = make_mesh(("voxel",), (n_shards,), devices=["cuda"] * n_shards)
+    cpu = make_mesh(("voxel",), (n_shards,), devices=["cpu"] * n_shards)
+    for b in (None, other):
+        kring.reset_launches()
+        got = distla.summa_gram(data, mesh, data_b=b)
+        assert kring.launches() == n_shards * n_shards
+        assert got.is_cuda and got.shape == (203, 203)
+        want = distla.summa_gram(data, cpu, data_b=b)
+        assert (got.cpu() - want).abs().max().item() <= 1e-5
+    with pytest.raises(ValueError, match="ring_step"):
+        distla.summa_gram(data, mesh, ring_step="nope")
+
+
+def test_isfc_mesh_cuda_matches_cpu(cuda):
+    """Leave-one-out ISFC by the ring on the card (one K5 launch per
+    subject on a one-position mesh) against the CPU port."""
+    from brainiak_tpu_torch import isc as tisc
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    rng = np.random.RandomState(9)
+    signal = rng.randn(60, 32)
+    data = np.dstack([signal + rng.randn(60, 32) for _ in range(5)])
+    data[:4, 2, 1] = np.nan
+    kring.reset_launches()
+    got = tisc.isfc(data, vectorize_isfcs=False,
+                    mesh=make_mesh(("voxel",), (-1,), devices=["cuda"]))
+    assert kring.launches() == 5
+    want = tisc.isfc(data, vectorize_isfcs=False,
+                     mesh=make_mesh(("voxel",), (2,), devices=["cpu"] * 2),
+                     device="cpu")
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    dense = tisc.isfc(data, vectorize_isfcs=False)
+    np.testing.assert_allclose(got, dense, atol=1e-5, rtol=0)

@@ -261,6 +261,13 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.ops.svm\n"
         "import brainiak_tpu_torch.ops.kernels.epoch_norm\n"
         "import brainiak_tpu_torch.image\n"
+        "import brainiak_tpu_torch.isc\n"
+        "import brainiak_tpu_torch.ops.distla\n"
+        "import brainiak_tpu_torch.ops.ring\n"
+        "import brainiak_tpu_torch.ops.kernels.ring\n"
+        "import brainiak_tpu_torch.parallel.mesh\n"
+        "import brainiak_tpu_torch.stats.pvalues\n"
+        "import brainiak_tpu_torch.utils.utils\n"
         "bad = [m for m in sys.modules if m in ('jax', 'brainiak_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib', 'brainiak_tpu.'))]\n"
         "assert not bad, bad\n"

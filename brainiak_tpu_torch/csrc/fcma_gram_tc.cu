@@ -1,0 +1,505 @@
+// K1 on its one-epoch-tile route: fused FCMA correlation + Fisher-z +
+// within-subject normalization + per-voxel Gram for NVIDIA Hopper
+// (sm_90a), with the correlation on the tensor cores in 3xTF32 and the
+// operands brought in by the TMA.
+//
+// Replaces, for E <= 32 epochs of whole subjects (one epoch tile, the
+// route of both FCMA main-path shapes), the Pallas kernel
+// brainiak_tpu/ops/pallas_kernels.py fcma_gram (_gram_kernel +
+// _normalized_corr_tile).  Longer designs take fcma_corr.cu.
+//
+// Inputs: blk [E, T, B] and data [E, T, V], float32, row-major,
+// epoch-normalized, rows 16-byte aligned (B and V multiples of 4: the
+// wrapper zero-pads, and a zero voxel has z = 0 exactly).  Output: the
+// unshrunk per-voxel Gram out[b] = sum_v zn[b, :, v] zn[b, :, v]^T,
+// [B, E, E], with zn the clamped Fisher-z of
+// r[b, e, v] = sum_t blk[e, t, b] data[e, t, v], z-scored across the
+// epochs of e's subject.  zn is never written to device memory;
+// partial Grams are summed over V splits in split order, no atomics.
+// Ragged edges as in fcma_tile.cuh: rows t >= T and voxels past B or V
+// load as 0 (the TMA's out-of-range fill), voxels past V get z = 0; no
+// value is tested for NaN.
+//
+// Precision.  Each operand x is split into hi = tf32(x) and
+// lo = tf32(x - hi) (to nearest, ties away, as cvt.rna) and the
+// product is lo*hi + hi*lo + hi*hi, accumulated in that order in fp32
+// (3xTF32): the dropped lo*lo term is about 2^-22 of each
+// product, so r keeps fp32 accuracy.  The Fisher-z is the same
+// expression as fcma_tile.cuh's (logf, IEEE division, 1e-4 floors), the
+// inverse std 1.0f / sqrtf(var).  Built without --use_fast_math.
+//
+// Bound at the whole-brain shape (E=32, T=150, B=1024, V=65536): the
+// correlation's 3 x 644.2 GFLOP on the TF32 tensor cores at 494.7
+// TFLOP/s (3.91 ms) plus the Gram's 70.9 GFLOP (its E (E + 1) / 2
+// distinct entries) in fp32 FMA at 67 TFLOP/s (1.06 ms): 4.97 ms.  The
+// operands stream from L2: a block re-reads its TB block voxels' rows
+// for every voxel tile and every block re-reads the data tile, about
+// 122 GB at that shape.
+//
+// Design.
+//   * A block of 512 threads owns TB block voxels (16 at EPT=32, 32 at
+//     EPT=16) and a range of 32-voxel tiles (the V split over
+//     blockIdx.z, as in fcma_corr.cu).  Per tile and epoch the
+//     correlation is [TB x T] . [T x 32]; a 16-row slab of one epoch
+//     is one m16 tile.  Each warp owns two (epoch, 16 block voxels)
+//     units and, per unit, four m16n8k8 n-tiles: 32 fp32 accumulators
+//     a thread.  mma.sync, not wgmma: a wgmma tile is 64 rows, which
+//     would need 64 block voxels per epoch, and the z tile of 64 x 32
+//     epochs x 32 voxels would not fit in shared memory.
+//   * T streams through a ring of kStages shared-memory stages of kKT
+//     rows.  One thread fills a stage with two TMA tensor copies,
+//     boxes [EPT, kKT, 32] of data and [EPT, kKT, TB] of blk, that
+//     complete on the stage's mbarrier; one __syncthreads per stage
+//     frees the stage for its refill.  The ring runs on across voxel
+//     tiles, so the next tile's first stages load during this tile's
+//     Fisher-z, normalization and Gram.  Per-thread cp.async copies of
+//     the same stages were measured to bind: half the bytes in as many
+//     copies took as long, and the warps that made the copies stalled
+//     instead of overlapping the loads with the products.
+//   * Stage rows are unpadded, their 16-byte chunks XOR-swizzled by the
+//     TMA's 128-byte (data, and blk at TB=32) or 64-byte (blk at
+//     TB=16) mode; the fragment rows and columns are permuted
+//     (row_voxel, col_chunk) so that the loads of a warp hit 32
+//     distinct banks, and a thread's B fragments of one row, one per
+//     n-tile, are one 16-byte load.
+//   * The Fisher-z is applied to the accumulator fragments in
+//     registers and stored into the z tile zs[b][e][v] of
+//     fcma_tile.cuh, where normalize_subjects and the Gram of
+//     accumulate_gram (GramLane's fp32 FMA micro-tile) run unchanged.
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <cstdint>
+
+#include "fcma_tile.cuh"
+
+namespace {
+
+// rows of T a stage holds and stages in the ring (measured: 8 rows
+// and 3 stages at least as fast as 16 rows or 2 and 4 stages where
+// those fit)
+constexpr int kKT = 8;
+constexpr int kStages = 3;
+
+template <int EPT, int TB>
+struct TcTile {
+  static constexpr int kMT = TB / 16;           // m16 tiles per epoch
+  static constexpr int kEW = 2 / kMT;           // epochs a warp owns
+  static_assert(EPT * kMT == 2 * (kThreads / 32), "two units a warp");
+  static constexpr int kDs = EPT * kKT * kTV;   // data floats a stage
+  static constexpr int kBs = EPT * kKT * TB;    // block floats a stage
+  static constexpr int kStage = kDs + kBs;
+  static_assert(kDs * sizeof(float) % 1024 == 0 &&
+                    kStage * sizeof(float) % 1024 == 0,
+                "stages and their boxes on 1024-byte swizzle periods");
+  // stages, the z tile, one mbarrier a stage
+  static constexpr int kSmem =
+      (kStages * kStage + TB * EPT * kZS) * (int)sizeof(float) +
+      kStages * 8;
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+// Where element (t, c) of a stage's [rows][N] box lies: 16-byte chunk
+// c / 4 of row t XOR-swizzled as the TMA writes it, 128-byte rows
+// (N = 32) with t % 8, 64-byte rows (N = 16) with t / 2 % 4.  The box
+// starts on a 1024-byte boundary and kKT % 8 == 0, so t may be the row
+// within the box's epoch.
+template <int N>
+__device__ __forceinline__ int swizzled(int t, int c) {
+  static_assert(N == 16 || N == 32, "64- or 128-byte rows");
+  const int x = N == 32 ? (t & 7) : ((t >> 1) & 3);
+  return t * N + (((c >> 2) ^ x) << 2) + (c & 3);
+}
+
+// B fragment column n (of every n-tile) reads chunk col_chunk(n) of
+// its row: the 8 lanes of a quarter warp, 2 columns x 4 rows, hit the
+// 8 chunks of a 128-byte row.  Column n of n-tile j is voxel
+// 4 col_chunk(n) + j.
+__device__ __forceinline__ int col_chunk(int n) {
+  return ((n & 1) << 2) | (n >> 1);
+}
+
+// A fragment row m (0..15) of m-tile mt is block voxel row_voxel: the
+// rows g (and g + 8) that a load reads over 4 rows of T fall on
+// distinct banks under the 64-byte (TB=16) and 128-byte (TB=32)
+// swizzles.
+template <int TB>
+__device__ __forceinline__ int row_voxel(int mt, int m) {
+  return 4 * ((m >> 3) + 2 * mt + (TB / 8) * ((m >> 2) & 1)) + (m & 3);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(phase)
+        : "memory");
+}
+
+// box (c0, t0, 0) of a 3-d tensor map into dst, completing on bar
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int t0) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(t0), "r"(0),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// fp32 -> TF32 to nearest, ties away from zero: the rounding of
+// cvt.rna.tf32.f32, bit for bit on finite values, in two integer
+// operations (half an ulp of TF32 added to the magnitude, the 13 low
+// bits cleared); measured faster than cvt.rna on the H100.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a . b, one m16n8k8 TF32 product with an fp32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One stage of kKT rows: acc[u][j] += the 3xTF32 products of the
+// warp's units.  Fragments (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4,
+// q = lane % 4: A rows g and g + 8, columns (k) q and q + 4; B rows
+// (k) q and q + 4, column g.  Rows and columns map to voxels by
+// row_voxel and col_chunk.
+template <int EPT, int TB>
+__device__ __forceinline__ void mma_stage(const float* st, int warp,
+                                          int g, int q, int E,
+                                          float (&acc)[2][4][4]) {
+  using Tl = TcTile<EPT, TB>;
+#pragma unroll
+  for (int ks = 0; ks < kKT; ks += 8) {
+    const int r0 = ks + q;
+    const int r1 = r0 + 4;
+#pragma unroll
+    for (int ew = 0; ew < Tl::kEW; ++ew) {
+      const int e = warp * Tl::kEW + ew;
+      if (e >= E) continue;  // warp-uniform
+      const float* ds = st + e * kKT * kTV;
+      const int cg = 4 * col_chunk(g);
+      const float4 x0 =
+          *reinterpret_cast<const float4*>(ds + swizzled<kTV>(r0, cg));
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(ds + swizzled<kTV>(r1, cg));
+      const float bv0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const float bv1[4] = {x1.x, x1.y, x1.z, x1.w};
+      unsigned bh0[4], bl0[4], bh1[4], bl1[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split_tf32(bv0[j], bh0[j], bl0[j]);
+        split_tf32(bv1[j], bh1[j], bl1[j]);
+      }
+      const float* bs = st + Tl::kDs + e * kKT * TB;
+#pragma unroll
+      for (int mt = 0; mt < Tl::kMT; ++mt) {
+        const int b = row_voxel<TB>(mt, g);
+        const int b8 = row_voxel<TB>(mt, g + 8);
+        const float av[4] = {bs[swizzled<TB>(r0, b)],
+                             bs[swizzled<TB>(r0, b8)],
+                             bs[swizzled<TB>(r1, b)],
+                             bs[swizzled<TB>(r1, b8)]};
+        unsigned ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
+        float(&c)[4][4] = acc[ew * Tl::kMT + mt];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(c[j], al, bh0[j], bh1[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(c[j], ah, bl0[j], bl1[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32(c[j], ah, bh0[j], bh1[j]);
+      }
+    }
+  }
+}
+
+// The clamped Fisher-z of the accumulators into zs[b][e][v] (z = 0 for
+// epochs e >= E and voxels past V), and the accumulators zeroed.
+// Accumulator i of n-tile j: row g + 8 (i / 2), column 2q + i % 2.
+template <int EPT, int TB>
+__device__ __forceinline__ void fisher_store(float (&acc)[2][4][4],
+                                             float* zs, int warp, int g,
+                                             int q, int E, int V,
+                                             int v0) {
+  using Tl = TcTile<EPT, TB>;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int e = warp * Tl::kEW + u / Tl::kMT;
+    const int mt = u % Tl::kMT;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = row_voxel<TB>(mt, g + 8 * (i >> 1));
+        const int v = 4 * col_chunk(2 * q + (i & 1)) + j;
+        float z = 0.f;
+        if (e < E && v0 + v < V) {
+          float num = 1.f + acc[u][j][i];
+          float den = 1.f - acc[u][j][i];
+          if (num <= 0.f) num = kClamp;
+          if (den <= 0.f) den = kClamp;
+          z = 0.5f * logf(num / den);
+        }
+        zs[(b * EPT + e) * kZS + v] = z;
+        acc[u][j][i] = 0.f;
+      }
+    }
+  }
+}
+
+// g += zn zn^T over the tile's 32 voxels: the micro-tile of
+// accumulate_gram (fcma_tile.cuh) on the one-tile z layout.
+template <int EPT>
+__device__ __forceinline__ void gram_tile(
+    const float* zs, const GramLane<EPT>& lane,
+    float (&gr)[4][GramLane<EPT>::GF]) {
+  constexpr int GF = GramLane<EPT>::GF;
+  const float* za = &zs[(lane.gb * EPT + lane.eq * 4) * kZS];
+  const float* zc = &zs[(lane.gb * EPT + lane.fo * GF) * kZS];
+#pragma unroll 4
+  for (int v = 0; v < kTV; ++v) {
+    float a[4];
+    float c[GF];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = za[i * kZS + v];
+#pragma unroll
+    for (int j = 0; j < GF; ++j) c[j] = zc[j * kZS + v];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < GF; ++j) gr[i][j] = fmaf(a[i], c[j], gr[i][j]);
+  }
+}
+
+// tmap_data, tmap_blk: tensor maps of data and blk (encode_map)
+template <int EPT, int TB>
+__global__ void __launch_bounds__(kThreads, 1)
+fcma_gram_tc_kernel(const __grid_constant__ CUtensorMap tmap_data,
+                    const __grid_constant__ CUtensorMap tmap_blk,
+                    float* __restrict__ partial, int E, int T, int B,
+                    int V, int eps, int tiles_per_split) {
+  using Tl = TcTile<EPT, TB>;
+  constexpr int GF = GramLane<EPT>::GF;
+  // 1024-byte aligned: the TMA's 128-byte swizzle repeats every 1024
+  extern __shared__ __align__(1024) float smem[];
+  float* stages = smem;
+  float* zs = stages + kStages * Tl::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(zs + TB * EPT * kZS);
+  const int warp = threadIdx.x / 32;
+  const int g = threadIdx.x % 32 / 4;
+  const int q = threadIdx.x % 4;
+  const int b0 = blockIdx.x * TB;
+  const int n_vtiles = (V + kTV - 1) / kTV;
+  const int t_begin = blockIdx.z * tiles_per_split;
+  const int n_tiles = max(0, min(n_vtiles, t_begin + tiles_per_split) -
+                                 t_begin);
+  const int n_chunks = (T + kKT - 1) / kKT;
+  const int total = n_tiles * n_chunks;
+
+  // chunk c of the block's run: rows (c % n_chunks) * kKT.. of voxel
+  // tile t_begin + c / n_chunks, into stage c % kStages
+  auto fetch = [&](int c) {
+    if (threadIdx.x == 0 && c < total) {
+      const int t0 = (c % n_chunks) * kKT;
+      const int v0 = (t_begin + c / n_chunks) * kTV;
+      float* st = stages + (c % kStages) * Tl::kStage;
+      uint64_t* bar = full + c % kStages;
+      mbar_expect_tx(bar, Tl::kStage * sizeof(float));
+      tma_load(st, &tmap_data, bar, v0, t0);
+      tma_load(st + Tl::kDs, &tmap_blk, bar, b0, t0);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
+    // the barriers are visible to the async proxy (the TMA)
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const GramLane<EPT> lane;
+  float gr[4][GF];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < GF; ++j) gr[i][j] = 0.f;
+  float acc[2][4][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[u][j][i] = 0.f;
+
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) fetch(c);
+  for (int c = 0; c < total; ++c) {
+    // every thread is done with chunk c - 1, whose stage the next copy
+    // refills, and with the previous tile's Gram (the z tile is free)
+    __syncthreads();
+    fetch(c + kStages - 1);
+    mbar_wait(full + c % kStages, (c / kStages) & 1);
+    mma_stage<EPT, TB>(stages + (c % kStages) * Tl::kStage, warp, g, q,
+                       E, acc);
+    if (c % n_chunks == n_chunks - 1) {
+      const int v0 = (t_begin + c / n_chunks) * kTV;
+      fisher_store<EPT, TB>(acc, zs, warp, g, q, E, V, v0);
+      __syncthreads();
+      normalize_subjects<EPT, TB>(zs, EPT, eps, E / eps, 0);
+      __syncthreads();
+      gram_tile<EPT>(zs, lane, gr);
+    }
+  }
+
+  // one partial Gram per (split, block voxel)
+  const int bg = b0 + lane.gb;
+  if (bg < B) {
+    float* dst = partial + ((size_t)blockIdx.z * B + bg) * (EPT * EPT);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < GF; ++j)
+        dst[(lane.eq * 4 + i) * EPT + lane.fo * GF + j] = gr[i][j];
+  }
+}
+
+// out[b, e, f] = the sum over splits, in split order, of the partials
+// [nsplit, B, ept, ept]
+__global__ void gram_sum_kernel(const float* __restrict__ partial,
+                                float* __restrict__ out, int E, int B,
+                                int ept, int nsplit) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)B * E * E) return;
+  const int f = (int)(idx % E);
+  const int e = (int)(idx / E % E);
+  const size_t b = idx / ((size_t)E * E);
+  const size_t per_split = (size_t)B * ept * ept;
+  const float* p = partial + (b * ept + e) * ept + f;
+  float s = 0.f;
+  for (int k = 0; k < nsplit; ++k) s += p[k * per_split];
+  out[idx] = s;
+}
+
+// A tensor map of src [E, T, ncols] (float32, rows 16-byte aligned)
+// whose box is [ept, kKT, n] with the swizzle `swizzled` reads;
+// out-of-range elements load as 0.  False if the encoding is refused.
+bool encode_map(CUtensorMap* map, const float* src, int E, int T,
+                int ncols, int n, int ept) {
+  static const PFN_cuTensorMapEncodeTiled encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
+  }();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)ncols, (cuuint64_t)T,
+                              (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)ncols * sizeof(float),
+                                 (cuuint64_t)T * ncols * sizeof(float)};
+  const cuuint32_t box[3] = {(cuuint32_t)n, (cuuint32_t)kKT,
+                             (cuuint32_t)ept};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<float*>(src), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                n == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int EPT, int TB>
+int launch(const float* blk, const float* data, float* partial,
+           float* out, int E, int T, int B, int V, int eps, int nsplit,
+           cudaStream_t s) {
+  constexpr int smem = TcTile<EPT, TB>::kSmem;
+  CUtensorMap map_data, map_blk;
+  if (!encode_map(&map_data, data, E, T, V, kTV, EPT) ||
+      !encode_map(&map_blk, blk, E, T, B, TB, EPT))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fcma_gram_tc_kernel<EPT, TB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_vtiles = (V + kTV - 1) / kTV;
+  const int per_split = (n_vtiles + nsplit - 1) / nsplit;
+  dim3 grid((B + TB - 1) / TB, 1, nsplit);
+  fcma_gram_tc_kernel<EPT, TB><<<grid, kThreads, smem, s>>>(
+      map_data, map_blk, partial, E, T, B, V, eps, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)B * E * E;
+  const int threads = 256;
+  gram_sum_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                    s>>>(partial, out, E, B, EPT, nsplit);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One epoch tile: E <= ept (32 or 16) epochs of whole subjects (E a
+// multiple of eps), rows of blk and data 16-byte aligned; partial is
+// [nsplit, B, ept, ept] scratch, out [B, E, E].
+extern "C" int fcma_gram_tc_f32(const float* blk, const float* data,
+                                float* partial, float* out, int E, int T,
+                                int B, int V, int eps, int ept,
+                                int nsplit, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (E < 1 || E > ept || eps < 1 || E % eps != 0 || nsplit < 1 ||
+      !rows_aligned(blk, B) || !rows_aligned(data, V))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  if (T == 0 || V == 0)  // every r is 0, and so is every z
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * B * E * E, s);
+  if (ept == 32)
+    return launch<32, 16>(blk, data, partial, out, E, T, B, V, eps,
+                          nsplit, s);
+  if (ept == 16)
+    return launch<16, 32>(blk, data, partial, out, E, T, B, V, eps,
+                          nsplit, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -21,11 +21,14 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/fcma_corr.cu``, ``csrc/fcma_sample_gram.cu``, on the tile of
 ``csrc/fcma_tile.cuh``; source notes there: operation-bound at the
 whole-brain shape, a voxel-tile loop inside each block, partials
-summed in a fixed order, no atomics).  The kernels compute in fp32
-FMA whatever ``precision`` says.  A subject (or sample group) may be
-longer than one epoch tile: the kernels then run a first pass for its
-z-score statistics.  On a CPU tensor the wrapper runs the plain
-version in this module (:func:`fcma_gram_plain`,
+summed in a fixed order, no atomics).  K1 on one epoch tile of whole
+subjects (:func:`gram_route` ``"tc"``, both main-path shapes) is
+``csrc/fcma_gram_tc.cu``: the correlation on the tensor cores in
+3xTF32, which keeps fp32 accuracy; every other kernel computes in
+fp32 FMA.  ``precision`` is not used by the kernels.  A subject (or
+sample group) may be longer than one epoch tile: the kernels then run
+a first pass for its z-score statistics.  On a CPU tensor the wrapper
+runs the plain version in this module (:func:`fcma_gram_plain`,
 :func:`fcma_corr_normalize_plain`, :func:`fcma_sample_gram_plain`):
 ``correlate_epochs`` then ``within_subject_normalization`` (then the
 Gram), which honors ``precision``.
@@ -42,10 +45,12 @@ from .kernels import _build
 
 __all__ = ["epoch_tiles", "fcma_corr_normalize",
            "fcma_corr_normalize_plain", "fcma_gram", "fcma_gram_plain",
-           "fcma_sample_gram", "fcma_sample_gram_plain", "launches",
-           "reset_launches"]
+           "fcma_sample_gram", "fcma_sample_gram_plain", "gram_route",
+           "launches", "reset_launches"]
 
-_launches = {"fcma_gram": 0, "fcma_corr_normalize": 0,
+# "fcma_gram" counts every K1 launch, "fcma_gram_tc" those of them that
+# took the tensor-core one-tile kernel
+_launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_corr_normalize": 0,
              "fcma_sample_gram": 0}
 
 #: threads of a kernel block; a block holds 512 // ept block voxels
@@ -140,6 +145,28 @@ def epoch_tiles(n_epochs, epochs_per_subj, ept=None):
     return ept, tile_len, -(-n_epochs // tile_len)
 
 
+def gram_route(n_epochs, epochs_per_subj, ept=None, route=None):
+    """``(route, ept, tile_len, n_tiles)`` of K1 on the card.
+
+    ``"tc"`` (``csrc/fcma_gram_tc.cu``) when the epochs form one tile
+    of whole subjects, else ``"ffma"`` (``csrc/fcma_corr.cu``), which
+    takes every tiling.  ``ept`` forces the epoch-tile capacity and
+    ``route`` the kernel, as :func:`epoch_tiles` and ``chip_smoke.py``
+    do to run both kernels on the same inputs; ``"tc"`` is refused
+    where it does not apply.
+    """
+    ept, tile_len, n_tiles = epoch_tiles(n_epochs, epochs_per_subj, ept)
+    if route is None:
+        route = "tc" if n_tiles == 1 else "ffma"
+    elif route not in ("tc", "ffma"):
+        raise ValueError(f"route must be 'tc' or 'ffma', got {route!r}")
+    elif route == "tc" and n_tiles != 1:
+        raise ValueError(
+            f"route 'tc' takes one epoch tile; {n_epochs} epochs of "
+            f"{epochs_per_subj} per subject need {n_tiles} of {ept}")
+    return route, ept, tile_len, n_tiles
+
+
 def _check_inputs(blk, data, names=("blk", "data")):
     for name, x in zip(names, (blk, data)):
         if not x.is_cuda:
@@ -176,14 +203,16 @@ def _stats(blk, data, epochs_per_subj, tile_len):
                        device=blk.device)
 
 
-_N_PTRS = {"fcma_gram_f32": 5, "fcma_corr_normalize_f32": 4,
-           "fcma_sample_gram_f32": 5}
+# (pointers, ints) before the stream of each C entry point
+_ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 7),
+         "fcma_corr_normalize_f32": (4, 9), "fcma_sample_gram_f32": (5, 9)}
 
 
 def _fn(source, name):
     fn = getattr(_build.load(source), name)
+    n_ptrs, n_ints = _ARGS[name]
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * _N_PTRS[name] + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
     return fn
 
@@ -192,32 +221,57 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _kernel_gram(blk, data, epochs_per_subj, ept=None):
-    """K1 on the card; ``ept`` forces the epoch-tile instantiation (as
-    ``chip_smoke.py`` does to time both at one shape)."""
+def _aligned_rows(x):
+    """x [E, T, n] whose rows start 16-byte aligned, as the TMA copies
+    of csrc/fcma_gram_tc.cu need: zero-padded to a multiple of 4
+    columns where they do not (a zero voxel correlates to r = 0, whose
+    Fisher-z is exactly 0)."""
+    pad = -x.shape[2] % 4
+    if pad or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x
+
+
+def _kernel_gram(blk, data, epochs_per_subj, ept=None, route=None):
+    """K1 on the card; ``ept`` and ``route`` force the epoch-tile
+    capacity and the kernel (:func:`gram_route`), as ``chip_smoke.py``
+    does to time both at one shape."""
     blk, data = _check_inputs(blk, data)
     n_e, n_t, n_b = blk.shape
-    n_v = data.shape[2]
-    ept, tile_len, n_tiles = epoch_tiles(n_e, epochs_per_subj, ept)
-    n_pairs = n_tiles * (n_tiles + 1) // 2
-    out = torch.empty((n_b, n_e, n_e), dtype=torch.float32,
-                      device=blk.device)
+    route, ept, tile_len, n_tiles = gram_route(n_e, epochs_per_subj, ept,
+                                               route)
     if n_b == 0:
-        return out
-    n_split = _n_split(blk.device, -(-n_b // (_THREADS // ept)) * n_pairs,
-                       n_v)
-    partial = torch.empty((n_split, n_pairs, n_b, ept, ept),
+        return torch.empty((0, n_e, n_e), dtype=torch.float32,
+                           device=blk.device)
+    if route == "tc":
+        blk, data = _aligned_rows(blk), _aligned_rows(data)
+    n_bk = blk.shape[2]
+    n_v = data.shape[2]
+    n_pairs = n_tiles * (n_tiles + 1) // 2
+    out = torch.empty((n_bk, n_e, n_e), dtype=torch.float32,
+                      device=blk.device)
+    n_split = _n_split(blk.device,
+                       -(-n_bk // (_THREADS // ept)) * n_pairs, n_v)
+    partial = torch.empty((n_split, n_pairs, n_bk, ept, ept),
                           dtype=torch.float32, device=blk.device)
-    stats = _stats(blk, data, epochs_per_subj, tile_len)
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     with torch.cuda.device(blk.device):
-        err = _fn("fcma_corr", "fcma_gram_f32")(
-            blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
-            _ptr(stats), out.data_ptr(), n_e, n_t, n_b, n_v,
-            epochs_per_subj, ept, tile_len, n_tiles, n_split, stream)
+        if route == "tc":
+            err = _fn("fcma_gram_tc", "fcma_gram_tc_f32")(
+                blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), n_e, n_t, n_bk, n_v, epochs_per_subj,
+                ept, n_split, stream)
+        else:
+            stats = _stats(blk, data, epochs_per_subj, tile_len)
+            err = _fn("fcma_corr", "fcma_gram_f32")(
+                blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
+                _ptr(stats), out.data_ptr(), n_e, n_t, n_bk, n_v,
+                epochs_per_subj, ept, tile_len, n_tiles, n_split, stream)
     _build.check(err, "fcma_gram")
     _launches["fcma_gram"] += 1
-    return out
+    if route == "tc":
+        _launches["fcma_gram_tc"] += 1
+    return out[:n_b]
 
 
 def _kernel_corr_normalize(blk, data, epochs_per_subj):
@@ -277,8 +331,9 @@ def fcma_gram(blk, data, epochs_per_subj, precision=None):
 
     blk : [E, T, B]; data : [E, T, V]; returns the unshrunk
     ``[B, E, E]`` float32 Gram (callers apply the digit shrink).  A
-    CUDA tensor goes to the kernel (fp32 FMA; ``precision`` is not
-    used there), a CPU tensor to :func:`fcma_gram_plain`.
+    CUDA tensor goes to the kernel of :func:`gram_route` (3xTF32 or
+    fp32 FMA, both fp32-accurate; ``precision`` is not used there), a
+    CPU tensor to :func:`fcma_gram_plain`.
     """
     if blk.is_cuda:
         return _kernel_gram(blk, data, epochs_per_subj)

@@ -17,9 +17,12 @@ first one that goes wrong:
    main paths give it (inputs from a numpy seed, TF32 off, two-region
    inputs so that no |r| is near 1):
      K2 epoch_zscore [32, 150, 65536];
-     K1 fcma_gram E=32, T=150, B=1024, V=65536 (whole brain);
-     K1 fcma_gram E=16, T=150, B=V=8192 (one mask: the 16-epoch
-        tiling, and the 32-epoch tiling forced, both checked and timed);
+     K1 fcma_gram E=32, T=150, B=1024, V=65536 (whole brain), through
+        the path's tensor-core kernel (fcma_gram_tc.cu) and, on the
+        same inputs, fcma_corr.cu's FMA kernel forced (route="ffma");
+     K1 fcma_gram E=16, T=150, B=V=8192 (one mask: both kernels at the
+        16-epoch tiling, and the tensor-core one at the 32-epoch
+        tiling forced, all checked and timed);
      K3 fcma_corr_normalize E=32, T=150, B=128, V=65536;
      K4 fcma_sample_gram N=32, T=150, 65536 x 1024 (the classifier's
         whole-brain shape) with norm_unit 4 and 0 (raw features), and
@@ -28,14 +31,17 @@ first one that goes wrong:
         128 block voxels): each subject spans two epoch tiles, so the
         statistics pass runs.
    Kernel times are CUDA-event means over repeated launches after a
-   warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and fp32
-   operations / 67 TFLOP/s for this run's shapes (the Grams counted
+   warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
+   operations over the peak rate of their type: fp32 FMA at 67
+   TFLOP/s, and for the tensor-core K1 its correlation's three TF32
+   products at 494.7 TFLOP/s plus its Gram in fp32 (the Grams counted
    as their E (E + 1) / 2 distinct entries, being symmetric).
 3. Main path, whole brain: 8 subjects x 600 TRs on a 64x64x16 volume
    (65,536 voxels), 2 conditions x 2 epochs of 150 TRs each (E=32,
    4 epochs per subject), mask1 = 1024 voxels, mask2 = the whole volume;
    ``prepare_fcma_data`` then ``VoxelSelector(..., num_folds=4)
-   .run('svm')``.  The K1 and K2 launch counts of that run must be > 0.
+   .run('svm')``.  That run must launch K2 and the tensor-core K1
+   once.
    A warm run is timed, and one more runs under ``torch.profiler`` for
    the device time by kernel and the device's busy share.  Then the
    host-CV branch, ``run(clf)`` with a precomputed-kernel classifier,
@@ -48,10 +54,11 @@ first one that goes wrong:
    stage 1 ranked first; warm fit and predict seconds, peak device
    memory, and a held-out accuracy of at least 0.75 for both.
 5. Main path, one mask: V=8192, E=16, T=150, 4 epochs per subject,
-   4 folds, through ``run('svm')``; kernel-vs-plain voxel accuracies
-   on 256 voxels.
+   4 folds, through ``run('svm')`` (the tensor-core K1 once);
+   kernel-vs-plain voxel accuracies on 256 voxels.
 6. Subjects of 40 epochs (E=80, 2048 + 512 voxels): ``run('svm')``
-   through K1, the host-CV branch through K3 and a portioned
+   through fcma_corr.cu's K1, the host-CV branch through K3 and a
+   portioned
    ``Classifier`` fit through K4, each held against its plain path.
 7. K5, the SUMMA ring step, against its plain version (``mma_update``)
    on z-scored inputs at (a) T=600, n_local=B=65536, one shard (the
@@ -86,6 +93,7 @@ import time
 import numpy as np
 
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM, TF32 tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SEED = 0
 
@@ -122,9 +130,11 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, n_tf32_flops=0):
+    """The least time for the work: bytes over the memory rate, or the
+    fp32 and TF32 operations each over its peak rate, the larger."""
     t_bytes = n_bytes / PEAK_BYTES
-    t_ops = n_flops / PEAK_FP32_FLOPS
+    t_ops = n_flops / PEAK_FP32_FLOPS + n_tf32_flops / PEAK_TF32_FLOPS
     return 1e3 * max(t_bytes, t_ops), \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -193,8 +203,11 @@ def gram_flops(n_e, n_t, n_b, n_v):
 
 def check_k1(torch, blk, data, eps, reps, alt_ept=None):
     """K1 against its plain version (blocks of 128 voxels) on blk
-    [E, T, B] and data [E, T, V]; the row of its figures.  With
-    ``alt_ept`` the other epoch tiling is checked and timed too."""
+    [E, T, B] and data [E, T, V]: the path's route and, where that is
+    the tensor-core kernel, fcma_corr.cu's FMA kernel forced on the
+    same inputs.  ``{route: row of its figures}``.  With ``alt_ept``
+    the path's route at the other epoch tiling is checked and timed
+    too."""
     from brainiak_tpu_torch.ops import fcma_kernels as fk
 
     n_e, n_t, n_b = blk.shape
@@ -213,31 +226,51 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None):
             torch.einsum('bev,bfv->bef', corr, corr)
 
     want = plain()
-    routes = [(None, lambda: fk.fcma_gram(blk, data, eps))]
+    route = fk.gram_route(n_e, eps)[0]
+    runs = [(route, None, lambda: fk.fcma_gram(blk, data, eps))]
+    if route == "tc":
+        runs.append(("ffma", None, lambda: fk._kernel_gram(
+            blk, data, eps, route="ffma")))
     if alt_ept is not None:
-        routes.append((alt_ept, lambda: fk._kernel_gram(blk, data, eps,
-                                                        ept=alt_ept)))
-    row = None
-    for ept, fn in routes:
+        runs.append((route, alt_ept, lambda: fk._kernel_gram(
+            blk, data, eps, ept=alt_ept, route=route)))
+    rows = {}
+    for name, ept, fn in runs:
         got = fn()
         rel = ((got - want).abs() / want[:, :1, :1].abs()).max().item()
         err = (got - want).abs().max().item()
-        name = "fcma_gram" + ("" if ept is None else f"[ept={ept}]")
-        log(f"K1 {name} E={n_e} T={n_t} B={n_b} V={n_v} max_abs_err "
+        label = f"fcma_gram[{name}" + ("" if ept is None else
+                                       f", ept={ept}") + "]"
+        log(f"K1 {label} E={n_e} T={n_t} B={n_b} V={n_v} max_abs_err "
             f"{err:.3e} max err/K[0,0] {rel:.3e} (rtol {K1_RTOL})")
         if not rel <= K1_RTOL:
-            fail(f"K1 ({name}) disagrees with its plain version")
+            fail(f"K1 ({label}) disagrees with its plain version")
         ms = cuda_ms(torch, fn, reps)
-        if row is None:
-            row = {"max_abs_err": err, "ms": ms}
+        if ept is None:
+            rows[name] = {"max_abs_err": err, "ms": ms}
         else:
-            log(f"  K1 at E={n_e}: ept={fk.epoch_tiles(n_e, eps)[0]} "
-                f"(the path's) {row['ms']:.3f} ms, ept={ept} {ms:.3f} ms")
-    b_ms, b_by = bound_ms(4 * (n_e * n_t * (n_b + n_v) + n_b * n_e * n_e),
-                          gram_flops(n_e, n_t, n_b, n_v))
-    row.update(plain_ms=cuda_ms(torch, plain, 1), bound_ms=b_ms,
-               bound_by=b_by, library_ms=cuda_ms(torch, library, 1))
-    return row
+            log(f"  K1 [{name}] at E={n_e}: ept="
+                f"{fk.epoch_tiles(n_e, eps)[0]} (the path's) "
+                f"{rows[name]['ms']:.3f} ms, ept={ept} {ms:.3f} ms")
+    corr = 2 * n_e * n_t * n_b * n_v
+    gram = gram_flops(n_e, n_t, n_b, n_v) - corr
+    n_bytes = 4 * (n_e * n_t * (n_b + n_v) + n_b * n_e * n_e)
+    common = dict(plain_ms=cuda_ms(torch, plain, 1),
+                  library_ms=cuda_ms(torch, library, 1))
+    for name, row in rows.items():
+        b_ms, b_by = (bound_ms(n_bytes, gram, 3 * corr) if name == "tc"
+                      else bound_ms(n_bytes, corr + gram))
+        row.update(common, bound_ms=b_ms, bound_by=b_by)
+    if "tc" in rows and "ffma" in rows:
+        fp32_ms = bound_ms(n_bytes, corr + gram)[0]
+        log(f"  K1 at E={n_e} B={n_b} V={n_v}: tensor-core "
+            f"{rows['tc']['ms']:.3f} ms (bound {rows['tc']['bound_ms']:.3f}"
+            f" ms, 3xTF32 + fp32 Gram), FMA {rows['ffma']['ms']:.3f} ms "
+            f"(fp32 bound {fp32_ms:.3f} ms), cuBLAS fp32 "
+            f"{common['library_ms']:.3f} ms; tensor-core / FMA "
+            f"{rows['tc']['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
+            f"{rows['tc']['ms'] / common['library_ms']:.3f}")
+    return rows
 
 
 def check_k3(torch, blk, data, eps, reps):
@@ -372,14 +405,15 @@ def phase_kernels(torch, dev):
     n_e, n_t, n_b, n_v, eps = 32, 150, 1024, 65536, 4
     data = normalized_epochs(torch, rng, n_e, n_t, n_v, dev)
     blk = normalized_epochs(torch, rng, n_e, n_t, n_b, dev)
-    rows["fcma_gram"] = check_k1(torch, blk, data, eps, 3)
+    k1 = check_k1(torch, blk, data, eps, 3)
+    rows["fcma_gram"], rows["fcma_gram_ffma"] = k1["tc"], k1["ffma"]
 
     # K1 at the one-mask path's shape (E=16: the 16-epoch tiling),
     # with the 32-epoch tiling forced on the same inputs for comparison
     blk16 = normalized_epochs(torch, rng, 16, n_t, 8192, dev)
     data16 = normalized_epochs(torch, rng, 16, n_t, 8192, dev)
-    rows["fcma_gram_e16"] = check_k1(torch, blk16, data16, eps, 5,
-                                     alt_ept=32)
+    k1 = check_k1(torch, blk16, data16, eps, 5, alt_ept=32)
+    rows["fcma_gram_e16"], rows["fcma_gram_ffma_e16"] = k1["tc"], k1["ffma"]
     del blk16, data16
     torch.cuda.empty_cache()
 
@@ -407,7 +441,7 @@ def phase_kernels(torch, dev):
     n_e, eps = 80, 40
     data = normalized_epochs(torch, rng, n_e, n_t, 4096, dev)
     blk = normalized_epochs(torch, rng, n_e, n_t, 512, dev)
-    rows["fcma_gram_e80"] = check_k1(torch, blk, data, eps, 3)
+    rows["fcma_gram_e80"] = check_k1(torch, blk, data, eps, 3)["ffma"]
     rows["fcma_corr_normalize_e80"] = check_k3(
         torch, blk[:, :, :128].contiguous(), data, eps, 3)
     rows["fcma_sample_gram_n80"] = check_k4(torch, data, blk, eps, 3)
@@ -515,9 +549,10 @@ def profile_run(torch, vs, label, t_warm, top=6):
         f"{sum(n for _, n, _ in kernels)} kernel launches")
     for us, n, name in kernels[:top]:
         log(f"    {us / 1e3:9.3f} ms {n:7d}x {name[:70]}")
-    k1 = [(us, n) for us, n, name in kernels if "fcma_gram_kernel" in name]
-    log("    K1 in the trace: " + (
-        f"{k1[0][0] / 1e3:.3f} ms, {k1[0][1]}x" if k1 else "not seen"))
+    for kernel in ("fcma_gram_tc_kernel", "fcma_gram_kernel"):
+        k1 = [(us, n) for us, n, name in kernels if kernel in name]
+        log(f"    K1 {kernel} in the trace: " + (
+            f"{k1[0][0] / 1e3:.3f} ms, {k1[0][1]}x" if k1 else "not seen"))
 
 
 def run_path(torch, label, images, conditions, mask1, mask2, n_folds,
@@ -693,6 +728,8 @@ def run_long_subjects(torch, rows):
         if launches[name] < 1:
             fail(f"long subjects: {name} was not launched")
         rows[row]["launches"] = launches[name]
+    if launches["fcma_gram_tc"] != 0:
+        fail("long subjects: K1 took the one-tile tensor-core kernel")
     accs = check_accuracies(results, n_v)
     check_accuracies(host, 128)
     if pred.shape != (n_e // 2,):
@@ -1008,8 +1045,14 @@ def main():
         f"/16; mean accuracy of the rest {accs[16:].mean():.3f}")
     if len(top & set(range(16))) < 12:
         fail("the planted voxels do not rank at the top")
-    for name in ("fcma_gram", "epoch_zscore"):
-        rows[name]["launches"] = launches[name]
+    if launches["fcma_gram_tc"] != 1:
+        fail(f"whole brain: run('svm') launched the tensor-core K1 "
+             f"{launches['fcma_gram_tc']} times, not once")
+    rows["fcma_gram"]["launches"] = launches["fcma_gram_tc"]
+    rows["epoch_zscore"]["launches"] = launches["epoch_zscore"]
+    # fcma_corr.cu's K1 over the FCMA paths (whole brain, one mask,
+    # long subjects): the long-subject path's launch
+    ffma_launches = launches["fcma_gram"] - launches["fcma_gram_tc"]
 
     # host-CV branch on the same data: K3 per block of 128 voxels
     raw1 = [m[:, :256] for m in vs.raw_data]
@@ -1065,10 +1108,17 @@ def main():
                                           order[16:1040])
     _, _, launches = run_path(torch, "one mask", images, conditions,
                               np.ones(shape, dtype=bool), None, 4, 256)
-    rows["fcma_gram_e16"]["launches"] = launches["fcma_gram"]
+    if launches["fcma_gram_tc"] != 1:
+        fail(f"one mask: run('svm') launched the tensor-core K1 "
+             f"{launches['fcma_gram_tc']} times, not once")
+    rows["fcma_gram_e16"]["launches"] = launches["fcma_gram_tc"]
+    ffma_launches += launches["fcma_gram"] - launches["fcma_gram_tc"]
     torch.cuda.empty_cache()
 
     run_long_subjects(torch, rows)
+    ffma_launches += rows["fcma_gram_e80"]["launches"]
+    for name in ("fcma_gram_ffma", "fcma_gram_ffma_e16"):
+        rows[name]["launches"] = ffma_launches
     torch.cuda.empty_cache()
 
     # the SUMMA ring: K5 at the paths' shapes, then paths A-C
@@ -1078,13 +1128,16 @@ def main():
 
     csrc = "brainiak_tpu_torch/csrc/"
     k1 = ("brainiak_tpu/ops/pallas_kernels.py:223", csrc + "fcma_corr.cu")
+    k1_tc = ("brainiak_tpu/ops/pallas_kernels.py:223",
+             csrc + "fcma_gram_tc.cu")
     k3 = ("brainiak_tpu/ops/pallas_kernels.py:168", csrc + "fcma_corr.cu")
     k4 = ("brainiak_tpu/ops/pallas_kernels.py:311",
           csrc + "fcma_sample_gram.cu")
     origin = {
         "epoch_zscore": ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
                          csrc + "epoch_norm.cu"),
-        "fcma_gram": k1, "fcma_gram_e16": k1, "fcma_gram_e80": k1,
+        "fcma_gram": k1_tc, "fcma_gram_e16": k1_tc,
+        "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1, "fcma_gram_e80": k1,
         "fcma_corr_normalize": k3, "fcma_corr_normalize_e80": k3,
         "fcma_sample_gram": k4, "fcma_sample_gram_n80": k4,
     }

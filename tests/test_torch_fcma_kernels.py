@@ -4,7 +4,10 @@ Pallas kernels, run in interpreter mode on the CPU.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; the CUDA
 kernels themselves are held against those plain versions on the card
-(tests/test_torch_gpu.py, chip_smoke.py).  Tolerances:
+(tests/test_torch_gpu.py, chip_smoke.py).  K1's tensor-core route
+(csrc/fcma_gram_tc.cu) forms the correlation in 3xTF32; its products
+are emulated here in plain PyTorch and held against the Pallas kernel
+too.  Tolerances:
 
 * normalized correlation: atol 1e-4 outside the (voxel-pair, subject)
   groups that hold an |r| > 0.999, where the Fisher-z derivative
@@ -25,6 +28,7 @@ from brainiak_tpu.ops.pallas_kernels import fcma_corr_normalize as jk3
 from brainiak_tpu.ops.pallas_kernels import fcma_gram as jk1
 from brainiak_tpu.ops.pallas_kernels import fcma_sample_gram as jk4
 from brainiak_tpu_torch.ops import fcma_kernels as tk
+from brainiak_tpu_torch.ops.fisherz import within_subject_normalization
 
 
 @pytest.fixture(autouse=True)
@@ -159,6 +163,148 @@ def test_epoch_tiles_refuses():
     assert tk.epoch_tiles(66, 33) == (32, 32, 3)
 
 
+@pytest.mark.parametrize("n_epochs,eps,expect", [
+    (16, 4, ("tc", 16, 16, 1)),
+    (32, 4, ("tc", 32, 32, 1)),
+    (12, 6, ("tc", 16, 12, 1)),
+    (8, 4, ("tc", 16, 16, 1)),
+    (24, 12, ("tc", 32, 24, 1)),
+    (40, 10, ("ffma", 32, 30, 2)),
+    (48, 4, ("ffma", 32, 32, 2)),
+    (80, 40, ("ffma", 32, 32, 3)),
+    (96, 48, ("ffma", 32, 32, 3)),
+    (64, 64, ("ffma", 32, 32, 2)),
+])
+def test_gram_route(n_epochs, eps, expect):
+    """One epoch tile of whole subjects takes the tensor-core kernel;
+    more tiles, or subjects longer than a tile, the FMA one."""
+    assert tk.gram_route(n_epochs, eps) == expect
+    assert tk.gram_route(n_epochs, eps)[1:] == tk.epoch_tiles(n_epochs,
+                                                              eps)
+
+
+def test_gram_route_forced():
+    assert tk.gram_route(16, 4, ept=32) == ("tc", 32, 32, 1)
+    assert tk.gram_route(32, 4, route="ffma") == ("ffma", 32, 32, 1)
+    assert tk.gram_route(12, 6, route="tc") == ("tc", 16, 12, 1)
+    with pytest.raises(ValueError, match="one epoch tile"):
+        tk.gram_route(48, 4, route="tc")
+    with pytest.raises(ValueError, match="one epoch tile"):
+        tk.gram_route(40, 10, ept=16, route="tc")
+    with pytest.raises(ValueError, match="'tc' or 'ffma'"):
+        tk.gram_route(16, 4, route="wgmma")
+
+
+def test_aligned_rows_pads_with_zero_voxels():
+    """The tensor-core route's operands: rows padded with zero voxels to
+    16-byte alignment, aligned ones passed through as they are."""
+    x = torch.arange(2 * 3 * 8, dtype=torch.float32).reshape(2, 3, 8)
+    assert tk._aligned_rows(x) is x
+    y = tk._aligned_rows(x[:, :, :5].contiguous())
+    assert y.shape == (2, 3, 8) and y.data_ptr() % 16 == 0
+    assert torch.equal(y[:, :, :5], x[:, :, :5])
+    assert not y[:, :, 5:].any()
+    store = torch.zeros(2 * 3 * 8 + 1)
+    store[1:] = x.reshape(-1)
+    shifted = store[1:].view(2, 3, 8)
+    assert shifted.data_ptr() % 16
+    z = tk._aligned_rows(shifted)
+    assert z.data_ptr() % 16 == 0 and torch.equal(z, x)
+
+
+def _tf32_rna(x):
+    """float32 -> TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds: to nearest, ties away from zero, on the int32 view (the
+    magnitude sits below the sign bit, so adding half an ulp and
+    clearing the 13 low bits rounds it away from zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _corr_3xtf32(blk, data, terms=3):
+    """r[b, e, v] as csrc/fcma_gram_tc.cu forms it: each operand split
+    into hi = tf32(x) and lo = tf32(x - hi), the product lo*hi + hi*lo
+    + hi*hi in fp32 (``terms=1``: hi*hi alone, plain TF32)."""
+    bh, dh = _tf32_rna(blk), _tf32_rna(data)
+    bl, dl = _tf32_rna(blk - bh), _tf32_rna(data - dh)
+
+    def mm(a, b):
+        return torch.einsum('etb,etv->bev', a, b)
+
+    if terms == 1:
+        return mm(bh, dh)
+    return mm(bl, dh) + mm(bh, dl) + mm(bh, dh)
+
+
+def _gram_3xtf32(blk, data, eps):
+    z = within_subject_normalization(_corr_3xtf32(blk, data), eps)
+    return torch.einsum('bev,bfv->bef', z, z)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2.01,
+                      1 + 3 * ulp / 2, 0.1, -0.0])
+    got = _tf32_rna(x).tolist()
+    assert got[:5] == [1.0, 1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp]
+    assert got[6] == 0.0
+    # 10 mantissa bits left, the nearest of the two neighbours
+    m, ex = np.frexp(got[5])
+    assert float(m * 2 ** 11) == int(m * 2 ** 11)
+    assert abs(got[5] - 0.1) <= 2.0 ** (ex - 12)
+
+
+def test_k1_3xtf32_matches_pallas_interpret_ragged():
+    """The tensor-core route's products (emulated) at a ragged
+    one-tile shape, T=150 not a multiple of the 8-row k-step: the Gram
+    within 1e-4 of each voxel's K[0, 0] of the Pallas kernel's, and r
+    within fp32 rounding of float64 (plain TF32 is not)."""
+    e, t, b, v, eps = 12, 150, 13, 70, 4
+    assert tk.gram_route(e, eps)[0] == "tc"
+    blk, data = _two_mask(6, e, t, b, v)
+    want = np.asarray(jk1(jnp.asarray(_pad(blk, 16)),
+                          jnp.asarray(_pad(data, 80)), eps, tile_b=8,
+                          tile_v=16, interpret=True))[:b]
+    got = _gram_3xtf32(_t(blk), _t(data), eps).numpy()
+    _assert_gram_close(got, want)
+    _assert_gram_close(got, tk.fcma_gram_plain(_t(blk), _t(data),
+                                               eps).numpy())
+    r64 = np.einsum('etb,etv->bev', blk.astype(np.float64),
+                    data.astype(np.float64))
+    err3 = np.abs(_corr_3xtf32(_t(blk), _t(data)).numpy() - r64).max()
+    err1 = np.abs(_corr_3xtf32(_t(blk), _t(data), 1).numpy() - r64).max()
+    assert err3 <= 1e-6 < 1e-5 <= err1
+
+
+def test_k1_3xtf32_clamp_confinement():
+    """One-mask input with self pairs (r = 1) and planted r = +-1
+    pairs: outside the poisoned subject groups the emulated
+    tensor-core route's normalized correlation agrees with the Pallas
+    kernel's."""
+    e, t, b, v, eps = 12, 20, 16, 32, 4
+    rng = np.random.RandomState(7)
+    data = rng.randn(e, t, v).astype(np.float32)
+    data[:, :, 21] = data[:, :, 5]
+    data[:, :, 27] = -data[:, :, 11]
+    norm = np.asarray(normalize_for_correlation(
+        jnp.asarray(data).transpose(0, 2, 1), 2)).transpose(0, 2, 1)
+    blk = np.ascontiguousarray(norm[:, :, :b])
+    want = np.asarray(jk3(jnp.asarray(blk), jnp.asarray(norm), eps,
+                          tile_b=8, tile_v=16, interpret=True))
+    got = within_subject_normalization(_corr_3xtf32(_t(blk), _t(norm)),
+                                       eps).numpy()
+    corr = np.einsum('etb,etv->bev', blk.astype(np.float64),
+                     norm.astype(np.float64))
+    near = (np.abs(corr) > 0.999).reshape(b, e // eps, eps, v)
+    poisoned = np.broadcast_to(near.any(axis=2, keepdims=True),
+                               near.shape).reshape(b, e, v)
+    assert poisoned[5, :, 21].all() and poisoned[11, :, 27].all()
+    assert poisoned[np.arange(b), :, np.arange(b)].all()
+    assert (~poisoned).mean() > 0.9
+    np.testing.assert_allclose(got[~poisoned], want[~poisoned],
+                               atol=1e-4)
+
+
 def _tiled_gram(blk, data, eps):
     """The kernel's epoch-tile decomposition in plain PyTorch: each
     pair of tiles (A <= C) gives the Gram's A x C block, mirrored into
@@ -207,7 +353,8 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
     tk.fcma_gram(blk, blk, 2)
     tk.fcma_corr_normalize(blk, blk, 2)
     tk.fcma_sample_gram(blk, blk, 2)
-    assert tk.launches() == {"fcma_gram": 0, "fcma_corr_normalize": 0,
+    assert tk.launches() == {"fcma_gram": 0, "fcma_gram_tc": 0,
+                             "fcma_corr_normalize": 0,
                              "fcma_sample_gram": 0}
 
 

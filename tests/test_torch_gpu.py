@@ -67,18 +67,22 @@ def test_epoch_zscore_kernel(cuda, dtype, shape):
 
 @pytest.mark.parametrize("e,t,b,v,eps", [
     (8, 40, 13, 37, 4), (16, 150, 40, 1000, 4), (32, 150, 130, 3000, 4),
-    (12, 20, 9, 70, 6), (40, 12, 10, 100, 10), (48, 9, 17, 65, 4),
+    (12, 20, 9, 70, 6), (16, 9, 21, 77, 4), (32, 12, 33, 130, 8),
+    (24, 20, 17, 45, 12), (40, 12, 10, 100, 10), (48, 9, 17, 65, 4),
     (80, 12, 10, 100, 40), (96, 9, 17, 65, 48), (64, 20, 33, 300, 64)])
 def test_fcma_kernels(cuda, e, t, b, v, eps):
-    """Two-mask inputs (no |r| near 1); ragged B and V; one and several
-    epoch tiles; subjects of more than 32 epochs, which span several
-    tiles (40 and 48 epochs per subject, and one subject of 64)."""
+    """Two-mask inputs (no |r| near 1); ragged B, V and T (9, 12, 20:
+    not whole 8-row k-steps); one epoch tile (E <= 32: K1's tensor-core
+    kernel) and several; subjects of more than 32 epochs, which span
+    several tiles (40 and 48 epochs per subject, and one subject of
+    64)."""
     d = _normalized(e + b, e, t, v + b, cuda)
     blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
     fk.reset_launches()
     gram = fk.fcma_gram(blk, data, eps)
     corr = fk.fcma_corr_normalize(blk, data, eps)
-    assert fk.launches() == {"fcma_gram": 1, "fcma_corr_normalize": 1,
+    assert fk.launches() == {"fcma_gram": 1, "fcma_gram_tc": int(e <= 32),
+                             "fcma_corr_normalize": 1,
                              "fcma_sample_gram": 0}
     want = fk.fcma_gram_plain(blk, data, eps)
     scale = want[:, :1, :1].abs()
@@ -96,18 +100,60 @@ def test_fcma_kernels_refuse_bad_inputs(cuda):
         fk.fcma_gram(x, x[:, :5], 2)
     with pytest.raises(ValueError):
         fk.fcma_corr_normalize(x, x, 3)
+    x = torch.zeros(48, 6, 8, device=cuda)
+    with pytest.raises(ValueError, match="one epoch tile"):
+        fk._kernel_gram(x, x, 4, route="tc")
 
 
 def test_fcma_gram_both_tilings_at_sixteen_epochs(cuda):
     """At E <= 16 the 16-epoch tiling runs; the 32-epoch one, forced,
-    gives the same Gram."""
+    gives the same Gram, through either kernel."""
     d = _normalized(3, 16, 150, 600, cuda)
     blk, data = d[:, :, 500:].contiguous(), d[:, :, :500].contiguous()
     want = fk.fcma_gram_plain(blk, data, 4)
     scale = want[:, :1, :1].abs()
     for ept in (16, 32):
-        got = fk._kernel_gram(blk, data, 4, ept=ept)
-        assert torch.all((got - want).abs() <= 1e-4 * scale), ept
+        for route in ("tc", "ffma"):
+            got = fk._kernel_gram(blk, data, 4, ept=ept, route=route)
+            assert torch.all((got - want).abs() <= 1e-4 * scale), \
+                (ept, route)
+
+
+@pytest.mark.parametrize("e,t,b,v,eps", [
+    (32, 150, 70, 2000, 4), (16, 20, 40, 333, 4), (12, 9, 9, 70, 6),
+    (32, 150, 1024, 4096, 4)])
+def test_fcma_gram_routes_agree(cuda, e, t, b, v, eps):
+    """K1's tensor-core kernel and fcma_corr.cu's FMA kernel on the
+    same one-tile inputs: each launched as asked, both within 1e-4 of
+    each voxel's K[0, 0] of the plain version."""
+    d = _normalized(e * t + b, e, t, v + b, cuda)
+    blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
+    want = fk.fcma_gram_plain(blk, data, eps)
+    scale = want[:, :1, :1].abs()
+    for route in ("tc", "ffma"):
+        fk.reset_launches()
+        got = fk._kernel_gram(blk, data, eps, route=route)
+        assert fk.launches()["fcma_gram"] == 1
+        assert fk.launches()["fcma_gram_tc"] == int(route == "tc")
+        assert torch.all((got - want).abs() <= 1e-4 * scale), route
+
+
+def test_fcma_gram_tc_misaligned_rows(cuda):
+    """Operands whose rows do not start 16-byte aligned (a view one
+    float into its storage) and whose widths are not multiples of 4
+    reach the tensor-core kernel zero-padded, with the plain version's
+    Gram.  Two-region inputs (no |r| near 1)."""
+    d = _normalized(11, 16, 30, 203 + 21, cuda)
+    blk = d[:, :, 203:].contiguous()
+    store = torch.empty(16 * 30 * 203 + 1, device=cuda)
+    store[1:] = d[:, :, :203].reshape(-1)
+    data = store[1:].view(16, 30, 203)
+    assert data.is_contiguous() and data.data_ptr() % 16
+    want = fk.fcma_gram_plain(blk, data, 4)
+    fk.reset_launches()
+    got = fk.fcma_gram(blk, data, 4)
+    assert fk.launches()["fcma_gram_tc"] == 1 and got.shape == (21, 16, 16)
+    assert torch.all((got - want).abs() <= 1e-4 * want[:, :1, :1].abs())
 
 
 @pytest.mark.parametrize("n,norm_unit", [

@@ -8,9 +8,10 @@
 // brainiak_tpu/ops/pallas_kernels.py fcma_gram (_gram_kernel +
 // _normalized_corr_tile).  Longer designs take fcma_corr.cu.
 //
-// Inputs: blk [E, T, B] and data [E, T, V], float32, row-major,
-// epoch-normalized, rows 16-byte aligned (B and V multiples of 4: the
-// wrapper zero-pads, and a zero voxel has z = 0 exactly).  Output: the
+// Inputs: blk [E, T, B] and data [E, T, V], float32, epoch-normalized,
+// 16-byte aligned, a row of T every ld_t floats and an epoch every ld_e
+// floats (both multiples of 4, as the TMA needs; the wrapper copies an
+// operand only where it breaks that).  Output: the
 // unshrunk per-voxel Gram out[b] = sum_v zn[b, :, v] zn[b, :, v]^T,
 // [B, E, E], with zn the clamped Fisher-z of
 // r[b, e, v] = sum_t blk[e, t, b] data[e, t, v], z-scored across the
@@ -67,12 +68,8 @@
 //     fcma_tile.cuh, where normalize_subjects and the Gram of
 //     accumulate_gram (GramLane's fp32 FMA micro-tile) run unchanged.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include <cstdint>
-
 #include "fcma_tile.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -99,103 +96,6 @@ struct TcTile {
       kStages * 8;
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
-
-// Where element (t, c) of a stage's [rows][N] box lies: 16-byte chunk
-// c / 4 of row t XOR-swizzled as the TMA writes it, 128-byte rows
-// (N = 32) with t % 8, 64-byte rows (N = 16) with t / 2 % 4.  The box
-// starts on a 1024-byte boundary and kKT % 8 == 0, so t may be the row
-// within the box's epoch.
-template <int N>
-__device__ __forceinline__ int swizzled(int t, int c) {
-  static_assert(N == 16 || N == 32, "64- or 128-byte rows");
-  const int x = N == 32 ? (t & 7) : ((t >> 1) & 3);
-  return t * N + (((c >> 2) ^ x) << 2) + (c & 3);
-}
-
-// B fragment column n (of every n-tile) reads chunk col_chunk(n) of
-// its row: the 8 lanes of a quarter warp, 2 columns x 4 rows, hit the
-// 8 chunks of a 128-byte row.  Column n of n-tile j is voxel
-// 4 col_chunk(n) + j.
-__device__ __forceinline__ int col_chunk(int n) {
-  return ((n & 1) << 2) | (n >> 1);
-}
-
-// A fragment row m (0..15) of m-tile mt is block voxel row_voxel: the
-// rows g (and g + 8) that a load reads over 4 rows of T fall on
-// distinct banks under the 64-byte (TB=16) and 128-byte (TB=32)
-// swizzles.
-template <int TB>
-__device__ __forceinline__ int row_voxel(int mt, int m) {
-  return 4 * ((m >> 3) + 2 * mt + (TB / 8) * ((m >> 2) & 1)) + (m & 3);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(phase)
-        : "memory");
-}
-
-// box (c0, t0, 0) of a 3-d tensor map into dst, completing on bar
-__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int t0) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(t0), "r"(0),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// fp32 -> TF32 to nearest, ties away from zero: the rounding of
-// cvt.rna.tf32.f32, bit for bit on finite values, in two integer
-// operations (half an ulp of TF32 added to the magnitude, the 13 low
-// bits cleared); measured faster than cvt.rna on the H100.
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// d += a . b, one m16n8k8 TF32 product with an fp32 accumulator
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // One stage of kKT rows: acc[u][j] += the 3xTF32 products of the
 // warp's units.  Fragments (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4,
@@ -420,46 +320,17 @@ __global__ void gram_sum_kernel(const float* __restrict__ partial,
   out[idx] = s;
 }
 
-// A tensor map of src [E, T, ncols] (float32, rows 16-byte aligned)
-// whose box is [ept, kKT, n] with the swizzle `swizzled` reads;
-// out-of-range elements load as 0.  False if the encoding is refused.
-bool encode_map(CUtensorMap* map, const float* src, int E, int T,
-                int ncols, int n, int ept) {
-  static const PFN_cuTensorMapEncodeTiled encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
-  }();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)ncols, (cuuint64_t)T,
-                              (cuuint64_t)E};
-  const cuuint64_t strides[2] = {(cuuint64_t)ncols * sizeof(float),
-                                 (cuuint64_t)T * ncols * sizeof(float)};
-  const cuuint32_t box[3] = {(cuuint32_t)n, (cuuint32_t)kKT,
-                             (cuuint32_t)ept};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                const_cast<float*>(src), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                n == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int EPT, int TB>
 int launch(const float* blk, const float* data, float* partial,
            float* out, int E, int T, int B, int V, int eps, int nsplit,
+           int blk_ld_t, int blk_ld_e, int data_ld_t, int data_ld_e,
            cudaStream_t s) {
   constexpr int smem = TcTile<EPT, TB>::kSmem;
   CUtensorMap map_data, map_blk;
-  if (!encode_map(&map_data, data, E, T, V, kTV, EPT) ||
-      !encode_map(&map_blk, blk, E, T, B, TB, EPT))
+  if (!encode_map(&map_data, data, E, T, V, kTV, EPT, kKT, data_ld_t,
+                  data_ld_e) ||
+      !encode_map(&map_blk, blk, E, T, B, TB, EPT, kKT, blk_ld_t,
+                  blk_ld_e))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fcma_gram_tc_kernel<EPT, TB>,
@@ -482,24 +353,30 @@ int launch(const float* blk, const float* data, float* partial,
 }  // namespace
 
 // One epoch tile: E <= ept (32 or 16) epochs of whole subjects (E a
-// multiple of eps), rows of blk and data 16-byte aligned; partial is
+// multiple of eps); blk and data 16-byte aligned with row strides ld_t
+// and epoch strides ld_e (floats, multiples of 4); partial is
 // [nsplit, B, ept, ept] scratch, out [B, E, E].
 extern "C" int fcma_gram_tc_f32(const float* blk, const float* data,
                                 float* partial, float* out, int E, int T,
                                 int B, int V, int eps, int ept,
-                                int nsplit, void* stream) {
+                                int nsplit, int blk_ld_t, int blk_ld_e,
+                                int data_ld_t, int data_ld_e,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (E < 1 || E > ept || eps < 1 || E % eps != 0 || nsplit < 1 ||
-      !rows_aligned(blk, B) || !rows_aligned(data, V))
+      !tma_operand(blk, blk_ld_t, blk_ld_e) ||
+      !tma_operand(data, data_ld_t, data_ld_e))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   if (T == 0 || V == 0)  // every r is 0, and so is every z
     return (int)cudaMemsetAsync(out, 0, sizeof(float) * B * E * E, s);
   if (ept == 32)
     return launch<32, 16>(blk, data, partial, out, E, T, B, V, eps,
-                          nsplit, s);
+                          nsplit, blk_ld_t, blk_ld_e, data_ld_t,
+                          data_ld_e, s);
   if (ept == 16)
     return launch<16, 32>(blk, data, partial, out, E, T, B, V, eps,
-                          nsplit, s);
+                          nsplit, blk_ld_t, blk_ld_e, data_ld_t,
+                          data_ld_e, s);
   return (int)cudaErrorInvalidValue;
 }

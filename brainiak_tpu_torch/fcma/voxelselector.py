@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..device import matmul_precision, resolve_device, resolve_precision
-from ..ops.fcma_kernels import fcma_corr_normalize, fcma_gram
+from ..ops.fcma_kernels import corr_layout, fcma_corr_normalize, fcma_gram
 from ..ops.svm import stratified_kfold, svm_cv_accuracy
 
 logger = logging.getLogger(__name__)
@@ -120,9 +120,12 @@ class VoxelSelector:
 
     def _stack(self):
         """[E, T, V] float32 tensors of raw_data (and raw_data2) on the
-        device, cached across run() calls.  The cache is keyed on the
-        input objects (the lists and their arrays); mutating an array
-        in place is not detected."""
+        device, cached across run() calls.  They are laid out as K3's
+        route for these subjects reads them in place
+        (:func:`~brainiak_tpu_torch.ops.fcma_kernels.corr_layout`), so
+        no block of ``run(clf)`` copies data2.  The cache is keyed on
+        the input objects (the lists and their arrays); mutating an
+        array in place is not detected."""
         key = (self.raw_data, self.raw_data2) + tuple(self.raw_data) + (
             tuple(self.raw_data2) if self.raw_data2 is not None else ())
         cached = getattr(self, "_stack_cache", None)
@@ -131,9 +134,12 @@ class VoxelSelector:
             return cached[1]
 
         def stack(arrays):
-            return torch.from_numpy(np.stack(
-                [np.asarray(a, dtype=np.float32) for a in arrays])).to(
-                    self.device)
+            host = torch.from_numpy(np.stack(
+                [np.asarray(a, dtype=np.float32) for a in arrays]))
+            out = corr_layout(host.shape, self.epochs_per_subj,
+                              self.device)
+            out.copy_(host)
+            return out
 
         data1 = stack(self.raw_data)
         data2 = stack(self.raw_data2) if self.raw_data2 is not None \

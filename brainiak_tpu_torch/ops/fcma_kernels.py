@@ -21,11 +21,13 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/fcma_corr.cu``, ``csrc/fcma_sample_gram.cu``, on the tile of
 ``csrc/fcma_tile.cuh``; source notes there: operation-bound at the
 whole-brain shape, a voxel-tile loop inside each block, partials
-summed in a fixed order, no atomics).  K1 on one epoch tile of whole
-subjects (:func:`gram_route` ``"tc"``, both main-path shapes) is
-``csrc/fcma_gram_tc.cu``: the correlation on the tensor cores in
-3xTF32, which keeps fp32 accuracy; every other kernel computes in
-fp32 FMA.  ``precision`` is not used by the kernels.  A subject (or
+summed in a fixed order, no atomics).  The main-path routes of K1 and
+K3 run on the tensor cores in 3xTF32, which keeps fp32 accuracy, with
+operands brought in by the TMA: K1 on one epoch tile of whole subjects
+(:func:`gram_route` ``"tc"``) is ``csrc/fcma_gram_tc.cu``, K3 on
+subjects of at most 4 epochs (:func:`corr_route` ``"tc"``) is
+``csrc/fcma_corr_tc.cu``.  Every other route computes in fp32 FMA.
+``precision`` is not used by the kernels.  A subject (or
 sample group) may be longer than one epoch tile: the kernels then run
 a first pass for its z-score statistics.  On a CPU tensor the wrapper
 runs the plain version in this module (:func:`fcma_gram_plain`,
@@ -43,15 +45,17 @@ from .correlation import correlate_epochs
 from .fisherz import within_subject_normalization
 from .kernels import _build
 
-__all__ = ["epoch_tiles", "fcma_corr_normalize",
+__all__ = ["aligned_rows_layout", "corr_layout", "corr_route",
+           "epoch_tiles",
+           "fcma_corr_normalize",
            "fcma_corr_normalize_plain", "fcma_gram", "fcma_gram_plain",
            "fcma_sample_gram", "fcma_sample_gram_plain", "gram_route",
            "launches", "reset_launches"]
 
 # "fcma_gram" counts every K1 launch, "fcma_gram_tc" those of them that
-# took the tensor-core one-tile kernel
+# took the tensor-core one-tile kernel; the same for K3
 _launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_corr_normalize": 0,
-             "fcma_sample_gram": 0}
+             "fcma_corr_normalize_tc": 0, "fcma_sample_gram": 0}
 
 #: threads of a kernel block; a block holds 512 // ept block voxels
 _THREADS = 512
@@ -60,6 +64,9 @@ _WAVES = 16
 _TV = 32
 #: voxels of x1 per block of the plain sample Gram
 _PLAIN_BLOCK = 128
+#: most epochs per subject of K3's tensor-core route (a thread holds a
+#: subject's epochs of one correlation in registers)
+_TC_MAX_EPS = 4
 
 
 def launches():
@@ -167,7 +174,26 @@ def gram_route(n_epochs, epochs_per_subj, ept=None, route=None):
     return route, ept, tile_len, n_tiles
 
 
-def _check_inputs(blk, data, names=("blk", "data")):
+def corr_route(n_epochs, epochs_per_subj, route=None):
+    """K3's kernel on the card: ``"tc"`` (``csrc/fcma_corr_tc.cu``)
+    when a subject has at most 4 epochs, whatever ``n_epochs``, else
+    ``"ffma"`` (``csrc/fcma_corr.cu``).  ``route`` forces one, as
+    ``chip_smoke.py`` does to run both on the same inputs; ``"tc"`` is
+    refused where it does not apply."""
+    epoch_tiles(n_epochs, epochs_per_subj)
+    fits = epochs_per_subj <= _TC_MAX_EPS
+    if route is None:
+        return "tc" if fits else "ffma"
+    if route not in ("tc", "ffma"):
+        raise ValueError(f"route must be 'tc' or 'ffma', got {route!r}")
+    if route == "tc" and not fits:
+        raise ValueError(
+            f"route 'tc' takes subjects of at most {_TC_MAX_EPS} epochs, "
+            f"got {epochs_per_subj}")
+    return route
+
+
+def _check_inputs(blk, data, names=("blk", "data"), contiguous=True):
     for name, x in zip(names, (blk, data)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -182,6 +208,8 @@ def _check_inputs(blk, data, names=("blk", "data")):
     if blk.shape[:2] != data.shape[:2]:
         raise ValueError(f"{names[0]} {tuple(blk.shape)} and {names[1]} "
                          f"{tuple(data.shape)} differ in [E, T]")
+    if not contiguous:
+        return blk, data
     return blk.contiguous(), data.contiguous()
 
 
@@ -204,8 +232,10 @@ def _stats(blk, data, epochs_per_subj, tile_len):
 
 
 # (pointers, ints) before the stream of each C entry point
-_ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 7),
-         "fcma_corr_normalize_f32": (4, 9), "fcma_sample_gram_f32": (5, 9)}
+_ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 11),
+         "fcma_corr_normalize_f32": (4, 9),
+         "fcma_corr_normalize_tc_f32": (3, 9),
+         "fcma_sample_gram_f32": (5, 9)}
 
 
 def _fn(source, name):
@@ -221,79 +251,125 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _aligned_rows(x):
-    """x [E, T, n] whose rows start 16-byte aligned, as the TMA copies
-    of csrc/fcma_gram_tc.cu need: zero-padded to a multiple of 4
-    columns where they do not (a zero voxel correlates to r = 0, whose
-    Fisher-z is exactly 0)."""
-    pad = -x.shape[2] % 4
-    if pad or x.data_ptr() % 16:
-        x = torch.nn.functional.pad(x, (0, pad))
-    return x
+def _tma_operand(x):
+    """x [E, T, n] as the TMA copies of the tensor-core kernels
+    (csrc/fcma_gram_tc.cu, csrc/fcma_corr_tc.cu) read it: 16-byte aligned,
+    unit column stride, row and epoch strides multiples of 4 floats.
+    Returned as it is where it already is (a column slice of an aligned
+    wider tensor, as :func:`aligned_rows_layout` lays it out), else
+    copied once into that layout; the width stays n."""
+    if x.stride(2) == 1 and x.stride(1) % 4 == 0 and \
+            x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0 and \
+            min(x.stride(0), x.stride(1)) > 0:
+        return x
+    out = aligned_rows_layout(x.shape, x.device)
+    out.copy_(x)
+    return out
+
+
+def _corr_operand(x, route):
+    """x [E, T, n] as K3's kernel of ``route`` reads it: in place where
+    it already has that kernel's layout (:func:`corr_layout`), else
+    copied once."""
+    return _tma_operand(x) if route == "tc" else x.contiguous()
+
+
+def aligned_rows_layout(shape, device):
+    """An empty float32 ``[E, T, n]`` whose rows are 16-byte aligned:
+    the columns of a zero-initialized ``[E, T, n + (-n % 4)]``, so that
+    the tensor-core kernels read it without a copy."""
+    n_e, n_t, n = shape
+    wide = torch.zeros((n_e, n_t, n + -n % 4), dtype=torch.float32,
+                       device=device)
+    return wide[:, :, :n]
+
+
+def corr_layout(shape, epochs_per_subj, device):
+    """An empty float32 ``[E, T, n]`` that K3's route for subjects of
+    ``epochs_per_subj`` epochs (:func:`corr_route`) reads in place:
+    :func:`aligned_rows_layout` for the tensor-core kernel, contiguous
+    for the FMA kernel."""
+    if epochs_per_subj <= _TC_MAX_EPS:
+        return aligned_rows_layout(shape, device)
+    return torch.empty(tuple(shape), dtype=torch.float32, device=device)
 
 
 def _kernel_gram(blk, data, epochs_per_subj, ept=None, route=None):
     """K1 on the card; ``ept`` and ``route`` force the epoch-tile
     capacity and the kernel (:func:`gram_route`), as ``chip_smoke.py``
     does to time both at one shape."""
-    blk, data = _check_inputs(blk, data)
+    blk, data = _check_inputs(blk, data, contiguous=False)
     n_e, n_t, n_b = blk.shape
     route, ept, tile_len, n_tiles = gram_route(n_e, epochs_per_subj, ept,
                                                route)
+    out = torch.empty((n_b, n_e, n_e), dtype=torch.float32,
+                      device=blk.device)
     if n_b == 0:
-        return torch.empty((0, n_e, n_e), dtype=torch.float32,
-                           device=blk.device)
+        return out
     if route == "tc":
-        blk, data = _aligned_rows(blk), _aligned_rows(data)
-    n_bk = blk.shape[2]
+        blk, data = _tma_operand(blk), _tma_operand(data)
+    else:
+        blk, data = blk.contiguous(), data.contiguous()
     n_v = data.shape[2]
     n_pairs = n_tiles * (n_tiles + 1) // 2
-    out = torch.empty((n_bk, n_e, n_e), dtype=torch.float32,
-                      device=blk.device)
     n_split = _n_split(blk.device,
-                       -(-n_bk // (_THREADS // ept)) * n_pairs, n_v)
-    partial = torch.empty((n_split, n_pairs, n_bk, ept, ept),
+                       -(-n_b // (_THREADS // ept)) * n_pairs, n_v)
+    partial = torch.empty((n_split, n_pairs, n_b, ept, ept),
                           dtype=torch.float32, device=blk.device)
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     with torch.cuda.device(blk.device):
         if route == "tc":
             err = _fn("fcma_gram_tc", "fcma_gram_tc_f32")(
                 blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), n_e, n_t, n_bk, n_v, epochs_per_subj,
-                ept, n_split, stream)
+                out.data_ptr(), n_e, n_t, n_b, n_v, epochs_per_subj,
+                ept, n_split, blk.stride(1), blk.stride(0),
+                data.stride(1), data.stride(0), stream)
         else:
             stats = _stats(blk, data, epochs_per_subj, tile_len)
             err = _fn("fcma_corr", "fcma_gram_f32")(
                 blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
-                _ptr(stats), out.data_ptr(), n_e, n_t, n_bk, n_v,
+                _ptr(stats), out.data_ptr(), n_e, n_t, n_b, n_v,
                 epochs_per_subj, ept, tile_len, n_tiles, n_split, stream)
     _build.check(err, "fcma_gram")
     _launches["fcma_gram"] += 1
     if route == "tc":
         _launches["fcma_gram_tc"] += 1
-    return out[:n_b]
+    return out
 
 
-def _kernel_corr_normalize(blk, data, epochs_per_subj):
-    blk, data = _check_inputs(blk, data)
+def _kernel_corr_normalize(blk, data, epochs_per_subj, route=None):
+    """K3 on the card; ``route`` forces the kernel (:func:`corr_route`),
+    as ``chip_smoke.py`` does to time both at one shape."""
+    blk, data = _check_inputs(blk, data, contiguous=False)
     n_e, n_t, n_b = blk.shape
     n_v = data.shape[2]
-    ept, tile_len, n_tiles = epoch_tiles(n_e, epochs_per_subj)
+    route = corr_route(n_e, epochs_per_subj, route)
     out = torch.empty((n_b, n_e, n_v), dtype=torch.float32,
                       device=blk.device)
     if n_b == 0 or n_v == 0:
         return out
-    n_split = _n_split(blk.device, -(-n_b // (_THREADS // ept)) * n_tiles,
-                       n_v)
-    stats = _stats(blk, data, epochs_per_subj, tile_len)
     stream = torch.cuda.current_stream(blk.device).cuda_stream
-    with torch.cuda.device(blk.device):
-        err = _fn("fcma_corr", "fcma_corr_normalize_f32")(
-            blk.data_ptr(), data.data_ptr(), _ptr(stats), out.data_ptr(),
-            n_e, n_t, n_b, n_v, epochs_per_subj, ept, tile_len, n_tiles,
-            n_split, stream)
+    blk, data = _corr_operand(blk, route), _corr_operand(data, route)
+    if route == "tc":
+        with torch.cuda.device(blk.device):
+            err = _fn("fcma_corr_tc", "fcma_corr_normalize_tc_f32")(
+                blk.data_ptr(), data.data_ptr(), out.data_ptr(), n_e, n_t,
+                n_b, n_v, epochs_per_subj, blk.stride(1), blk.stride(0),
+                data.stride(1), data.stride(0), stream)
+    else:
+        ept, tile_len, n_tiles = epoch_tiles(n_e, epochs_per_subj)
+        n_split = _n_split(blk.device,
+                           -(-n_b // (_THREADS // ept)) * n_tiles, n_v)
+        stats = _stats(blk, data, epochs_per_subj, tile_len)
+        with torch.cuda.device(blk.device):
+            err = _fn("fcma_corr", "fcma_corr_normalize_f32")(
+                blk.data_ptr(), data.data_ptr(), _ptr(stats),
+                out.data_ptr(), n_e, n_t, n_b, n_v, epochs_per_subj, ept,
+                tile_len, n_tiles, n_split, stream)
     _build.check(err, "fcma_corr_normalize")
     _launches["fcma_corr_normalize"] += 1
+    if route == "tc":
+        _launches["fcma_corr_normalize_tc"] += 1
     return out
 
 
@@ -344,8 +420,12 @@ def fcma_corr_normalize(blk, data, epochs_per_subj, precision=None):
     """K3: fused correlation + within-subject normalization.
 
     blk : [E, T, B]; data : [E, T, V]; returns ``[B, E, V]`` float32.
-    A CUDA tensor goes to the kernel (fp32 FMA; ``precision`` is not
-    used there), a CPU tensor to :func:`fcma_corr_normalize_plain`.
+    A CUDA tensor goes to the kernel of :func:`corr_route` (3xTF32 on
+    the tensor cores for subjects of at most 4 epochs, else fp32 FMA;
+    both fp32-accurate, ``precision`` is not used there), a CPU tensor
+    to :func:`fcma_corr_normalize_plain`.  The kernel reads ``data``
+    in place when it has that route's layout (:func:`corr_layout`),
+    else from one copy a call.
     """
     if blk.is_cuda:
         return _kernel_corr_normalize(blk, data, epochs_per_subj)

@@ -23,7 +23,9 @@ first one that goes wrong:
      K1 fcma_gram E=16, T=150, B=V=8192 (one mask: both kernels at the
         16-epoch tiling, and the tensor-core one at the 32-epoch
         tiling forced, all checked and timed);
-     K3 fcma_corr_normalize E=32, T=150, B=128, V=65536;
+     K3 fcma_corr_normalize E=32, T=150, B=128 and 256, V=65536,
+        through the path's tensor-core kernel (fcma_corr_tc.cu) and, on
+        the same inputs, fcma_corr.cu's FMA kernel forced;
      K4 fcma_sample_gram N=32, T=150, 65536 x 1024 (the classifier's
         whole-brain shape) with norm_unit 4 and 0 (raw features), and
         N=96, 8192 x 1024, norm_unit 12 (four sample tiles);
@@ -33,9 +35,10 @@ first one that goes wrong:
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
    operations over the peak rate of their type: fp32 FMA at 67
-   TFLOP/s, and for the tensor-core K1 its correlation's three TF32
-   products at 494.7 TFLOP/s plus its Gram in fp32 (the Grams counted
-   as their E (E + 1) / 2 distinct entries, being symmetric).
+   TFLOP/s, and for the tensor-core K1 and K3 their correlation's
+   three TF32 products at 494.7 TFLOP/s (plus K1's Gram in fp32; the
+   Grams counted as their E (E + 1) / 2 distinct entries, being
+   symmetric).
 3. Main path, whole brain: 8 subjects x 600 TRs on a 64x64x16 volume
    (65,536 voxels), 2 conditions x 2 epochs of 150 TRs each (E=32,
    4 epochs per subject), mask1 = 1024 voxels, mask2 = the whole volume;
@@ -45,7 +48,8 @@ first one that goes wrong:
    A warm run is timed, and one more runs under ``torch.profiler`` for
    the device time by kernel and the device's busy share.  Then the
    host-CV branch, ``run(clf)`` with a precomputed-kernel classifier,
-   which goes through K3 per block of voxels.
+   which goes through K3 per block of voxels (``voxel_unit`` 128 and
+   the default 256): every K3 launch must take the tensor-core kernel.
 4. Stage 2 on the same data, trained on the first 6 subjects' 24
    epochs and tested on the last 2 subjects' 8: a portioned
    ``Classifier`` fit through K4 over mask1 x the whole volume (its
@@ -273,45 +277,75 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None):
     return rows
 
 
-def check_k3(torch, blk, data, eps, reps):
-    """K3 against its plain version; the row of its figures.  The
-    difference is held in Fisher-z units: times the std of each
-    subject group's Fisher-z values."""
-    from brainiak_tpu_torch.ops import fcma_kernels as fk
+def k3_zerr(torch, got, want, blk, data, eps):
+    """Largest |got - want|, and largest times the std of each subject
+    group's Fisher-z values (the K3 rule), over [B, E, V]."""
     from brainiak_tpu_torch.ops.correlation import correlate_epochs
     from brainiak_tpu_torch.ops.fisherz import fisher_z
 
-    n_e, n_t, n_b = blk.shape
-    n_v = data.shape[2]
-    got = fk.fcma_corr_normalize(blk, data, eps)
-    want = fk.fcma_corr_normalize_plain(blk, data, eps)
+    n_b, n_e, n_v = got.shape
     z = fisher_z(correlate_epochs(blk.transpose(1, 2),
                                   data.transpose(1, 2)))
     zr = z.reshape(n_b, n_e // eps, eps, n_v)
     var = (zr * zr).mean(dim=2, keepdim=True) - \
         zr.mean(dim=2, keepdim=True) ** 2
-    sigma = var.clamp(min=0).sqrt().expand_as(zr).reshape(z.shape)
+    del z
+    sigma = var.clamp(min=0).sqrt().expand_as(zr).reshape(got.shape)
     diff = (got - want).abs()
-    err = diff.max().item()
-    zerr = (diff * sigma).max().item()
-    log(f"K3 fcma_corr_normalize E={n_e} eps={eps} T={n_t} B={n_b} "
-        f"V={n_v} max_abs_err {err:.3e} max err*sigma {zerr:.3e} "
-        f"(tol {K3_ZTOL}); share of |err| > 1e-4: "
-        f"{(diff > 1e-4).float().mean().item():.2e}")
-    if not zerr <= K3_ZTOL:
-        fail(f"K3 (E={n_e}, eps={eps}) disagrees with its plain version")
-    del z, zr, var, sigma, diff, got, want
-    b_ms, b_by = bound_ms(4 * (n_e * n_t * (n_b + n_v) + n_b * n_e * n_v),
-                          2 * n_e * n_t * n_b * n_v)
-    return {
-        "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: fk.fcma_corr_normalize(blk, data,
-                                                            eps), reps),
-        "plain_ms": cuda_ms(torch, lambda: fk.fcma_corr_normalize_plain(
+    return diff.max().item(), (diff * sigma).max().item(), \
+        (diff > 1e-4).float().mean().item()
+
+
+def check_k3(torch, blk, data, eps, reps):
+    """K3 against its plain version: the path's route and, where that
+    is the tensor-core kernel, fcma_corr.cu's FMA kernel forced on the
+    same inputs.  ``{route: row of its figures}``.  The difference is
+    held in Fisher-z units: times the std of each subject group's
+    Fisher-z values."""
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
+
+    n_e, n_t, n_b = blk.shape
+    n_v = data.shape[2]
+    want = fk.fcma_corr_normalize_plain(blk, data, eps)
+    route = fk.corr_route(n_e, eps)
+    routes = [route] + (["ffma"] if route == "tc" else [])
+    rows = {}
+    for name in routes:
+        got = fk._kernel_corr_normalize(blk, data, eps, route=name)
+        err, zerr, share = k3_zerr(torch, got, want, blk, data, eps)
+        del got
+        log(f"K3 fcma_corr_normalize[{name}] E={n_e} eps={eps} T={n_t} "
+            f"B={n_b} V={n_v} max_abs_err {err:.3e} max err*sigma "
+            f"{zerr:.3e} (tol {K3_ZTOL}); share of |err| > 1e-4: "
+            f"{share:.2e}")
+        if not zerr <= K3_ZTOL:
+            fail(f"K3 ({name}, E={n_e}, eps={eps}, B={n_b}) disagrees "
+                 "with its plain version")
+        rows[name] = {"max_abs_err": err, "ms": cuda_ms(
+            torch, lambda: fk._kernel_corr_normalize(blk, data, eps,
+                                                     route=name), reps)}
+    del want
+    torch.cuda.empty_cache()
+    corr = 2 * n_e * n_t * n_b * n_v
+    n_bytes = 4 * (n_e * n_t * (n_b + n_v) + n_b * n_e * n_v)
+    common = dict(
+        plain_ms=cuda_ms(torch, lambda: fk.fcma_corr_normalize_plain(
             blk, data, eps), 2),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(torch, lambda: torch.einsum(
-            'etb,etv->bev', blk, data), reps)}
+        library_ms=cuda_ms(torch, lambda: torch.einsum(
+            'etb,etv->bev', blk, data), reps))
+    for name, row in rows.items():
+        b_ms, b_by = (bound_ms(n_bytes, 0, 3 * corr) if name == "tc"
+                      else bound_ms(n_bytes, corr))
+        row.update(common, bound_ms=b_ms, bound_by=b_by)
+    if "tc" in rows and "ffma" in rows:
+        log(f"  K3 at E={n_e} B={n_b} V={n_v}: tensor-core "
+            f"{rows['tc']['ms']:.3f} ms (bound {rows['tc']['bound_ms']:.3f}"
+            f" ms, {rows['tc']['bound_by']}), FMA {rows['ffma']['ms']:.3f} "
+            f"ms (bound {rows['ffma']['bound_ms']:.3f} ms), cuBLAS fp32 "
+            f"{common['library_ms']:.3f} ms; tensor-core / FMA "
+            f"{rows['tc']['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
+            f"{rows['tc']['ms'] / common['library_ms']:.3f}")
+    return rows
 
 
 def k4_errors(got, want, k00, cross):
@@ -417,9 +451,13 @@ def phase_kernels(torch, dev):
     del blk16, data16
     torch.cuda.empty_cache()
 
-    # K3 at the host-CV branch's block shape
-    blk = blk[:, :, :128].contiguous()
-    rows["fcma_corr_normalize"] = check_k3(torch, blk, data, eps, 5)
+    # K3 at the host-CV branch's block shapes: B=128 (the path's
+    # voxel_unit below) with both kernels, and the default voxel_unit
+    k3 = check_k3(torch, blk[:, :, :128].contiguous(), data, eps, 5)
+    rows["fcma_corr_normalize"] = k3["tc"]
+    rows["fcma_corr_normalize_ffma"] = k3["ffma"]
+    rows["fcma_corr_normalize_b256"] = check_k3(
+        torch, blk[:, :, :256].contiguous(), data, eps, 5)["tc"]
     del blk, data
     torch.cuda.empty_cache()
 
@@ -443,7 +481,7 @@ def phase_kernels(torch, dev):
     blk = normalized_epochs(torch, rng, n_e, n_t, 512, dev)
     rows["fcma_gram_e80"] = check_k1(torch, blk, data, eps, 3)["ffma"]
     rows["fcma_corr_normalize_e80"] = check_k3(
-        torch, blk[:, :, :128].contiguous(), data, eps, 3)
+        torch, blk[:, :, :128].contiguous(), data, eps, 3)["ffma"]
     rows["fcma_sample_gram_n80"] = check_k4(torch, data, blk, eps, 3)
     del blk, data
     torch.cuda.empty_cache()
@@ -730,6 +768,8 @@ def run_long_subjects(torch, rows):
         rows[row]["launches"] = launches[name]
     if launches["fcma_gram_tc"] != 0:
         fail("long subjects: K1 took the one-tile tensor-core kernel")
+    if launches["fcma_corr_normalize_tc"] != 0:
+        fail("long subjects: K3 took the tensor-core kernel")
     accs = check_accuracies(results, n_v)
     check_accuracies(host, 128)
     if pred.shape != (n_e // 2,):
@@ -1054,23 +1094,39 @@ def main():
     # long subjects): the long-subject path's launch
     ffma_launches = launches["fcma_gram"] - launches["fcma_gram_tc"]
 
-    # host-CV branch on the same data: K3 per block of 128 voxels
+    # host-CV branch on the same data: K3 per block of 128 voxels, then
+    # per block of the default voxel_unit (256); every launch must take
+    # the tensor-core kernel, and the accuracies must not depend on the
+    # block beyond what the Gram's batch may round
     raw1 = [m[:, :256] for m in vs.raw_data]
-    hvs = VoxelSelector(vs.labels, 4, 4, raw1, raw_data2=vs.raw_data2,
-                        voxel_unit=128)
-    hvs._stack()
-    fk.reset_launches()
-    t0 = time.perf_counter()
-    host = hvs.run(_KernelNearestMean())
-    t_host = time.perf_counter() - t0
-    rows["fcma_corr_normalize"]["launches"] = \
-        fk.launches()["fcma_corr_normalize"]
-    check_accuracies(host, 256)
-    log(f"host-CV branch: 256 voxels in {t_host:.2f} s, K3 launches "
-        f"{rows['fcma_corr_normalize']['launches']}")
-    if rows["fcma_corr_normalize"]["launches"] < 1:
-        fail("the host-CV branch did not run K3")
-    del hvs, images
+    host = {}
+    for unit, row in ((128, "fcma_corr_normalize"),
+                      (256, "fcma_corr_normalize_b256")):
+        hvs = VoxelSelector(vs.labels, 4, 4, raw1, raw_data2=vs.raw_data2,
+                            voxel_unit=unit)
+        hvs._stack()
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        host[unit] = hvs.run(_KernelNearestMean())
+        t_host = time.perf_counter() - t0
+        k3 = fk.launches()
+        rows[row]["launches"] = k3["fcma_corr_normalize_tc"]
+        log(f"host-CV branch, voxel_unit={unit}: 256 voxels in "
+            f"{t_host:.2f} s, K3 launches {k3['fcma_corr_normalize']}, "
+            f"{k3['fcma_corr_normalize_tc']} of them tensor-core")
+        if k3["fcma_corr_normalize"] < 1 or \
+                k3["fcma_corr_normalize_tc"] != k3["fcma_corr_normalize"]:
+            fail("the host-CV branch did not run K3 on the tensor-core "
+                 "kernel alone")
+        del hvs
+    a128, a256 = (check_accuracies(host[u], 256) for u in (128, 256))
+    same = float(np.mean(a128 == a256))
+    log(f"  host-CV accuracies at voxel_unit 128 and 256 equal on {same:.4f}"
+        f" of 256 voxels, max diff {np.max(np.abs(a128 - a256)):.4f}")
+    if same < ACC_AGREE or \
+            np.max(np.abs(a128 - a256)) > 4 / len(vs.labels) + 1e-6:
+        fail("the host-CV accuracies depend on voxel_unit")
+    del images
     torch.cuda.empty_cache()
 
     # stage 2 on the whole-brain data: (i) portioned, through K4, on
@@ -1119,6 +1175,9 @@ def main():
     ffma_launches += rows["fcma_gram_e80"]["launches"]
     for name in ("fcma_gram_ffma", "fcma_gram_ffma_e16"):
         rows[name]["launches"] = ffma_launches
+    # fcma_corr.cu's K3 over the paths: the long-subject host-CV branch
+    rows["fcma_corr_normalize_ffma"]["launches"] = \
+        rows["fcma_corr_normalize_e80"]["launches"]
     torch.cuda.empty_cache()
 
     # the SUMMA ring: K5 at the paths' shapes, then paths A-C
@@ -1131,6 +1190,8 @@ def main():
     k1_tc = ("brainiak_tpu/ops/pallas_kernels.py:223",
              csrc + "fcma_gram_tc.cu")
     k3 = ("brainiak_tpu/ops/pallas_kernels.py:168", csrc + "fcma_corr.cu")
+    k3_tc = ("brainiak_tpu/ops/pallas_kernels.py:168",
+             csrc + "fcma_corr_tc.cu")
     k4 = ("brainiak_tpu/ops/pallas_kernels.py:311",
           csrc + "fcma_sample_gram.cu")
     origin = {
@@ -1138,7 +1199,8 @@ def main():
                          csrc + "epoch_norm.cu"),
         "fcma_gram": k1_tc, "fcma_gram_e16": k1_tc,
         "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1, "fcma_gram_e80": k1,
-        "fcma_corr_normalize": k3, "fcma_corr_normalize_e80": k3,
+        "fcma_corr_normalize": k3_tc, "fcma_corr_normalize_b256": k3_tc,
+        "fcma_corr_normalize_ffma": k3, "fcma_corr_normalize_e80": k3,
         "fcma_sample_gram": k4, "fcma_sample_gram_n80": k4,
     }
     k5 = ("brainiak_tpu/ops/kernels/ring.py:116", csrc + "ring_mma.cu")

@@ -5,9 +5,9 @@ Pallas kernels, run in interpreter mode on the CPU.
 On a CPU tensor each wrapper runs its plain PyTorch version; the CUDA
 kernels themselves are held against those plain versions on the card
 (tests/test_torch_gpu.py, chip_smoke.py).  K1's tensor-core route
-(csrc/fcma_gram_tc.cu) forms the correlation in 3xTF32; its products
-are emulated here in plain PyTorch and held against the Pallas kernel
-too.  Tolerances:
+(csrc/fcma_gram_tc.cu) and K3's (csrc/fcma_corr_tc.cu) form the
+correlation in 3xTF32; their products are emulated here in plain
+PyTorch and held against the Pallas kernel too.  Tolerances:
 
 * normalized correlation: atol 1e-4 outside the (voxel-pair, subject)
   groups that hold an |r| > 0.999, where the Fisher-z derivative
@@ -196,19 +196,23 @@ def test_gram_route_forced():
 
 
 def test_aligned_rows_pads_with_zero_voxels():
-    """The tensor-core route's operands: rows padded with zero voxels to
-    16-byte alignment, aligned ones passed through as they are."""
+    """The tensor-core routes' operands (K1's and K3's): aligned ones
+    passed through as they are; others copied once into rows padded
+    with zero voxels to 16-byte alignment, of which the kernels see
+    only the caller's width."""
     x = torch.arange(2 * 3 * 8, dtype=torch.float32).reshape(2, 3, 8)
-    assert tk._aligned_rows(x) is x
-    y = tk._aligned_rows(x[:, :, :5].contiguous())
-    assert y.shape == (2, 3, 8) and y.data_ptr() % 16 == 0
-    assert torch.equal(y[:, :, :5], x[:, :, :5])
-    assert not y[:, :, 5:].any()
+    assert tk._tma_operand(x) is x
+    y = tk._tma_operand(x[:, :, :5].contiguous())
+    assert y.shape == (2, 3, 5) and y.data_ptr() % 16 == 0
+    assert y.stride() == (24, 8, 1)
+    assert torch.equal(y, x[:, :, :5])
+    wide = y.as_strided((2, 3, 8), (24, 8, 1))
+    assert not wide[:, :, 5:].any()
     store = torch.zeros(2 * 3 * 8 + 1)
     store[1:] = x.reshape(-1)
     shifted = store[1:].view(2, 3, 8)
     assert shifted.data_ptr() % 16
-    z = tk._aligned_rows(shifted)
+    z = tk._tma_operand(shifted)
     assert z.data_ptr() % 16 == 0 and torch.equal(z, x)
 
 
@@ -221,12 +225,20 @@ def _tf32_rna(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _corr_3xtf32(blk, data, terms=3):
+def _tf32_trunc(x):
+    """float32 -> TF32 as the tensor core reads an operand whose 13 low
+    bits are not cleared: toward zero (those bits ignored)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _corr_3xtf32(blk, data, terms=3, lo=_tf32_rna):
     """r[b, e, v] as csrc/fcma_gram_tc.cu forms it: each operand split
     into hi = tf32(x) and lo = tf32(x - hi), the product lo*hi + hi*lo
-    + hi*hi in fp32 (``terms=1``: hi*hi alone, plain TF32)."""
+    + hi*hi in fp32 (``terms=1``: hi*hi alone, plain TF32).  ``lo``
+    rounds the small part: to nearest (K1), or ``_tf32_trunc`` where
+    csrc/fcma_corr_tc.cu passes x - hi unrounded (K3)."""
     bh, dh = _tf32_rna(blk), _tf32_rna(data)
-    bl, dl = _tf32_rna(blk - bh), _tf32_rna(data - dh)
+    bl, dl = lo(blk - bh), lo(data - dh)
 
     def mm(a, b):
         return torch.einsum('etb,etv->bev', a, b)
@@ -239,6 +251,13 @@ def _corr_3xtf32(blk, data, terms=3):
 def _gram_3xtf32(blk, data, eps):
     z = within_subject_normalization(_corr_3xtf32(blk, data), eps)
     return torch.einsum('bev,bfv->bef', z, z)
+
+
+def test_tf32_trunc_drops_the_low_bits():
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp * 0.99, -(1 + ulp * 0.99), 1 + ulp * 1.5,
+                      3.0])
+    assert _tf32_trunc(x).tolist() == [1.0, -1.0, 1 + ulp, 3.0]
 
 
 def test_tf32_rna_rounds_to_nearest_ties_away():
@@ -305,6 +324,158 @@ def test_k1_3xtf32_clamp_confinement():
                                atol=1e-4)
 
 
+def _poisoned_groups(blk, data, eps):
+    """(block voxel, subject, voxel) groups holding an |r| > 0.999,
+    broadcast over the subject's epochs."""
+    b, e, v = blk.shape[2], blk.shape[0], data.shape[2]
+    corr = np.einsum('etb,etv->bev', blk.astype(np.float64),
+                     data.astype(np.float64))
+    near = (np.abs(corr) > 0.999).reshape(b, e // eps, eps, v)
+    return np.broadcast_to(near.any(axis=2, keepdims=True),
+                           near.shape).reshape(b, e, v)
+
+
+def _assert_k3_close(got, want, blk, data, eps, keep=None):
+    """The K3 rule (chip_smoke.py's K3_ZTOL): |got - want| times the std
+    of each subject group's Fisher-z values at most 1e-5.  The z-score
+    divides by that std, so fp32 rounding of r shows amplified by its
+    inverse where a group's values nearly coincide (more often the
+    fewer epochs a subject has); scaled back, the difference is in
+    Fisher-z units.  ``keep``: the elements held."""
+    b, e, v = got.shape
+    corr = np.einsum('etb,etv->bev', blk.astype(np.float64),
+                     data.astype(np.float64))
+    z = np.arctanh(np.clip(corr, -1 + 1e-7, 1 - 1e-7))
+    sigma = np.broadcast_to(z.reshape(b, e // eps, eps, v).std(
+        axis=2, keepdims=True), (b, e // eps, eps, v)).reshape(b, e, v)
+    err = np.abs(got - want) * sigma
+    assert (err if keep is None else err[keep]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("e,t,b,v,eps", [(12, 150, 13, 37, 4),
+                                         (48, 20, 13, 37, 4),
+                                         (9, 150, 9, 70, 3)])
+def test_k3_3xtf32_matches_pallas_interpret_ragged(e, t, b, v, eps):
+    """K3's tensor-core route (csrc/fcma_corr_tc.cu), its products
+    emulated: 3xTF32 correlation (the small part unrounded, so read
+    toward zero), then the Fisher-z and z-score, at
+    ragged shapes (B and V not multiples of 4, T not a multiple of the
+    8-row stages; E=48 with 4 epochs per subject, more than one epoch
+    tile of K1).  Two-region inputs (no |r| near 1): within the K3 rule
+    of the Pallas kernel in interpret mode and of the plain version."""
+    assert tk.corr_route(e, eps) == "tc"
+    blk, data = _two_mask(20 + e, e, t, b, v)
+    want = np.asarray(jk3(jnp.asarray(_pad(blk, 16)),
+                          jnp.asarray(_pad(data, 80)), eps, tile_b=8,
+                          tile_v=16, interpret=True))[:b, :, :v]
+    got = within_subject_normalization(
+        _corr_3xtf32(_t(blk), _t(data), lo=_tf32_trunc), eps).numpy()
+    assert got.shape == (b, e, v)
+    plain = tk.fcma_corr_normalize_plain(_t(blk), _t(data), eps).numpy()
+    for ref in (want, plain):
+        _assert_k3_close(got, ref, blk, data, eps)
+    # the unrounded small part keeps r within fp32 rounding of float64
+    r64 = np.einsum('etb,etv->bev', blk.astype(np.float64),
+                    data.astype(np.float64))
+    r = _corr_3xtf32(_t(blk), _t(data), lo=_tf32_trunc).numpy()
+    assert np.abs(r - r64).max() <= 1e-6
+
+
+@pytest.mark.parametrize("e,eps", [(12, 3), (16, 4)])
+def test_k3_3xtf32_clamp_confinement(e, eps):
+    """Self-correlation, as VoxelSelector runs K3 without raw_data2
+    (the block's voxels are in data, r = 1 with themselves), with
+    planted r = +-1 pairs: the emulated tensor-core route may round
+    r >= 1 otherwise than fp32, but only inside the poisoned subject
+    groups; outside them it agrees with the Pallas kernel and the
+    plain version under the K3 rule."""
+    t, b, v = 24, 16, 40
+    rng = np.random.RandomState(11 + eps)
+    data = rng.randn(e, t, v).astype(np.float32)
+    data[:, :, 30] = data[:, :, 3]
+    data[:, :, 35] = -data[:, :, 9]
+    norm = np.asarray(normalize_for_correlation(
+        jnp.asarray(data).transpose(0, 2, 1), 2)).transpose(0, 2, 1)
+    blk = np.ascontiguousarray(norm[:, :, :b])
+    want = np.asarray(jk3(jnp.asarray(blk), jnp.asarray(norm), eps,
+                          tile_b=8, tile_v=8, interpret=True))
+    got = within_subject_normalization(
+        _corr_3xtf32(_t(blk), _t(norm), lo=_tf32_trunc), eps).numpy()
+    plain = tk.fcma_corr_normalize_plain(_t(blk), _t(norm), eps).numpy()
+    poisoned = _poisoned_groups(blk, norm, eps)
+    assert poisoned[3, :, 30].all() and poisoned[9, :, 35].all()
+    assert poisoned[np.arange(b), :, np.arange(b)].all()
+    assert (~poisoned).mean() > 0.9
+    for ref in (want, plain):
+        _assert_k3_close(got, ref, blk, norm, eps, keep=~poisoned)
+    assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("n_epochs,eps,expect", [
+    (32, 4, "tc"), (16, 4, "tc"), (48, 4, "tc"), (8, 2, "tc"),
+    (3, 1, "tc"), (12, 3, "tc"), (12, 6, "ffma"), (24, 12, "ffma"),
+    (40, 10, "ffma"), (80, 40, "ffma"), (96, 48, "ffma"),
+    (64, 64, "ffma")])
+def test_corr_route(n_epochs, eps, expect):
+    """Subjects of at most 4 epochs take K3's tensor-core kernel,
+    whatever the number of epochs; longer subjects the FMA one."""
+    assert tk.corr_route(n_epochs, eps) == expect
+
+
+def test_corr_route_forced():
+    assert tk.corr_route(32, 4, route="ffma") == "ffma"
+    assert tk.corr_route(48, 4, route="tc") == "tc"
+    assert tk.corr_route(80, 40, route="ffma") == "ffma"
+    with pytest.raises(ValueError, match="at most 4 epochs"):
+        tk.corr_route(80, 40, route="tc")
+    with pytest.raises(ValueError, match="at most 4 epochs"):
+        tk.corr_route(12, 6, route="tc")
+    with pytest.raises(ValueError, match="'tc' or 'ffma'"):
+        tk.corr_route(16, 4, route="wgmma")
+    with pytest.raises(ValueError, match="multiple"):
+        tk.corr_route(10, 4)
+
+
+def test_tma_operand_reads_aligned_views_in_place():
+    """K3's tensor-core operands: a column slice of a wider tensor whose
+    rows are 16-byte aligned passes as it is (no copy), whatever its
+    width; anything else is copied once into that layout, values and
+    width kept."""
+    x = torch.arange(2 * 3 * 37, dtype=torch.float32).reshape(2, 3, 37)
+    lay = tk.aligned_rows_layout(x.shape, "cpu")
+    assert lay.shape == (2, 3, 37) and lay.stride() == (120, 40, 1)
+    assert not lay.any()
+    lay.copy_(x)
+    assert tk._tma_operand(lay) is lay
+    full = torch.zeros(2, 3, 40)
+    assert tk._tma_operand(full) is full
+    for bad in (x, x[:, :, 1:], x.transpose(1, 2).contiguous()
+                .transpose(1, 2)):
+        got = tk._tma_operand(bad)
+        assert got is not bad and torch.equal(got, bad)
+        assert got.stride(2) == 1 and got.stride(1) % 4 == 0
+        assert got.stride(0) % 4 == 0 and got.data_ptr() % 16 == 0
+    store = torch.zeros(2 * 3 * 40 + 1)
+    shifted = store[1:].view(2, 3, 40)
+    assert shifted.data_ptr() % 16
+    assert tk._tma_operand(shifted).data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("eps", [1, 4, 5, 40])
+def test_corr_layout_is_what_the_route_reads_in_place(eps):
+    """corr_layout gives the layout of K3's route for these subjects:
+    16-byte aligned rows for the tensor cores (eps <= 4), a contiguous
+    tensor for the FMA kernel; either passes _corr_operand as it is."""
+    n_e = 2 * eps
+    lay = tk.corr_layout((n_e, 3, 37), eps, "cpu")
+    route = tk.corr_route(n_e, eps)
+    assert lay.shape == (n_e, 3, 37)
+    assert lay.is_contiguous() == (route == "ffma")
+    if route == "tc":
+        assert lay.stride() == (120, 40, 1)
+    assert tk._corr_operand(lay, route) is lay
+
+
 def _tiled_gram(blk, data, eps):
     """The kernel's epoch-tile decomposition in plain PyTorch: each
     pair of tiles (A <= C) gives the Gram's A x C block, mirrored into
@@ -355,6 +526,7 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
     tk.fcma_sample_gram(blk, blk, 2)
     assert tk.launches() == {"fcma_gram": 0, "fcma_gram_tc": 0,
                              "fcma_corr_normalize": 0,
+                             "fcma_corr_normalize_tc": 0,
                              "fcma_sample_gram": 0}
 
 

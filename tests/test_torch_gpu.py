@@ -83,6 +83,7 @@ def test_fcma_kernels(cuda, e, t, b, v, eps):
     corr = fk.fcma_corr_normalize(blk, data, eps)
     assert fk.launches() == {"fcma_gram": 1, "fcma_gram_tc": int(e <= 32),
                              "fcma_corr_normalize": 1,
+                             "fcma_corr_normalize_tc": int(eps <= 4),
                              "fcma_sample_gram": 0}
     want = fk.fcma_gram_plain(blk, data, eps)
     scale = want[:, :1, :1].abs()
@@ -154,6 +155,153 @@ def test_fcma_gram_tc_misaligned_rows(cuda):
     got = fk.fcma_gram(blk, data, 4)
     assert fk.launches()["fcma_gram_tc"] == 1 and got.shape == (21, 16, 16)
     assert torch.all((got - want).abs() <= 1e-4 * want[:, :1, :1].abs())
+
+
+def _assert_k3(got, blk, data, eps):
+    """The K3 rule: |got - plain| times the group's Fisher-z std at
+    most 1e-5 (chip_smoke.py's K3_ZTOL).  With two epochs a subject
+    the z-score is +-1 up to the rounding of the one-pass variance
+    E[z^2] - mean^2, which the kernels and the plain version round
+    differently (the kernels contract into FMAs); its relative error
+    grows as mean^2 / var.  Only where a float64 witness shows that
+    the plain fp32 version itself misses the rule is the difference
+    divided by 1 + mean^2 / var; everywhere else the rule holds as it
+    is."""
+    want = fk.fcma_corr_normalize_plain(blk, data, eps)
+    assert got.shape == want.shape
+    sigma = _group_sigma(blk, data, eps)
+    err = (got - want).abs() * sigma
+    if eps == 2:
+        r = torch.einsum('etb,etv->bev', blk.double(), data.double())
+        z = 0.5 * torch.log((1 + r) / (1 - r))
+        b, e, v = z.shape
+        zr = z.reshape(b, e // eps, eps, v)
+        mean = zr.mean(dim=2, keepdim=True)
+        var = ((zr - mean) ** 2).mean(dim=2, keepdim=True)
+        exact = ((zr - mean) / var.sqrt()).reshape(b, e, v)
+        cond = (1 + mean ** 2 / var).expand_as(zr).reshape(b, e, v)
+        misses = (want.double() - exact).abs() * sigma > 1e-5
+        err = torch.where(misses, err / cond.float(), err)
+    assert err.max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("e,t,b,v,eps", [
+    (32, 150, 128, 4096, 4), (48, 150, 130, 1001, 4), (16, 9, 21, 77, 4),
+    (12, 20, 9, 70, 3), (8, 40, 13, 37, 2), (4, 33, 64, 250, 1)])
+def test_fcma_corr_normalize_routes_agree(cuda, e, t, b, v, eps):
+    """K3's tensor-core kernel and fcma_corr.cu's FMA kernel on the same
+    inputs (ragged B, V and T; E=48 with 4 epochs per subject): each
+    launched as asked, both within the K3 rule of the plain version.
+    Two-region inputs (no |r| near 1)."""
+    d = _normalized(e * t + v, e, t, v + b, cuda)
+    blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
+    assert fk.corr_route(e, eps) == "tc"
+    for route in ("tc", "ffma"):
+        fk.reset_launches()
+        got = fk._kernel_corr_normalize(blk, data, eps, route=route)
+        assert fk.launches()["fcma_corr_normalize"] == 1
+        assert fk.launches()["fcma_corr_normalize_tc"] == int(
+            route == "tc")
+        _assert_k3(got, blk, data, eps)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_fcma_corr_normalize_tc_views(cuda, offset):
+    """Operands that are views: data a column slice of a wider tensor
+    (offset 0: 16-byte aligned rows, read in place; 1 and 3: rows off
+    16 bytes, copied once), blk a column slice too.  Both routes within
+    the K3 rule of the plain version; the output is the caller's
+    [B, E, V], contiguous, no padded columns."""
+    e, t, b, v, eps = 16, 30, 19, 203, 4
+    d = _normalized(40 + offset, e, t, 260, cuda)
+    data = d[:, :, offset:offset + v]
+    blk = d[:, :, 230:230 + b]
+    assert not data.is_contiguous() and not blk.is_contiguous()
+    for route in ("tc", "ffma"):
+        got = fk._kernel_corr_normalize(blk, data, eps, route=route)
+        assert got.shape == (b, e, v) and got.is_contiguous()
+        _assert_k3(got, blk, data, eps)
+    lay = fk.aligned_rows_layout((e, t, v), cuda)
+    lay.copy_(data)
+    assert fk._tma_operand(lay) is lay
+    fk.reset_launches()
+    got = fk.fcma_corr_normalize(blk, lay, eps)
+    assert fk.launches()["fcma_corr_normalize_tc"] == 1
+    _assert_k3(got, blk, lay, eps)
+
+
+def test_fcma_corr_normalize_output_shape(cuda):
+    """The tensor-core route returns exactly [B, E, V], contiguous, for
+    V and B not multiples of 4, and its self-correlation
+    (the block's voxels in data, r = 1 with themselves) is finite, the
+    clamp confined to the groups that hold it."""
+    e, t, b, v, eps = 8, 25, 6, 41, 4
+    data = _normalized(8, e, t, v, cuda)
+    blk = data[:, :, :b].contiguous()
+    fk.reset_launches()
+    got = fk.fcma_corr_normalize(blk, data, eps)
+    assert fk.launches()["fcma_corr_normalize_tc"] == 1
+    assert got.shape == (b, e, v) and got.stride() == (e * v, v, 1)
+    assert torch.isfinite(got).all()
+    want = fk.fcma_corr_normalize_plain(blk, data, eps)
+    r = torch.einsum('etb,etv->bev', blk.double(), data.double())
+    near = (r.abs() > 0.999).reshape(b, e // eps, eps, v).any(
+        dim=2, keepdim=True).expand(b, e // eps, eps, v).reshape(b, e, v)
+    sigma = _group_sigma(blk, data, eps)
+    assert ((got - want).abs() * sigma)[~near].max().item() <= 1e-5
+    with pytest.raises(ValueError, match="at most 4 epochs"):
+        fk._kernel_corr_normalize(data, data, 8, route="tc")
+
+
+class _Majority:
+    """The least estimator VoxelSelector.run(clf) takes: predicts the
+    training folds' most frequent label (no scikit-learn on the card's
+    machine)."""
+
+    def fit(self, x, y):
+        self.label_ = np.bincount(y).argmax()
+        return self
+
+    def score(self, x, y):
+        return float(np.mean(y == self.label_))
+
+
+@pytest.mark.parametrize("eps", [4, 8])
+def test_run_clf_reads_the_cached_data2_in_place(cuda, monkeypatch, eps):
+    """run(clf) with V = 37, not a multiple of 4: every K3 launch, one
+    a block of 3 voxels, gets the selector's cached data2 and its
+    kernel reads it without a copy, on either route (4 epochs a
+    subject: the tensor cores; 8: the FMA kernel)."""
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+
+    rng = np.random.RandomState(3)
+
+    def epoch(n_vox):
+        m = rng.randn(12, n_vox).astype(np.float32)
+        m -= m.mean(axis=0)
+        return m / (m.std(axis=0) * 12 ** 0.5)
+
+    d1 = [epoch(10) for _ in range(16)]
+    d2 = [epoch(37) for _ in range(16)]
+    vs = VoxelSelector([0, 1] * 8, eps, 2, d1, raw_data2=d2, voxel_unit=3,
+                       device=cuda)
+    _, data2 = vs._stack()
+    operand = fk._corr_operand
+    passed = []
+
+    def recorded(x, route):
+        y = operand(x, route)
+        if x.shape[2] == 37:
+            passed.append(x is data2 and y is x)
+        return y
+
+    monkeypatch.setattr(fk, "_corr_operand", recorded)
+    fk.reset_launches()
+    accs = vs.run(_Majority())
+    assert len(accs) == 10
+    assert passed == [True] * 4
+    assert fk.launches()["fcma_corr_normalize"] == 4
+    assert fk.launches()["fcma_corr_normalize_tc"] == (4 if eps == 4 else 0)
 
 
 @pytest.mark.parametrize("n,norm_unit", [

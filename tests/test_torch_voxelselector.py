@@ -247,6 +247,102 @@ def test_cuda_selector_refuses_subjects_over_one_epoch_tile(monkeypatch):
     assert vs.device == torch.device("cpu")
 
 
+def test_stack_lays_data2_out_once_with_aligned_rows(monkeypatch):
+    """V = 37, not a multiple of 4, 4 epochs a subject: data2 is laid
+    out once per selector, its rows 16-byte aligned, and every K3 call
+    of run(clf), in every block and on every run, gets that one
+    tensor, which K3's tensor-core route reads in place (no copy a
+    call)."""
+    from brainiak_tpu_torch.fcma import voxelselector as tvs
+    from brainiak_tpu_torch.ops import fcma_kernels as tk
+
+    prng = RandomState(5)
+    d1 = [create_epoch(prng, col=10) for _ in range(8)]
+    d2 = [create_epoch(prng, col=37) for _ in range(8)]
+    layouts, seen = [], []
+    layout, k3 = tvs.corr_layout, tvs.fcma_corr_normalize
+
+    def counted_layout(shape, eps, device):
+        layouts.append(tuple(shape))
+        return layout(shape, eps, device)
+
+    def recorded_k3(blk, data, eps, precision=None):
+        seen.append(data)
+        return k3(blk, data, eps, precision=precision)
+
+    monkeypatch.setattr(tvs, "corr_layout", counted_layout)
+    monkeypatch.setattr(tvs, "fcma_corr_normalize", recorded_k3)
+    vs = VoxelSelector([0, 1] * 4, 4, 2, d1, raw_data2=d2, voxel_unit=3,
+                       device="cpu")
+    clf = svm.SVC(kernel='precomputed', shrinking=False, C=1)
+    assert vs.run(clf) == vs.run(clf)
+    _, data2 = vs._stack()
+    assert layouts == [(8, 12, 10), (8, 12, 37)]
+    assert data2.shape == (8, 12, 37) and data2.stride(1) % 4 == 0
+    assert data2.data_ptr() % 16 == 0
+    assert torch.equal(data2, torch.from_numpy(np.stack(d2)))
+    assert len(seen) == 2 * 4  # 10 voxels in blocks of 3, two runs
+    assert all(x is data2 for x in seen)
+    assert tk.corr_route(8, 4) == "tc"
+    assert tk._corr_operand(data2, "tc") is data2
+
+
+def test_stack_keeps_data2_contiguous_for_the_fma_route(monkeypatch):
+    """V = 37 and 8 epochs a subject, which K3 runs on fcma_corr.cu's
+    FMA kernel: data2 is stacked once, contiguous, and every K3 call
+    of run(clf) gets that tensor, which the FMA kernel reads in place
+    (no copy a block)."""
+    from brainiak_tpu_torch.fcma import voxelselector as tvs
+    from brainiak_tpu_torch.ops import fcma_kernels as tk
+
+    prng = RandomState(7)
+    d1 = [create_epoch(prng, col=10) for _ in range(16)]
+    d2 = [create_epoch(prng, col=37) for _ in range(16)]
+    seen = []
+    k3 = tvs.fcma_corr_normalize
+
+    def recorded_k3(blk, data, eps, precision=None):
+        seen.append(data)
+        return k3(blk, data, eps, precision=precision)
+
+    monkeypatch.setattr(tvs, "fcma_corr_normalize", recorded_k3)
+    vs = VoxelSelector([0, 1] * 8, 8, 2, d1, raw_data2=d2, voxel_unit=3,
+                       device="cpu")
+    clf = svm.SVC(kernel='precomputed', shrinking=False, C=1)
+    assert vs.run(clf) == vs.run(clf)
+    _, data2 = vs._stack()
+    assert data2.shape == (16, 12, 37) and data2.is_contiguous()
+    assert torch.equal(data2, torch.from_numpy(np.stack(d2)))
+    assert len(seen) == 2 * 4  # 10 voxels in blocks of 3, two runs
+    assert all(x is data2 for x in seen)
+    assert tk.corr_route(16, 8) == "ffma"
+    assert tk._corr_operand(data2, "ffma") is data2
+
+
+@pytest.mark.parametrize("one_mask", [False, True])
+def test_run_clf_unchanged_by_the_aligned_layout(monkeypatch, one_mask):
+    """run(clf) on the CPU gives the same accuracies with the aligned
+    layout of _stack as with plain contiguous stacks."""
+    from brainiak_tpu_torch.fcma import voxelselector as tvs
+
+    prng = RandomState(6)
+    d1 = [create_epoch(prng, col=9) for _ in range(8)]
+    d2 = None if one_mask else [create_epoch(prng, col=37)
+                                for _ in range(8)]
+    labels = [0, 1] * 4
+    for clf in (svm.SVC(kernel='precomputed', shrinking=False, C=1),
+                LogisticRegression()):
+        got = VoxelSelector(labels, 4, 2, d1, raw_data2=d2, voxel_unit=4,
+                            device="cpu").run(clf)
+        with monkeypatch.context() as m:
+            m.setattr(tvs, "corr_layout",
+                      lambda shape, eps, device: torch.empty(
+                          tuple(shape), device=device))
+            want = VoxelSelector(labels, 4, 2, d1, raw_data2=d2,
+                                 voxel_unit=4, device="cpu").run(clf)
+        assert got == want
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     """Importing every module of the port loads neither jax nor any
     module of brainiak_tpu."""

@@ -21,12 +21,15 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/fcma_corr.cu``, ``csrc/fcma_sample_gram.cu``, on the tile of
 ``csrc/fcma_tile.cuh``; source notes there: operation-bound at the
 whole-brain shape, a voxel-tile loop inside each block, partials
-summed in a fixed order, no atomics).  The main-path routes of K1 and
-K3 run on the tensor cores in 3xTF32, which keeps fp32 accuracy, with
-operands brought in by the TMA: K1 on one epoch tile of whole subjects
-(:func:`gram_route` ``"tc"``) is ``csrc/fcma_gram_tc.cu``, K3 on
-subjects of at most 4 epochs (:func:`corr_route` ``"tc"``) is
-``csrc/fcma_corr_tc.cu``.  Every other route computes in fp32 FMA.
+summed in a fixed order, no atomics).  The main-path routes of K1, K3
+and K4 run on the tensor cores in 3xTF32, which keeps fp32 accuracy,
+with operands brought in by the TMA: K1 on one epoch tile of whole
+subjects (:func:`gram_route` ``"tc"``) is ``csrc/fcma_gram_tc.cu``, K3
+on subjects of at most 4 epochs (:func:`corr_route` ``"tc"``) is
+``csrc/fcma_corr_tc.cu``, K4 on one sample tile of whole groups
+(:func:`sample_gram_route` ``"tc"``) is
+``csrc/fcma_sample_gram_tc.cu``.  Every other route computes in fp32
+FMA.
 ``precision`` is not used by the kernels.  A subject (or
 sample group) may be longer than one epoch tile: the kernels then run
 a first pass for its z-score statistics.  On a CPU tensor the wrapper
@@ -50,12 +53,13 @@ __all__ = ["aligned_rows_layout", "corr_layout", "corr_route",
            "fcma_corr_normalize",
            "fcma_corr_normalize_plain", "fcma_gram", "fcma_gram_plain",
            "fcma_sample_gram", "fcma_sample_gram_plain", "gram_route",
-           "launches", "reset_launches"]
+           "launches", "reset_launches", "sample_gram_route"]
 
 # "fcma_gram" counts every K1 launch, "fcma_gram_tc" those of them that
-# took the tensor-core one-tile kernel; the same for K3
+# took the tensor-core one-tile kernel; the same for K3 and K4
 _launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_corr_normalize": 0,
-             "fcma_corr_normalize_tc": 0, "fcma_sample_gram": 0}
+             "fcma_corr_normalize_tc": 0, "fcma_sample_gram": 0,
+             "fcma_sample_gram_tc": 0}
 
 #: threads of a kernel block; a block holds 512 // ept block voxels
 _THREADS = 512
@@ -174,6 +178,28 @@ def gram_route(n_epochs, epochs_per_subj, ept=None, route=None):
     return route, ept, tile_len, n_tiles
 
 
+def sample_gram_route(n_samples, norm_unit, route=None):
+    """``(route, ept, tile_len, n_tiles)`` of K4 on the card.
+
+    ``"tc"`` (``csrc/fcma_sample_gram_tc.cu``) when the samples form
+    one sample tile of whole groups of ``norm_unit`` (raw features,
+    ``norm_unit <= 1``: groups of one), else ``"ffma"``
+    (``csrc/fcma_sample_gram.cu``), which takes every tiling.
+    ``route`` forces the kernel, as ``chip_smoke.py`` does to run both
+    on the same inputs; ``"tc"`` is refused where it does not apply.
+    """
+    ept, tile_len, n_tiles = epoch_tiles(n_samples, max(norm_unit, 1))
+    if route is None:
+        route = "tc" if n_tiles == 1 else "ffma"
+    elif route not in ("tc", "ffma"):
+        raise ValueError(f"route must be 'tc' or 'ffma', got {route!r}")
+    elif route == "tc" and n_tiles != 1:
+        raise ValueError(
+            f"route 'tc' takes one sample tile; {n_samples} samples in "
+            f"groups of {max(norm_unit, 1)} need {n_tiles} of {ept}")
+    return route, ept, tile_len, n_tiles
+
+
 def corr_route(n_epochs, epochs_per_subj, route=None):
     """K3's kernel on the card: ``"tc"`` (``csrc/fcma_corr_tc.cu``)
     when a subject has at most 4 epochs, whatever ``n_epochs``, else
@@ -235,7 +261,8 @@ def _stats(blk, data, epochs_per_subj, tile_len):
 _ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 11),
          "fcma_corr_normalize_f32": (4, 9),
          "fcma_corr_normalize_tc_f32": (3, 9),
-         "fcma_sample_gram_f32": (5, 9)}
+         "fcma_sample_gram_f32": (5, 9),
+         "fcma_sample_gram_tc_f32": (4, 11)}
 
 
 def _fn(source, name):
@@ -253,7 +280,8 @@ def _ptr(x):
 
 def _tma_operand(x):
     """x [E, T, n] as the TMA copies of the tensor-core kernels
-    (csrc/fcma_gram_tc.cu, csrc/fcma_corr_tc.cu) read it: 16-byte aligned,
+    (csrc/fcma_gram_tc.cu, csrc/fcma_corr_tc.cu,
+    csrc/fcma_sample_gram_tc.cu) read it: 16-byte aligned,
     unit column stride, row and epoch strides multiples of 4 floats.
     Returned as it is where it already is (a column slice of an aligned
     wider tensor, as :func:`aligned_rows_layout` lays it out), else
@@ -373,32 +401,48 @@ def _kernel_corr_normalize(blk, data, epochs_per_subj, route=None):
     return out
 
 
-def _kernel_sample_gram(x1, x2, norm_unit):
-    x1, x2 = _check_inputs(x1, x2, ("x1", "x2"))
+def _kernel_sample_gram(x1, x2, norm_unit, route=None):
+    """K4 on the card; ``route`` forces the kernel
+    (:func:`sample_gram_route`), as ``chip_smoke.py`` does to time both
+    at one shape."""
+    x1, x2 = _check_inputs(x1, x2, ("x1", "x2"), contiguous=False)
     # the features of (x1, x2) are those of (x2, x1): the narrower
     # region is the block operand
     blk, data = (x2, x1) if x2.shape[2] < x1.shape[2] else (x1, x2)
     n, n_t, n_b = blk.shape
     n_v = data.shape[2]
     group = max(norm_unit, 1)
-    ept, tile_len, n_tiles = epoch_tiles(n, group)
-    n_pairs = n_tiles * (n_tiles + 1) // 2
+    route, ept, tile_len, n_tiles = sample_gram_route(n, norm_unit, route)
     if n == 0 or n_b == 0 or n_v == 0:
         return torch.zeros((n, n), dtype=torch.float32, device=blk.device)
+    if route == "tc":
+        blk, data = _tma_operand(blk), _tma_operand(data)
+    else:
+        blk, data = blk.contiguous(), data.contiguous()
     out = torch.empty((n, n), dtype=torch.float32, device=blk.device)
+    n_pairs = n_tiles * (n_tiles + 1) // 2
     n_bt = -(-n_b // (_THREADS // ept))
     n_split = _n_split(blk.device, n_bt * n_pairs, n_v)
     partial = torch.empty((n_split * n_bt, n_pairs, ept, ept),
                           dtype=torch.float32, device=blk.device)
-    stats = _stats(blk, data, group, tile_len)
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     with torch.cuda.device(blk.device):
-        err = _fn("fcma_sample_gram", "fcma_sample_gram_f32")(
-            blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
-            _ptr(stats), out.data_ptr(), n, n_t, n_b, n_v, norm_unit, ept,
-            tile_len, n_tiles, n_split, stream)
+        if route == "tc":
+            err = _fn("fcma_sample_gram_tc", "fcma_sample_gram_tc_f32")(
+                blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), n, n_t, n_b, n_v, norm_unit, ept, n_split,
+                blk.stride(1), blk.stride(0), data.stride(1),
+                data.stride(0), stream)
+        else:
+            stats = _stats(blk, data, group, tile_len)
+            err = _fn("fcma_sample_gram", "fcma_sample_gram_f32")(
+                blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
+                _ptr(stats), out.data_ptr(), n, n_t, n_b, n_v, norm_unit,
+                ept, tile_len, n_tiles, n_split, stream)
     _build.check(err, "fcma_sample_gram")
     _launches["fcma_sample_gram"] += 1
+    if route == "tc":
+        _launches["fcma_sample_gram_tc"] += 1
     return out
 
 
@@ -443,8 +487,11 @@ def fcma_sample_gram(x1, x2, norm_unit, precision=None):
     be 0, else ``ValueError``), with ``norm_unit <= 1`` they are the
     raw correlations.  Returns the unshrunk ``[N, N]`` float32 Gram
     features @ features.T (callers apply the digit shrink).  A CUDA
-    tensor goes to the kernel (fp32 FMA; ``precision`` is not used
-    there), a CPU tensor to :func:`fcma_sample_gram_plain`.
+    tensor goes to the kernel of :func:`sample_gram_route` (3xTF32 on
+    the tensor cores for one sample tile of whole groups, else fp32
+    FMA; both fp32-accurate, ``precision`` is not used there), read in
+    place where it is aligned, a CPU tensor to
+    :func:`fcma_sample_gram_plain`.
     """
     _check_norm_unit(x1.shape[0], norm_unit)
     if x1.is_cuda:

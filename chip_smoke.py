@@ -27,18 +27,21 @@ first one that goes wrong:
         through the path's tensor-core kernel (fcma_corr_tc.cu) and, on
         the same inputs, fcma_corr.cu's FMA kernel forced;
      K4 fcma_sample_gram N=32, T=150, 65536 x 1024 (the classifier's
-        whole-brain shape) with norm_unit 4 and 0 (raw features), and
-        N=96, 8192 x 1024, norm_unit 12 (four sample tiles);
+        whole-brain shape) with norm_unit 4 and 0 (raw features),
+        through the path's tensor-core kernel (fcma_sample_gram_tc.cu)
+        and, on the same inputs, fcma_sample_gram.cu's FMA kernel
+        forced; and N=96, 8192 x 1024, norm_unit 12 (four sample tiles,
+        the FMA kernel);
      K1, K3 and K4 with subjects of 40 epochs (E=80, 512 x 4096; K3 on
         128 block voxels): each subject spans two epoch tiles, so the
         statistics pass runs.
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
    operations over the peak rate of their type: fp32 FMA at 67
-   TFLOP/s, and for the tensor-core K1 and K3 their correlation's
-   three TF32 products at 494.7 TFLOP/s (plus K1's Gram in fp32; the
-   Grams counted as their E (E + 1) / 2 distinct entries, being
-   symmetric).
+   TFLOP/s, and for the tensor-core K1, K3 and K4 their correlation's
+   three TF32 products at 494.7 TFLOP/s (plus K1's and K4's Gram in
+   fp32; the Grams counted as their E (E + 1) / 2 distinct entries,
+   being symmetric).
 3. Main path, whole brain: 8 subjects x 600 TRs on a 64x64x16 volume
    (65,536 voxels), 2 conditions x 2 epochs of 150 TRs each (E=32,
    4 epochs per subject), mask1 = 1024 voxels, mask2 = the whole volume;
@@ -52,8 +55,9 @@ first one that goes wrong:
    the default 256): every K3 launch must take the tensor-core kernel.
 4. Stage 2 on the same data, trained on the first 6 subjects' 24
    epochs and tested on the last 2 subjects' 8: a portioned
-   ``Classifier`` fit through K4 over mask1 x the whole volume (its
-   test similarities and predictions held against the plain K4), and
+   ``Classifier`` fit through K4 over mask1 x the whole volume (every
+   launch on the tensor-core kernel; its test similarities and
+   predictions held against the plain K4), and
    a single-portion fit on the self-correlation of the 512 voxels
    stage 1 ranked first; warm fit and predict seconds, peak device
    memory, and a held-out accuracy of at least 0.75 for both.
@@ -63,7 +67,8 @@ first one that goes wrong:
 6. Subjects of 40 epochs (E=80, 2048 + 512 voxels): ``run('svm')``
    through fcma_corr.cu's K1, the host-CV branch through K3 and a
    portioned
-   ``Classifier`` fit through K4, each held against its plain path.
+   ``Classifier`` fit through K4 (the FMA kernel: two sample tiles),
+   each held against its plain path.
 7. K5, the SUMMA ring step, against its plain version (``mma_update``)
    on z-scored inputs at (a) T=600, n_local=B=65536, one shard (the
    whole-brain one-card ring, a 17.2 GB block); (b) T=600,
@@ -366,7 +371,9 @@ def check_k4_errors(what, errors):
 
 def check_k4(torch, x1, x2, norm_unit, reps):
     """K4 against its plain version (blocks of 128 voxels of x1) on
-    x1 [N, T, V1] and x2 [N, T, V2]; the row of its figures.  The
+    x1 [N, T, V1] and x2 [N, T, V2]: the path's route and, where that
+    is the tensor-core kernel, fcma_sample_gram.cu's FMA kernel forced
+    on the same inputs.  ``{route: row of its figures}``.  The
     cross-group entries are those of samples in different groups of
     ``norm_unit`` (of different samples for raw features)."""
     from brainiak_tpu_torch.ops import fcma_kernels as fk
@@ -377,6 +384,9 @@ def check_k4(torch, x1, x2, norm_unit, reps):
     group = np.arange(n) // max(norm_unit, 1)
     cross = group[:, None] != group[None, :]
 
+    def plain():
+        return fk.fcma_sample_gram_plain(x1, x2, norm_unit)
+
     def library():
         gram = torch.zeros((n, n), device=x1.device)
         for s in range(0, v1, chunk):
@@ -385,28 +395,42 @@ def check_k4(torch, x1, x2, norm_unit, reps):
             gram.addmm_(feats, feats.T)
         return gram
 
-    want = fk.fcma_sample_gram_plain(x1, x2, norm_unit)
-    got = fk.fcma_sample_gram(x1, x2, norm_unit)
-    err = (got - want).abs().max().item()
-    log(f"K4 fcma_sample_gram N={n} T={n_t} V1={v1} V2={v2} "
-        f"norm_unit={norm_unit} max_abs_err {err:.3e}")
-    got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
-    check_k4_errors(f"K4 (N={n}, norm_unit={norm_unit})",
-                    k4_errors(got, want, want[0, 0], cross))
-    b_ms, b_by = bound_ms(4 * (n * n_t * (v1 + v2) + n * n),
-                          gram_flops(n, n_t, v1, v2))
-    row = {"max_abs_err": err,
-           "ms": cuda_ms(torch, lambda: fk.fcma_sample_gram(x1, x2,
-                                                            norm_unit),
-                         reps),
-           "plain_ms": cuda_ms(torch, lambda: fk.fcma_sample_gram_plain(
-               x1, x2, norm_unit), 1),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": cuda_ms(torch, library, 1)}
-    log(f"  fcma_sample_gram N={n} norm_unit={norm_unit}: ms "
-        f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} bound_ms "
-        f"{b_ms:.3f} ({b_by}) library_ms {row['library_ms']:.3f}")
-    return row
+    want = plain().cpu().double().numpy()
+    route = fk.sample_gram_route(n, norm_unit)[0]
+    runs = [(route, lambda: fk.fcma_sample_gram(x1, x2, norm_unit))]
+    if route == "tc":
+        runs.append(("ffma", lambda: fk._kernel_sample_gram(
+            x1, x2, norm_unit, route="ffma")))
+    rows = {}
+    for name, fn in runs:
+        got = fn().cpu().double().numpy()
+        err = float(np.abs(got - want).max())
+        log(f"K4 fcma_sample_gram[{name}] N={n} T={n_t} V1={v1} V2={v2} "
+            f"norm_unit={norm_unit} max_abs_err {err:.3e}")
+        check_k4_errors(f"K4 [{name}] (N={n}, norm_unit={norm_unit})",
+                        k4_errors(got, want, want[0, 0], cross))
+        rows[name] = {"max_abs_err": err, "ms": cuda_ms(torch, fn, reps)}
+    corr = 2 * n * n_t * v1 * v2
+    gram = gram_flops(n, n_t, v1, v2) - corr
+    n_bytes = 4 * (n * n_t * (v1 + v2) + n * n)
+    common = dict(plain_ms=cuda_ms(torch, plain, 1),
+                  library_ms=cuda_ms(torch, library, 1))
+    for name, row in rows.items():
+        b_ms, b_by = (bound_ms(n_bytes, gram, 3 * corr) if name == "tc"
+                      else bound_ms(n_bytes, corr + gram))
+        row.update(common, bound_ms=b_ms, bound_by=b_by)
+        log(f"  fcma_sample_gram[{name}] N={n} norm_unit={norm_unit}: ms "
+            f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} bound_ms "
+            f"{b_ms:.3f} ({b_by}) library_ms {row['library_ms']:.3f}")
+    if "tc" in rows and "ffma" in rows:
+        log(f"  K4 at N={n} norm_unit={norm_unit} {v1} x {v2}: tensor-core "
+            f"{rows['tc']['ms']:.3f} ms (bound {rows['tc']['bound_ms']:.3f}"
+            f" ms, 3xTF32 + fp32 Gram), FMA {rows['ffma']['ms']:.3f} ms "
+            f"(fp32 bound {rows['ffma']['bound_ms']:.3f} ms), cuBLAS fp32 "
+            f"{common['library_ms']:.3f} ms; tensor-core / FMA "
+            f"{rows['tc']['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
+            f"{rows['tc']['ms'] / common['library_ms']:.3f}")
+    return rows
 
 
 def phase_kernels(torch, dev):
@@ -465,13 +489,17 @@ def phase_kernels(torch, dev):
     # Classifier passes it; (b) raw features; (c) four sample tiles
     x2 = normalized_epochs(torch, rng, 32, n_t, 1024, dev)
     x1 = normalized_epochs(torch, rng, 32, n_t, 65536, dev)
-    rows["fcma_sample_gram"] = check_k4(torch, x1, x2, 4, 3)
-    check_k4(torch, x1, x2, 0, 3)
+    k4 = check_k4(torch, x1, x2, 4, 3)
+    rows["fcma_sample_gram"], rows["fcma_sample_gram_ffma"] = \
+        k4["tc"], k4["ffma"]
+    k4 = check_k4(torch, x1, x2, 0, 3)
+    rows["fcma_sample_gram_raw"], rows["fcma_sample_gram_raw_ffma"] = \
+        k4["tc"], k4["ffma"]
     del x1, x2
     torch.cuda.empty_cache()
     x2 = normalized_epochs(torch, rng, 96, n_t, 1024, dev)
     x1 = normalized_epochs(torch, rng, 96, n_t, 8192, dev)
-    check_k4(torch, x1, x2, 12, 3)
+    rows["fcma_sample_gram_n96"] = check_k4(torch, x1, x2, 12, 3)["ffma"]
     del x1, x2
     torch.cuda.empty_cache()
 
@@ -482,7 +510,8 @@ def phase_kernels(torch, dev):
     rows["fcma_gram_e80"] = check_k1(torch, blk, data, eps, 3)["ffma"]
     rows["fcma_corr_normalize_e80"] = check_k3(
         torch, blk[:, :, :128].contiguous(), data, eps, 3)["ffma"]
-    rows["fcma_sample_gram_n80"] = check_k4(torch, data, blk, eps, 3)
+    rows["fcma_sample_gram_n80"] = check_k4(torch, data, blk, eps,
+                                            3)["ffma"]
     del blk, data
     torch.cuda.empty_cache()
     for name, row in rows.items():
@@ -770,6 +799,8 @@ def run_long_subjects(torch, rows):
         fail("long subjects: K1 took the one-tile tensor-core kernel")
     if launches["fcma_corr_normalize_tc"] != 0:
         fail("long subjects: K3 took the tensor-core kernel")
+    if launches["fcma_sample_gram_tc"] != 0:
+        fail("long subjects: K4 took the one-tile tensor-core kernel")
     accs = check_accuracies(results, n_v)
     check_accuracies(host, 128)
     if pred.shape != (n_e // 2,):
@@ -1141,9 +1172,14 @@ def main():
                      dict(num_processed_voxels=128, epochs_per_subj=4),
                      pairs, labels, None, labels[n_train:],
                      dict(num_training_samples=n_train))
-    rows["fcma_sample_gram"]["launches"] = fk.launches()["fcma_sample_gram"]
-    if rows["fcma_sample_gram"]["launches"] < 1:
-        fail("the portioned classifier did not run K4")
+    k4 = fk.launches()
+    rows["fcma_sample_gram"]["launches"] = k4["fcma_sample_gram_tc"]
+    log(f"  K4 launches {k4['fcma_sample_gram']}, "
+        f"{k4['fcma_sample_gram_tc']} of them tensor-core")
+    if k4["fcma_sample_gram"] < 1 or \
+            k4["fcma_sample_gram_tc"] != k4["fcma_sample_gram"]:
+        fail("the portioned classifier did not run K4 on the tensor-core "
+             "kernel alone")
     compare_classifier_with_plain(torch, clf, pairs, labels, n_train)
     del clf, pairs
     torch.cuda.empty_cache()
@@ -1175,9 +1211,16 @@ def main():
     ffma_launches += rows["fcma_gram_e80"]["launches"]
     for name in ("fcma_gram_ffma", "fcma_gram_ffma_e16"):
         rows[name]["launches"] = ffma_launches
-    # fcma_corr.cu's K3 over the paths: the long-subject host-CV branch
+    # fcma_corr.cu's K3 and fcma_sample_gram.cu's K4 over the paths:
+    # the long-subject host-CV branch and fit; no path runs raw
+    # features or four sample tiles
     rows["fcma_corr_normalize_ffma"]["launches"] = \
         rows["fcma_corr_normalize_e80"]["launches"]
+    rows["fcma_sample_gram_ffma"]["launches"] = \
+        rows["fcma_sample_gram_n80"]["launches"]
+    for name in ("fcma_sample_gram_raw", "fcma_sample_gram_raw_ffma",
+                 "fcma_sample_gram_n96"):
+        rows[name]["launches"] = 0
     torch.cuda.empty_cache()
 
     # the SUMMA ring: K5 at the paths' shapes, then paths A-C
@@ -1194,6 +1237,8 @@ def main():
              csrc + "fcma_corr_tc.cu")
     k4 = ("brainiak_tpu/ops/pallas_kernels.py:311",
           csrc + "fcma_sample_gram.cu")
+    k4_tc = ("brainiak_tpu/ops/pallas_kernels.py:311",
+             csrc + "fcma_sample_gram_tc.cu")
     origin = {
         "epoch_zscore": ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
                          csrc + "epoch_norm.cu"),
@@ -1201,7 +1246,9 @@ def main():
         "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1, "fcma_gram_e80": k1,
         "fcma_corr_normalize": k3_tc, "fcma_corr_normalize_b256": k3_tc,
         "fcma_corr_normalize_ffma": k3, "fcma_corr_normalize_e80": k3,
-        "fcma_sample_gram": k4, "fcma_sample_gram_n80": k4,
+        "fcma_sample_gram": k4_tc, "fcma_sample_gram_raw": k4_tc,
+        "fcma_sample_gram_ffma": k4, "fcma_sample_gram_raw_ffma": k4,
+        "fcma_sample_gram_n96": k4, "fcma_sample_gram_n80": k4,
     }
     k5 = ("brainiak_tpu/ops/kernels/ring.py:116", csrc + "ring_mma.cu")
     origin.update(ring_mma=k5, ring_mma_n4=k5, ring_mma_v8192=k5)

@@ -436,6 +436,45 @@ def test_corr_route_forced():
         tk.corr_route(10, 4)
 
 
+@pytest.mark.parametrize("n,norm_unit,expect", [
+    (32, 4, ("tc", 32, 32, 1)),
+    (32, 0, ("tc", 32, 32, 1)),
+    (24, 8, ("tc", 32, 32, 1)),
+    (24, 1, ("tc", 32, 32, 1)),
+    (30, 10, ("tc", 32, 30, 1)),
+    (16, 2, ("tc", 16, 16, 1)),
+    (12, 12, ("tc", 16, 12, 1)),
+    (8, 0, ("tc", 16, 16, 1)),
+    (33, 0, ("ffma", 32, 32, 2)),
+    (40, 4, ("ffma", 32, 32, 2)),
+    (96, 12, ("ffma", 32, 24, 4)),
+    (40, 40, ("ffma", 32, 32, 2)),
+    (80, 40, ("ffma", 32, 32, 3)),
+])
+def test_sample_gram_route(n, norm_unit, expect):
+    """One sample tile of whole groups (raw features: groups of one)
+    takes K4's tensor-core kernel; more tiles, or groups longer than a
+    tile, the FMA one."""
+    assert tk.sample_gram_route(n, norm_unit) == expect
+    assert tk.sample_gram_route(n, norm_unit)[1:] == tk.epoch_tiles(
+        n, max(norm_unit, 1))
+
+
+def test_sample_gram_route_forced():
+    assert tk.sample_gram_route(32, 4, route="ffma") == ("ffma", 32, 32, 1)
+    assert tk.sample_gram_route(12, 0, route="tc") == ("tc", 16, 16, 1)
+    with pytest.raises(ValueError, match="one sample tile"):
+        tk.sample_gram_route(96, 12, route="tc")
+    with pytest.raises(ValueError, match="one sample tile"):
+        tk.sample_gram_route(40, 40, route="tc")
+    with pytest.raises(ValueError, match="one sample tile"):
+        tk.sample_gram_route(33, 1, route="tc")
+    with pytest.raises(ValueError, match="'tc' or 'ffma'"):
+        tk.sample_gram_route(32, 4, route="wgmma")
+    with pytest.raises(ValueError, match="multiple"):
+        tk.sample_gram_route(30, 4)
+
+
 def test_tma_operand_reads_aligned_views_in_place():
     """K3's tensor-core operands: a column slice of a wider tensor whose
     rows are 16-byte aligned passes as it is (no copy), whatever its
@@ -527,7 +566,8 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
     assert tk.launches() == {"fcma_gram": 0, "fcma_gram_tc": 0,
                              "fcma_corr_normalize": 0,
                              "fcma_corr_normalize_tc": 0,
-                             "fcma_sample_gram": 0}
+                             "fcma_sample_gram": 0,
+                             "fcma_sample_gram_tc": 0}
 
 
 def _jax_feature_gram(x1, x2, norm_unit):
@@ -557,6 +597,85 @@ def test_k4_plain_matches_pallas_interpret_ragged(n, norm_unit):
     assert got.shape == (n, n)
     for ref in (want, xla):
         assert np.all(np.abs(got - ref) <= 1e-4 * abs(ref[0, 0]))
+
+
+def _sample_gram_3xtf32(x1, x2, norm_unit):
+    """K4's tensor-core route (csrc/fcma_sample_gram_tc.cu), its
+    products emulated: the narrower region as the block operand, r in
+    3xTF32 as K1's route forms it, Fisher-z'd and z-scored per group of
+    norm_unit samples (raw r when norm_unit <= 1), then the Gram."""
+    blk, data = (x2, x1) if x2.shape[2] < x1.shape[2] else (x1, x2)
+    corr = _corr_3xtf32(blk, data)
+    if norm_unit > 1:
+        corr = within_subject_normalization(corr, norm_unit)
+    feats = corr.transpose(0, 1).reshape(corr.shape[1], -1)
+    return feats @ feats.T
+
+
+@pytest.mark.parametrize("n,norm_unit", [(12, 4), (12, 0), (32, 8)])
+def test_k4_3xtf32_matches_pallas_interpret_ragged(n, norm_unit):
+    """The tensor-core route's arithmetic at a ragged one-tile shape (13
+    block voxels, 37 voxels, T=37 not a multiple of the 8-row stage)
+    within 1e-4 of K[0, 0] of the Pallas kernel's Gram and of the
+    plain version's."""
+    assert tk.sample_gram_route(n, norm_unit)[0] == "tc"
+    x1, x2 = _two_mask(n * 7 + norm_unit, n, 37, 37, 13)
+    want = np.asarray(jk4(jnp.asarray(_pad(x1, 48)),
+                          jnp.asarray(_pad(x2, 16)), norm_unit, tile_1=16,
+                          tile_2=16, interpret=True))
+    got = _sample_gram_3xtf32(_t(x1), _t(x2), norm_unit).numpy()
+    plain = tk.fcma_sample_gram_plain(_t(x1), _t(x2), norm_unit).numpy()
+    for ref in (want, plain):
+        assert np.all(np.abs(got - ref) <= 1e-4 * abs(ref[0, 0]))
+
+
+@pytest.mark.parametrize("norm_unit", [0, 4])
+@pytest.mark.parametrize("widths", [(9, 4), (3, 7)])
+def test_classifier_cpu_matches_pallas_sample_gram(norm_unit, widths):
+    """The port's portioned Classifier on the CPU (K4's plain version)
+    at the sizes of tests/test_torch_classifier.py (20 samples of 12
+    TRs, regions of 3-9 voxels, 12 of them for training): its test
+    similarities are the JAX package's fcma_sample_gram (Pallas,
+    interpret mode) under the same digit shrink, within 1e-4 of the
+    shrunk K[0, 0]."""
+    from sklearn import svm
+
+    from brainiak_tpu_torch.fcma import Classifier
+
+    r1, r2 = _two_mask(31 + norm_unit, 20, 12, widths[0], widths[1])
+    wide, narrow = (r1, r2) if widths[0] > widths[1] else (r2, r1)
+    gram = np.asarray(jk4(jnp.asarray(_pad(wide, 16)),
+                          jnp.asarray(_pad(narrow, 16)), norm_unit,
+                          tile_1=16, tile_2=16, interpret=True))
+    digits = len(str(int(gram[0, 0])))
+    scale = 10.0 ** (2 - digits) if digits > 2 else 1.0
+    clf = Classifier(svm.SVC(kernel="precomputed"), num_processed_voxels=2,
+                     epochs_per_subj=norm_unit, device="cpu")
+    clf.fit(list(zip(r1, r2)), [0, 1] * 10, num_training_samples=12)
+    assert clf.num_digits_ == digits
+    assert clf.test_data_.shape == (8, 12)
+    assert np.all(np.abs(clf.test_data_ - gram[12:, :12] * scale)
+                  <= 1e-4 * abs(gram[0, 0]) * scale)
+
+
+def test_k4_plain_groups_of_two_miss_float64():
+    """Why tests/test_torch_gpu.py holds K4 at norm_unit=2 to float64
+    and not to the plain version: with two samples a group the one-pass
+    variance E[z^2] - mean^2 cancels where the group's two Fisher-z
+    values nearly coincide, and the plain fp32 version itself lands
+    more than 1e-4 of K[0, 0] from the same formula in float64 (at the
+    GPU test's N=32, 37 x 203 voxels, T=37); with four samples a group
+    it stays within 1e-6."""
+    x1, x2 = _two_mask(11, 32, 37, 37, 203)
+    for norm_unit, low, high in ((2, 1e-4, 1e-2), (4, 0, 1e-6)):
+        plain = tk.fcma_sample_gram_plain(_t(x1), _t(x2), norm_unit)
+        corr = torch.einsum('ntb,ntv->bnv', _t(x1).double(),
+                            _t(x2).double())
+        feats = within_subject_normalization(corr, norm_unit)
+        feats = feats.transpose(0, 1).reshape(32, -1)
+        exact = feats @ feats.T
+        err = ((plain.double() - exact).abs().max() / exact[0, 0]).item()
+        assert low < err <= high, (norm_unit, err)
 
 
 def test_k4_plain_is_k1_summed_over_block_voxels():

@@ -14,7 +14,8 @@ import torch
 
 from brainiak_tpu_torch.ops import fcma_kernels as fk
 from brainiak_tpu_torch.ops.correlation import correlate_epochs
-from brainiak_tpu_torch.ops.fisherz import fisher_z
+from brainiak_tpu_torch.ops.fisherz import (fisher_z,
+                                            within_subject_normalization)
 from brainiak_tpu_torch.ops.kernels import epoch_norm as en
 
 pytestmark = pytest.mark.gpu
@@ -84,7 +85,8 @@ def test_fcma_kernels(cuda, e, t, b, v, eps):
     assert fk.launches() == {"fcma_gram": 1, "fcma_gram_tc": int(e <= 32),
                              "fcma_corr_normalize": 1,
                              "fcma_corr_normalize_tc": int(eps <= 4),
-                             "fcma_sample_gram": 0}
+                             "fcma_sample_gram": 0,
+                             "fcma_sample_gram_tc": 0}
     want = fk.fcma_gram_plain(blk, data, eps)
     scale = want[:, :1, :1].abs()
     assert torch.all((gram - want).abs() <= 1e-4 * scale)
@@ -328,6 +330,151 @@ def test_fcma_sample_gram_kernel(cuda, n, norm_unit):
             rms = want[cross].pow(2).mean().sqrt()
             assert torch.all(diff[cross] <= 1e-3 * rms)
     assert fk.launches()["fcma_sample_gram"] == 2
+    one_tile = fk.sample_gram_route(n, norm_unit)[0] == "tc"
+    assert fk.launches()["fcma_sample_gram_tc"] == 2 * one_tile
+
+
+def _cross(n, norm_unit, device):
+    group = torch.arange(n, device=device) // max(norm_unit, 1)
+    return group[:, None] != group[None, :]
+
+
+def _assert_k4_close(got, want, norm_unit):
+    """K4's rule in the tests: every entry within 1e-4 of K[0, 0]; the
+    entries across sample groups (of the order of sqrt(K[0, 0]), where
+    a wrong product shows first) within 1e-3 of their own RMS."""
+    n = want.shape[0]
+    assert got.shape == (n, n) and torch.isfinite(got).all()
+    cross = _cross(n, norm_unit, want.device)
+    diff = (got - want).abs()
+    assert torch.all(diff <= 1e-4 * want[0, 0].abs())
+    if cross.any():
+        rms = want[cross].pow(2).mean().sqrt()
+        assert torch.all(diff[cross] <= 1e-3 * rms)
+
+
+def _sample_gram_f64(x1, x2, norm_unit):
+    """K4's formula (the plain version's: one-pass variance) in
+    float64."""
+    corr = torch.einsum('ntb,ntv->bnv', x1.double(), x2.double())
+    if norm_unit > 1:
+        corr = within_subject_normalization(corr, norm_unit)
+    feats = corr.transpose(0, 1).reshape(corr.shape[1], -1)
+    return feats @ feats.T
+
+
+@pytest.mark.parametrize("n,norm_unit", [
+    (n, u) for n in (8, 16, 24, 32) for u in (0, 1, 2, 4, 8)
+    if u <= 1 or n % u == 0])
+def test_fcma_sample_gram_routes_agree(cuda, n, norm_unit):
+    """K4's tensor-core kernel on one sample tile (16 or 32 samples of
+    capacity, N below it too) against the plain version and against
+    fcma_sample_gram.cu's FMA kernel forced on the same inputs, each
+    launched as asked.  Ragged widths: 37 block voxels (the last
+    block-voxel tile mostly padding, which must add exactly 0) and
+    203 voxels (rows not 16-byte aligned: copied once), T=37 (not a
+    whole 8-row stage).  Two-region inputs (no |r| near 1).
+
+    Groups of two samples: the one-pass variance E[z^2] - mean^2 of
+    the formula cancels where a group's two Fisher-z values nearly
+    coincide, so an fp32 evaluation, the plain version's too, can miss
+    1e-4 of K[0, 0] (tests/test_torch_fcma_kernels.py::
+    test_k4_plain_groups_of_two_miss_float64).  There both kernels are
+    held to the formula in float64, within four times the plain fp32
+    version's own largest error (at least the rule's 1e-4 of K[0, 0]
+    and 1e-3 of the cross-group RMS), and not to each other."""
+    d = _normalized(100 * n + norm_unit, n, 37, 203 + 37, cuda)
+    x1, x2 = d[:, :, :203].contiguous(), d[:, :, 203:].contiguous()
+    assert fk.sample_gram_route(n, norm_unit)[0] == "tc"
+    want = fk.fcma_sample_gram_plain(x1, x2, norm_unit)
+    got = {}
+    for route in ("tc", "ffma"):
+        fk.reset_launches()
+        got[route] = fk._kernel_sample_gram(x1, x2, norm_unit, route=route)
+        assert fk.launches()["fcma_sample_gram"] == 1
+        assert fk.launches()["fcma_sample_gram_tc"] == int(route == "tc")
+        assert torch.isfinite(got[route]).all()
+    if norm_unit != 2:
+        for route in ("tc", "ffma"):
+            _assert_k4_close(got[route], want, norm_unit)
+        _assert_k4_close(got["tc"], got["ffma"], norm_unit)
+        return
+    exact = _sample_gram_f64(x2, x1, norm_unit)
+    cross = _cross(n, norm_unit, exact.device)
+    rms = exact[cross].pow(2).mean().sqrt()
+    plain_err = (want.double() - exact).abs()
+    for route in ("tc", "ffma"):
+        err = (got[route].double() - exact).abs()
+        assert err.max() <= max(1e-4 * exact[0, 0].abs(),
+                                4 * plain_err.max()), route
+        assert err[cross].max() <= max(1e-3 * rms,
+                                       4 * plain_err[cross].max()), route
+
+
+@pytest.mark.parametrize("n,norm_unit", [(16, 4), (32, 8), (24, 12)])
+def test_fcma_sample_gram_tc_self_pairs(cuda, n, norm_unit):
+    """Region 2 holds region 1 (the classifier's two-mask fits): every
+    region-1 voxel paired with itself has r = 1 up to rounding, where
+    the clamped Fisher-z turns the last ulp of r into an O(1) change.
+    The tensor-core kernel forms those r again in fp32 FMA, as the FMA
+    kernel does, so its Gram is the FMA kernel's and the plain
+    version's within K4's rule."""
+    d = _normalized(7 * n + norm_unit, n, 37, 203, cuda)
+    x1, x2 = d, d[:, :, 50:87].contiguous()
+    got = {route: fk._kernel_sample_gram(x1, x2, norm_unit, route=route)
+           for route in ("tc", "ffma")}
+    want = fk.fcma_sample_gram_plain(x1, x2, norm_unit)
+    for route in ("tc", "ffma"):
+        _assert_k4_close(got[route], want, norm_unit)
+    _assert_k4_close(got["tc"], got["ffma"], norm_unit)
+
+
+def test_fcma_sample_gram_tc_misaligned_rows(cuda, monkeypatch):
+    """A region whose rows do not start 16-byte aligned (a view one
+    float into its storage) is copied once into aligned rows, the
+    other (20 voxels, aligned) read in place; the Gram is the one of
+    its aligned copy, bit for bit, and the plain version's."""
+    d = _normalized(17, 24, 30, 203 + 20, cuda)
+    x2 = d[:, :, 203:].contiguous()
+    store = torch.empty(24 * 30 * 203 + 1, device=cuda)
+    store[1:] = d[:, :, :203].reshape(-1)
+    x1 = store[1:].view(24, 30, 203)
+    assert x1.is_contiguous() and x1.data_ptr() % 16
+    aligned = fk.aligned_rows_layout(x1.shape, cuda)
+    aligned.copy_(x1)
+    copies = []
+    layout = fk.aligned_rows_layout
+
+    def counted(*args):
+        copies.append(args)
+        return layout(*args)
+
+    monkeypatch.setattr(fk, "aligned_rows_layout", counted)
+    fk.reset_launches()
+    got = fk.fcma_sample_gram(x1, x2, 4)
+    assert len(copies) == 1 and fk.launches()["fcma_sample_gram_tc"] == 1
+    assert torch.equal(got, fk.fcma_sample_gram(aligned, x2, 4))
+    assert len(copies) == 1
+    _assert_k4_close(got, fk.fcma_sample_gram_plain(x1, x2, 4), 4)
+
+
+def test_fcma_sample_gram_tc_refuses_several_tiles(cuda):
+    """A forced "tc" is refused on calls of several sample tiles, by
+    the route and by the C entry point itself."""
+    for n, norm_unit in ((48, 4), (40, 40), (33, 0)):
+        x = torch.zeros(n, 6, 8, device=cuda)
+        with pytest.raises(ValueError, match="one sample tile"):
+            fk._kernel_sample_gram(x, x, norm_unit, route="tc")
+    fn = fk._fn("fcma_sample_gram_tc", "fcma_sample_gram_tc_f32")
+    x = torch.zeros(48, 8, 8, device=cuda)
+    partial = torch.empty(64, 32, 32, device=cuda)
+    out = torch.empty(48, 48, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, norm_unit in ((48, 4), (32, 3)):
+        err = fn(x.data_ptr(), x.data_ptr(), partial.data_ptr(),
+                 out.data_ptr(), n, 8, 8, 8, norm_unit, 32, 1, 8, 64, 8,
+                 64, stream)
+        assert err == 1  # cudaErrorInvalidValue
 
 
 def test_fcma_sample_gram_refuses_bad_inputs(cuda):

@@ -15,7 +15,8 @@ Precision names follow the JAX package (``'highest'`` / ``'high'`` /
 'default'  bf16 operands, fp32 result
 ========== ===========================================
 
-The hand-written kernels compute in fp32 FMA whatever the name says.
+The hand-written kernels keep fp32 accuracy (fp32 FMA, or 3xTF32 on
+the tensor cores) whatever the name says.
 """
 
 import contextlib

@@ -47,7 +47,7 @@ import torch
 
 from ..device import matmul_precision, resolve_device
 from ..parallel.mesh import Sharded, shard_along
-from .kernels.ring import ring_mma
+from .kernels.ring import ring_mma, split
 
 logger = logging.getLogger(__name__)
 
@@ -147,7 +147,9 @@ def _pad_cols(arr, multiple):
 def _ring(z, z_b, ring_step, precision):
     """The ring program on two :class:`Sharded` operands ([T, B] on
     each of n positions): the [n B, n B] product ``z.T @ z_b`` on the
-    first position's device."""
+    first position's device.  On CUDA it holds, beside the output, each
+    operand's shards split for K5's kernel: 8 * t_pad bytes a column
+    (``kernels.ring.Split``; one split when ``z_b`` is ``z``)."""
     n = len(z.chunks)
     devices = z.devices
     block = z_b.chunks[0].shape[1]
@@ -160,18 +162,23 @@ def _ring(z, z_b, ring_step, precision):
         full = None
         outs = [torch.empty((block, width), dtype=torch.float32, device=d)
                 for d in devices]
-    rotating = list(z_b.chunks)
+    resident, rotating = list(z.chunks), list(z_b.chunks)
+    if ring_step != "unfused" and all(d.type == "cuda" for d in devices):
+        # K5's kernel reads its operands split: split each shard once
+        resident = [split(c) for c in resident]
+        rotating = list(resident) if z_b is z else \
+            [split(c) for c in rotating]
     products = [[] for _ in range(n)]
     for s in range(n):
         for i in range(n):
             if ring_step == "unfused":
                 with matmul_precision(precision) as dtype:
                     products[i].append(torch.matmul(
-                        z.chunks[i].T.to(dtype),
+                        resident[i].T.to(dtype),
                         rotating[i].to(dtype)).float())
             else:
                 # the panel seen at step s came from position i - s
-                ring_mma(outs[i], z.chunks[i], rotating[i], (i - s) % n,
+                ring_mma(outs[i], resident[i], rotating[i], (i - s) % n,
                          n_shards=n, precision=precision)
         if s + 1 < n:
             # on the same device .to() returns the panel itself
@@ -264,7 +271,9 @@ def gram(data, mesh=None, data_b=None, axis_names=None, precision=None,
     (default :func:`replicated_budget_bytes`), one ``torch.matmul`` on
     ``device`` computes it; over the budget, and with a mesh, the SUMMA
     ring does.  ``force='replicated'`` raises instead of exceeding the
-    budget; ``force='summa'`` always takes the ring.
+    budget; ``force='summa'`` always takes the ring, which holds the
+    [V, V] output and, on CUDA, the split operands of K5's kernel
+    (8 * T bytes a voxel and operand, T rounded up to 32).
     ``normalize=False`` returns the raw ``data.T @ data_b``.  ``device``
     defaults to ``"cuda"`` and raises without a card.
     """

@@ -38,10 +38,11 @@ first one that goes wrong:
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
    operations over the peak rate of their type: fp32 FMA at 67
-   TFLOP/s, and for the tensor-core K1, K3 and K4 their correlation's
-   three TF32 products at 494.7 TFLOP/s (plus K1's and K4's Gram in
-   fp32; the Grams counted as their E (E + 1) / 2 distinct entries,
-   being symmetric).
+   TFLOP/s, and for the tensor-core K1, K3, K4 and K5 their
+   correlation's or product's three TF32 products at 494.7 TFLOP/s
+   (plus K1's and K4's Gram in fp32; the Grams counted as their
+   E (E + 1) / 2 distinct entries, being symmetric, and so K5's block
+   when its panel is the resident block itself).
 3. Main path, whole brain: 8 subjects x 600 TRs on a 64x64x16 volume
    (65,536 voxels), 2 conditions x 2 epochs of 150 TRs each (E=32,
    4 epochs per subject), mask1 = 1024 voxels, mask2 = the whole volume;
@@ -70,23 +71,37 @@ first one that goes wrong:
    ``Classifier`` fit through K4 (the FMA kernel: two sample tiles),
    each held against its plain path.
 7. K5, the SUMMA ring step, against its plain version (``mma_update``)
-   on z-scored inputs at (a) T=600, n_local=B=65536, one shard (the
-   whole-brain one-card ring, a 17.2 GB block); (b) T=600,
+   on z-scored inputs, through the tensor-core kernel that every call
+   takes (ring_mma_tc.cu: a pre-pass splits the operands, then 3xTF32
+   wgmma; timed on operands split once, as the ring splits them), at
+   (a) T=600, n_local=B=65536, one shard, the panel being the
+   resident block (the whole-brain one-card ring's Gram, a 17.2 GB
+   block), and on the same inputs through ring_mma.cu's FMA kernel
+   forced (route="ffma"), with the card's SM clock and power sampled
+   while the tensor-core kernel and cuBLAS run; (b) T=600,
    n_local=B=16384, owner 2 of 4 (one step of the 4-position ring,
    the other three blocks held bit-identical to a sentinel); (c)
    T=7, n_local=130, B=67, owner 1 of 3 with a NaN column (ragged
-   edges); and at T=600, n_local=B=8192 (path C's step).
+   edges; both kernels); at T=600, n_local=B=8192 with a panel of its
+   own (path C's step); and on unnormalized inputs (scales 1e3 and
+   1e-3) against the float64 product, within four times the fp32
+   product's error.  The pre-pass kernel's hi and lo are held
+   bit-identical to ``split_kmajor`` (row ``ring_split``).
 8. Ring path A: ``distla.gram`` of one whole-brain subject (T=600,
    V=65,536) on the one-card mesh at the default 8 GiB budget, which
-   the 17.3 GB working set exceeds, so the ring runs (one K5 launch);
-   held against the plain product in row slabs; warm seconds, K5's
-   device time in a profiled run, peak device memory.
+   the 17.3 GB working set exceeds, so the ring runs (one K5 launch,
+   which must take the tensor-core kernel, and one split of its one
+   operand); held against the plain product in row slabs; warm
+   seconds, K5's device time in a profiled run, peak device memory
+   with the split buffers.
 9. Ring path B: the same data on a 4-position mesh of the one card
-   (16 K5 launches, owners other than 0), held against path A.
+   (16 K5 launches, owners other than 0, all on the tensor-core
+   kernel, and 4 splits: each shard once), held against path A.
 10. Ring path C: leave-one-out ``isfc(data, mesh=...)`` of 8 subjects
    x 600 TRs x 8,192 voxels (planted shared signal) on the one-card
-   mesh (8 K5 launches), held against ``isfc(data)`` without a mesh;
-   ``isc`` leave-one-out and pairwise on the same data.
+   mesh (8 K5 launches, all on the tensor-core kernel, 16 splits),
+   held against ``isfc(data)`` without a mesh; ``isc`` leave-one-out
+   and pairwise on the same data.
 
 It prints progress lines, then one JSON line with every kernel's
 figures, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -835,82 +850,229 @@ def slab_max_err(torch, got, z, z_b, rows=4096):
     return worst
 
 
+def clock_power(torch, fn, reps):
+    """SM clock and board power that ``nvidia-smi`` samples every 50 ms
+    while fn() runs ``reps`` times back to back, the first quarter of
+    the samples (the lead-in) dropped: a line of text."""
+    fn()
+    torch.cuda.synchronize()
+    mon = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        mon.terminate()
+        try:
+            text = mon.communicate(timeout=10)[0]
+        except subprocess.TimeoutExpired:
+            mon.kill()
+            text = mon.communicate()[0]
+    samples = [tuple(float(v) for v in line.split(","))
+               for line in text.splitlines() if line.count(",") == 1]
+    busy = samples[len(samples) // 4:]
+    if not busy:
+        return "no nvidia-smi samples"
+    clocks = sorted(c for c, _ in busy)
+    power = sorted(w for _, w in busy)
+    return (f"SM clock MHz min/median/max {clocks[0]:.0f}/"
+            f"{clocks[len(clocks) // 2]:.0f}/{clocks[-1]:.0f}, power W "
+            f"median {power[len(power) // 2]:.1f} max {power[-1]:.1f} "
+            f"({len(busy)} samples)")
+
+
 def check_k5(torch, rng, n_t, n_local, n_block, n_shards, owner, dev,
-             reps, nan_col=None):
-    """K5 against mma_update on z-scored inputs; the other column
-    blocks held bit-identical to a sentinel.  The row of its figures
-    (reps > 0) or None."""
+             reps, same=False, nan_col=None, routes=("tc",), clocks=False):
+    """K5 against mma_update on z-scored inputs, on each of ``routes``
+    (``"tc"``: ring_mma_tc.cu, the route of every call, timed on
+    operands split once as the ring splits them; ``"ffma"``:
+    ring_mma.cu, forced) on the same inputs; the other column blocks
+    held bit-identical to a sentinel.  ``same``: the panel is the
+    resident block itself (one shard of a Gram), so the function is
+    symmetric and its bound counts n (n + 1) / 2 entries.  ``clocks``:
+    the card's SM clock and power while the tensor-core kernel and
+    cuBLAS run.  ``{route: row of its figures}`` (reps > 0) or None."""
     from brainiak_tpu_torch.ops.kernels import ring as kr
 
     z = zscored_cols(torch, rng, n_t, n_local, dev)
-    rot = z if n_shards == 1 and n_block == n_local else \
-        zscored_cols(torch, rng, n_t, n_block, dev)
+    rot = z if same else zscored_cols(torch, rng, n_t, n_block, dev)
     if nan_col is not None:
         z[:, nan_col] = float("nan")
         rot[:, nan_col % n_block] = float("nan")
     width = n_shards * n_block
-    out = torch.full((n_local, width), -7.0, device=dev)
-    got = kr.ring_mma(out, z, rot, owner, n_shards=n_shards)
-    torch.cuda.synchronize()
     blk = slice(owner * n_block, (owner + 1) * n_block)
-    for k in range(n_shards):
-        if k != owner and not bool(
-                (got[:, k * n_block:(k + 1) * n_block] == -7.0).all()):
-            fail(f"K5 wrote outside its block (block {k})")
-    err = slab_max_err(torch, got[:, blk], z, rot)
-    label = (f"K5 ring_mma T={n_t} n_local={n_local} B={n_block} "
-             f"n={n_shards} owner={owner}")
-    if nan_col is not None:
-        n_nan = int(torch.isnan(got).sum())
-        label += f" NaN entries {n_nan} (want {n_local + n_block - 1})"
-        if n_nan != n_local + n_block - 1:
-            fail("K5 NaN entries are not one row and one column")
-    log(f"{label}: max_abs_err {err:.3e} (atol {K5_ATOL}); other blocks "
-        "bit-identical to the sentinel")
-    if not err <= K5_ATOL:
-        fail("K5 disagrees with its plain version")
-    if not reps:
-        return None
-    b_ms, b_by = bound_ms(4 * (n_t * n_local + n_t * n_block
-                               + n_local * n_block),
-                          2 * n_t * n_local * n_block)
-    row = {"max_abs_err": err,
-           "ms": cuda_ms(torch, lambda: kr.ring_mma(
-               got, z, rot, owner, n_shards=n_shards), reps),
-           "plain_ms": cuda_ms(torch, lambda: kr.mma_update(
-               got, z, rot, owner * n_block), 1),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": cuda_ms(torch, lambda: torch.matmul(z.T, rot),
-                                 reps)}
+    rows = {}
+    got = None
+    for route in routes:
+        if got is None:
+            got = torch.full((n_local, width), -7.0, device=dev)
+        else:
+            got[:, blk] = -7.0
+        kr._kernel_ring_mma(got, z, rot, owner, n_shards=n_shards,
+                            route=route)
+        torch.cuda.synchronize()
+        for k in range(n_shards):
+            if k != owner and not bool(
+                    (got[:, k * n_block:(k + 1) * n_block] == -7.0).all()):
+                fail(f"K5 ({route}) wrote outside its block (block {k})")
+        err = slab_max_err(torch, got[:, blk], z, rot)
+        label = (f"K5 ring_mma ({route}) T={n_t} n_local={n_local} "
+                 f"B={n_block} n={n_shards} owner={owner}"
+                 f"{' panel = resident block' if same else ''}")
+        if nan_col is not None:
+            n_nan = int(torch.isnan(got).sum())
+            label += f" NaN entries {n_nan} (want {n_local + n_block - 1})"
+            if n_nan != n_local + n_block - 1:
+                fail("K5 NaN entries are not one row and one column")
+        log(f"{label}: max_abs_err {err:.3e} (atol {K5_ATOL}); other "
+            "blocks bit-identical to the sentinel")
+        if not err <= K5_ATOL:
+            fail(f"K5 ({route}) disagrees with its plain version")
+        if not reps:
+            continue
+        # each input read once, the block written once; a symmetric
+        # block's products counted once a pair
+        n_bytes = 4 * (n_t * n_local + (0 if same else n_t * n_block)
+                       + n_local * n_block)
+        n_flops = n_t * n_local * (n_local + 1) if same else \
+            2 * n_t * n_local * n_block
+        b_ms, b_by = bound_ms(n_bytes, 0, 3 * n_flops) if route == "tc" \
+            else bound_ms(n_bytes, n_flops)
+        if route == "tc":
+            a = kr.split(z)
+            b = a if same else kr.split(rot)
+        else:
+            a, b = z, rot
+
+        def step():
+            kr._kernel_ring_mma(got, a, b, owner, n_shards=n_shards,
+                                route=route)
+
+        def library():
+            torch.matmul(z.T, rot)
+
+        row = {"max_abs_err": err, "ms": cuda_ms(torch, step, reps),
+               "plain_ms": cuda_ms(torch, lambda: kr.mma_update(
+                   got, z, rot, owner * n_block), 1),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(torch, library, reps)}
+        log(f"  ms {row['ms']:.3f} plain_ms {row['plain_ms']:.3f} bound_ms "
+            f"{b_ms:.3f} ({b_by}) library_ms {row['library_ms']:.3f}")
+        if clocks and route == "tc":
+            for what, fn, ms in (("tensor-core K5", step, row["ms"]),
+                                 ("cuBLAS", library, row["library_ms"])):
+                log(f"  {what}, back to back: "
+                    f"{clock_power(torch, fn, max(5, int(1500 / ms)))}")
+        rows[route] = row
+        del a, b
+    return rows if reps else None
+
+
+def check_k5_raw(torch, rng, dev, n_t=600, n_v=512):
+    """K5's tensor-core kernel on unnormalized inputs (scales 1e3 and
+    1e-3) against the float64 product: within four times the error of
+    the fp32 product (TF32 off)."""
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+
+    for scale in (1e3, 1e-3):
+        z, rot = (torch.from_numpy((rng.standard_normal((n_t, n_v)) * scale)
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(2))
+        got = kr.ring_mma(torch.empty((n_v, n_v), device=dev), z, rot, 0,
+                          n_shards=1)
+        exact = z.double().T @ rot.double()
+        err = (got.double() - exact).abs().max().item()
+        err_plain = (torch.matmul(z.T, rot).double() - exact).abs().max() \
+            .item()
+        log(f"K5 (tc) raw inputs x {scale:g}, T={n_t}, {n_v} x {n_v}: max "
+            f"err vs float64 {err:.4g}, fp32 product's {err_plain:.4g} "
+            f"(rule: within 4x)")
+        if not err <= 4 * err_plain:
+            fail("K5's tensor-core kernel loses accuracy on raw inputs")
+
+
+def check_split(torch, rng, dev, reps):
+    """The tensor-core route's pre-pass kernel against split_kmajor, bit
+    for bit: path A's operand [600, 65536] with a NaN column (timed, a
+    row of its figures), and a ragged strided one (T=7, every other
+    column of 260)."""
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+
+    x = zscored_cols(torch, rng, 600, 65536, dev)
+    x[:, 9] = float("nan")
+    ragged = zscored_cols(torch, rng, 7, 260, dev)[:, ::2]
+    for op in (x, ragged):
+        t_pad = kr.t_padded(op.shape[0])
+        got = kr.split(op)
+        want = kr.split_kmajor(op, t_pad)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got[:2], want))
+        log(f"K5 pre-pass split [{op.shape[0]}, {op.shape[1]}] "
+            f"strides {op.stride()} -> 2 x [{op.shape[1]}, {t_pad}]: "
+            f"bit-identical to split_kmajor: {same}")
+        if not same:
+            fail("K5's pre-pass disagrees with split_kmajor")
+        del got, want
+    n_t, n = x.shape
+    b_ms, b_by = bound_ms(4 * n_t * n + 8 * n * kr.t_padded(n_t), 0)
+    row = {"max_abs_err": 0.0, "ms": cuda_ms(torch, lambda: kr.split(x), reps),
+           "plain_ms": cuda_ms(torch, lambda: kr.split_kmajor(
+               x, kr.t_padded(n_t)), 1),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     log(f"  ms {row['ms']:.3f} plain_ms {row['plain_ms']:.3f} bound_ms "
-        f"{b_ms:.3f} ({b_by}) library_ms {row['library_ms']:.3f}")
+        f"{b_ms:.3f} ({b_by})")
     return row
 
 
-#: K5's shapes: (T, n_local, B, n_shards, owner, timed reps) of path A's
-#: one-card ring, one step of path B's 4-position ring, path C's step
-RING_SHAPES = {"ring_mma": (600, 65536, 65536, 1, 0, 3),
-               "ring_mma_n4": (600, 16384, 16384, 4, 2, 5),
-               "ring_mma_v8192": (600, 8192, 8192, 1, 0, 10)}
+#: K5's kernels by name in a profile: the tensor-core route's product
+#: and pre-pass (ring_mma_tc_kernel, split_kmajor_kernel), the FMA one
+K5_KERNELS = ("ring_mma", "split_kmajor")
+
+
+#: K5's shapes: (T, n_local, B, n_shards, owner, timed reps, panel =
+#: resident block, routes) of path A's one-card ring (a Gram: both
+#: kernels on the same inputs, and the card's clock and power), one
+#: step of path B's 4-position ring, path C's step (the ISFC's panel
+#: is the other subjects' mean)
+RING_SHAPES = {
+    "ring_mma": (600, 65536, 65536, 1, 0, 3, True, ("tc", "ffma")),
+    "ring_mma_n4": (600, 16384, 16384, 4, 2, 5, False, ("tc",)),
+    "ring_mma_v8192": (600, 8192, 8192, 1, 0, 10, False, ("tc",))}
 
 
 def phase_ring_kernel(torch, dev, shapes=RING_SHAPES):
     """K5 at the ring paths' shapes, then at a ragged shape with a NaN
-    column (checked, not timed)."""
+    column on both kernels (checked, not timed), the tensor-core kernel
+    on raw inputs against float64, then the pre-pass against its plain
+    version.  Rows are named as the shapes, the forced FMA kernel's
+    with ``_ffma``; the pre-pass's row is ``ring_split``."""
     rng = np.random.default_rng(SEED + 3)
     rows = {}
-    for name, (n_t, n_local, n_block, n, owner, reps) in shapes.items():
-        rows[name] = check_k5(torch, rng, n_t, n_local, n_block, n, owner,
-                              dev, reps)
+    for name, (n_t, n_local, n_block, n, owner, reps, same, routes) in \
+            shapes.items():
+        got = check_k5(torch, rng, n_t, n_local, n_block, n, owner, dev,
+                       reps, same=same, routes=routes,
+                       clocks=name == "ring_mma")
+        for route, row in got.items():
+            rows[name if route == "tc" else f"{name}_{route}"] = row
         torch.cuda.empty_cache()
-    check_k5(torch, rng, 7, 130, 67, 3, 1, dev, 0, nan_col=5)
+    check_k5(torch, rng, 7, 130, 67, 3, 1, dev, 0, nan_col=5,
+             routes=("tc", "ffma"))
+    check_k5_raw(torch, rng, dev)
+    rows["ring_split"] = check_split(torch, rng, dev, 5)
+    torch.cuda.empty_cache()
     return rows
 
 
-def profile_once(torch, fn, kernel):
+def profile_once(torch, fn, kernels):
     """One call of fn under torch.profiler: the device busy
-    milliseconds, and those of the kernels whose name holds
-    ``kernel``."""
+    milliseconds, and those of the kernels whose name holds one of
+    ``kernels``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -922,7 +1084,7 @@ def profile_once(torch, fn, kernel):
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         busy += ev.self_device_time_total / 1e3
-        if kernel in ev.key:
+        if any(k in ev.key for k in kernels):
             mine += ev.self_device_time_total / 1e3
     return busy, mine
 
@@ -949,9 +1111,14 @@ def run_ring_paths(torch, rows, n_t=600, n_v=65536):
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
     launches = kr.launches()
-    rows["ring_mma"]["launches"] = launches
+    rows["ring_mma"]["launches"] = kr.launches("tc")
+    rows["ring_split"]["launches"] = kr.launches("split")
     if launches < 1:
         fail("ring path A did not run K5")
+    if kr.launches("tc") != launches or kr.launches("split") != launches:
+        fail(f"ring path A: {kr.launches('tc')} of {launches} K5 launches "
+             f"on the tensor-core kernel, {kr.launches('split')} pre-pass "
+             "splits (want one each, the panel being the resident block)")
     del out
     t0 = time.perf_counter()
     out_a = distla.gram(data, mesh=mesh1)
@@ -962,14 +1129,17 @@ def run_ring_paths(torch, rows, n_t=600, n_v=65536):
     err = slab_max_err(torch, out_a, z, z)
     if not bool((out_a[7] == 0).all() and (out_a[:, 7] == 0).all()):
         fail("ring path A: the constant voxel's row or column is not 0")
-    log(f"  path A: K5 launches {launches}, cold {t_cold:.3f} s, warm "
-        f"{t_warm:.3f} s, peak device memory {peak / 2**30:.2f} GiB, "
-        f"max err vs plain {err:.3e} (atol {K5_ATOL})")
+    split_bytes = 8 * n_v * kr.t_padded(n_t)
+    log(f"  path A: K5 launches {launches}, all on the tensor-core kernel, "
+        f"cold {t_cold:.3f} s, warm {t_warm:.3f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB (of which the pre-pass's hi and lo "
+        f"buffers {split_bytes / 2**30:.2f} GiB), max err vs plain "
+        f"{err:.3e} (atol {K5_ATOL})")
     if not err <= K5_ATOL:
         fail("ring path A disagrees with the plain product")
     del z
     busy, k5 = profile_once(
-        torch, lambda: distla.gram(data, mesh=mesh1), "ring_mma_kernel")
+        torch, lambda: distla.gram(data, mesh=mesh1), K5_KERNELS)
     log(f"  path A profiled: device busy {busy:.3f} ms, K5 {k5:.3f} ms "
         f"({k5 / (1e3 * t_warm):.3f} of the unprofiled warm run)")
 
@@ -980,9 +1150,12 @@ def run_ring_paths(torch, rows, n_t=600, n_v=65536):
     out_b = distla.gram(data, mesh=mesh4)
     torch.cuda.synchronize()
     launches = kr.launches()
-    rows["ring_mma_n4"]["launches"] = launches
-    if launches != 16:
-        fail(f"ring path B ran {launches} K5 launches, not 16")
+    rows["ring_mma_n4"]["launches"] = kr.launches("tc")
+    if launches != 16 or kr.launches("tc") != 16 or \
+            kr.launches("split") != 4:
+        fail(f"ring path B ran {launches} K5 launches, "
+             f"{kr.launches('tc')} on the tensor-core kernel, not 16, "
+             f"and {kr.launches('split')} pre-pass splits, not 4")
     del out_b
     t0 = time.perf_counter()
     out_b = distla.gram(data, mesh=mesh4)
@@ -1024,15 +1197,18 @@ def run_isfc_path(torch, rows, n_s=8, n_t=600, n_v=8192):
     ring = tisc.isfc(data, mesh=mesh1)
     t_warm = time.perf_counter() - t0
     launches = kr.launches()
-    rows["ring_mma_v8192"]["launches"] = launches
-    if launches != n_s:
-        fail(f"ring path C ran {launches} K5 launches, not {n_s}")
+    rows["ring_mma_v8192"]["launches"] = kr.launches("tc")
+    if launches != n_s or kr.launches("tc") != n_s or \
+            kr.launches("split") != 2 * n_s:
+        fail(f"ring path C ran {launches} K5 launches, "
+             f"{kr.launches('tc')} on the tensor-core kernel, not {n_s}, "
+             f"and {kr.launches('split')} pre-pass splits, not {2 * n_s}")
     t0 = time.perf_counter()
     tisc._isfc_ring(data, data, mesh1, True, True)
     t_dev = time.perf_counter() - t0
     busy, k5 = profile_once(
         torch, lambda: tisc._isfc_ring(data, data, mesh1, True, True),
-        "ring_mma_kernel")
+        K5_KERNELS)
     t0 = time.perf_counter()
     dense = tisc.isfc(data)
     t_dense = time.perf_counter() - t0
@@ -1251,7 +1427,12 @@ def main():
         "fcma_sample_gram_n96": k4, "fcma_sample_gram_n80": k4,
     }
     k5 = ("brainiak_tpu/ops/kernels/ring.py:116", csrc + "ring_mma.cu")
-    origin.update(ring_mma=k5, ring_mma_n4=k5, ring_mma_v8192=k5)
+    k5_tc = ("brainiak_tpu/ops/kernels/ring.py:116",
+             csrc + "ring_mma_tc.cu")
+    origin.update(ring_mma=k5_tc, ring_mma_n4=k5_tc, ring_mma_v8192=k5_tc,
+                  ring_split=k5_tc, ring_mma_ffma=k5)
+    # no path forces ring_mma.cu
+    rows["ring_mma_ffma"]["launches"] = 0
     kernels = [dict(name=name, route="cuda", source=origin[name][1],
                     replaces=origin[name][0], launches=row["launches"],
                     max_abs_err=row["max_abs_err"], ms=row["ms"],

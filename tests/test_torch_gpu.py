@@ -575,14 +575,16 @@ def _zscored(seed, t, v, dev):
     return x.contiguous()
 
 
+@pytest.mark.parametrize("route", ["tc", "ffma"])
 @pytest.mark.parametrize("t,n_local,b,n,owner", [
     (7, 130, 67, 3, 1), (16, 256, 128, 4, 2), (150, 300, 300, 2, 0),
     (33, 64, 16, 1, 0), (600, 512, 384, 3, 2)])
-def test_ring_mma_kernel(cuda, t, n_local, b, n, owner):
-    """K5 against its plain version: ragged and aligned widths, one
-    NaN column of each operand; the block written within 1e-5 with the
-    same NaN positions, every other block bit-identical to the
-    sentinel."""
+def test_ring_mma_kernel(cuda, t, n_local, b, n, owner, route):
+    """K5 against its plain version on both kernels (the tensor-core
+    one through ring_mma's own route, the FMA one forced): ragged and
+    aligned widths, one NaN column of each operand; the block written
+    within 1e-5 with the same NaN positions, every other block
+    bit-identical to the sentinel; one launch, of that route."""
     from brainiak_tpu_torch.ops.kernels import ring as kring
 
     z = _zscored(t, t, n_local, cuda)
@@ -591,8 +593,13 @@ def test_ring_mma_kernel(cuda, t, n_local, b, n, owner):
     rot[:, b // 2] = float("nan")
     sentinel = torch.full((n_local, n * b), -7.0, device=cuda)
     kring.reset_launches()
-    got = kring.ring_mma(sentinel.clone(), z, rot, owner, n_shards=n)
-    assert kring.launches() == 1
+    if route == "tc":
+        got = kring.ring_mma(sentinel.clone(), z, rot, owner, n_shards=n)
+    else:
+        got = kring._kernel_ring_mma(sentinel.clone(), z, rot, owner,
+                                     n_shards=n, route=route)
+    assert kring.launches() == 1 and kring.launches(route) == 1
+    assert kring.launches("split") == (2 if route == "tc" else 0)
     want = kring.mma_update(sentinel.clone(), z, rot, owner * b)
     torch.cuda.synchronize()
     blk = slice(owner * b, (owner + 1) * b)
@@ -608,18 +615,113 @@ def test_ring_mma_kernel(cuda, t, n_local, b, n, owner):
 
 
 def test_ring_mma_writes_a_row_slab(cuda):
-    """A row slab of a wider buffer (stride n B, offset rows): the rows
-    outside the slab stay as they were."""
+    """A row slab of a wider buffer (stride n B, offset rows), through
+    the tensor-core route: the rows outside the slab stay as they
+    were."""
     from brainiak_tpu_torch.ops.kernels import ring as kring
 
     z, rot = _zscored(1, 20, 64, cuda), _zscored(2, 20, 64, cuda)
     full = torch.full((256, 256), 3.0, device=cuda)
+    kring.reset_launches()
     kring.ring_mma(full[64:128], z, rot, 3, n_shards=4)
     torch.cuda.synchronize()
+    assert kring.launches("tc") == 1
     want = z.T @ rot
     assert (full[64:128, 192:] - want).abs().max().item() <= 1e-5
     full[64:128, 192:] = 3.0
     assert torch.all(full == 3.0)
+
+
+@pytest.mark.parametrize("t,n", [(7, 130), (600, 1000), (64, 33)])
+def test_ring_split_kernel_is_bit_identical(cuda, t, n):
+    """The tensor-core route's pre-pass against split_kmajor, bit for
+    bit: ragged T and n, a NaN column, a contiguous and a strided
+    operand."""
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+
+    x = torch.from_numpy(np.random.RandomState(n).randn(t, 2 * n)
+                         .astype(np.float32)).to(cuda)
+    x[:, 5] = float("nan")
+    x[:, 6] = 0.0
+    t_pad = kring.t_padded(t)
+    for op in (x[:, :n].contiguous(), x[:, ::2]):
+        kring.reset_launches()
+        hi, lo, n_trs = kring.split(op)
+        assert kring.launches("split") == 1 and n_trs == t
+        want_hi, want_lo = kring.split_kmajor(op, t_pad)
+        torch.cuda.synchronize()
+        assert hi.shape == (n, t_pad)
+        assert torch.equal(hi.view(torch.int32), want_hi.view(torch.int32))
+        assert torch.equal(lo.view(torch.int32), want_lo.view(torch.int32))
+
+
+def test_ring_mma_splits_a_shared_operand_once(cuda):
+    """When the panel is the resident block itself (the one-position
+    ring), the pre-pass runs once; a strided resident block is read in
+    place; an equal copy is split again."""
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+
+    wide = _zscored(4, 150, 600, cuda)
+    z = wide[:, ::2]
+    out = torch.empty((300, 300), device=cuda)
+    kring.reset_launches()
+    kring.ring_mma(out, z, z, 0, n_shards=1)
+    assert kring.launches("tc") == 1 and kring.launches("split") == 1
+    want = z.T @ z
+    torch.cuda.synchronize()
+    assert (out - want).abs().max().item() <= 1e-5
+    kring.ring_mma(out, z, z.clone(), 0, n_shards=1)
+    assert kring.launches("split") == 3
+    torch.cuda.synchronize()
+    assert (out - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("n_shards,two", [(1, False), (4, False),
+                                          (1, True), (4, True)])
+def test_ring_splits_each_shard_once(cuda, n_shards, two):
+    """The ring splits each shard of each operand once (of one operand
+    when data_b is absent) and runs n^2 tensor-core steps on the
+    splits, with the plain ring's result."""
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    rng = np.random.RandomState(13)
+    a = rng.randn(150, 256).astype(np.float32)
+    b = rng.randn(150, 256).astype(np.float32) if two else None
+    mesh = make_mesh(("voxel",), (n_shards,), devices=["cuda"] * n_shards)
+    kring.reset_launches()
+    got = distla.summa_gram(a, mesh, data_b=b)
+    assert kring.launches("tc") == n_shards ** 2 == kring.launches()
+    assert kring.launches("split") == (2 if two else 1) * n_shards
+    cpu = make_mesh(("voxel",), (n_shards,), devices=["cpu"] * n_shards)
+    want = distla.summa_gram(a, cpu, data_b=b)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("scale", [1e3, 1e-3])
+def test_summa_matmul_cuda_raw_inputs(cuda, scale):
+    """The ring's raw product on the card (tensor-core K5, 2 positions)
+    on unnormalized inputs against float64: within four times the
+    error of the fp32 plain product."""
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    rng = np.random.RandomState(12)
+    a = (rng.randn(600, 512) * scale).astype(np.float32)
+    b = (rng.randn(600, 512) * scale).astype(np.float32)
+    exact = a.astype(np.float64).T @ b.astype(np.float64)
+    mesh = make_mesh(("voxel",), (2,), devices=["cuda"] * 2)
+    kring.reset_launches()
+    got = distla.summa_matmul(a, mesh, b).cpu().numpy()
+    assert kring.launches() == 4 and kring.launches("tc") == 4
+    assert kring.launches("split") == 4
+    plain = (torch.from_numpy(a).to(cuda).T @ torch.from_numpy(b)
+             .to(cuda)).cpu().numpy()
+    err = np.abs(got - exact).max()
+    err_plain = np.abs(plain - exact).max()
+    assert err <= 4 * err_plain, (err, err_plain)
 
 
 @pytest.mark.parametrize("n_shards", [1, 4])

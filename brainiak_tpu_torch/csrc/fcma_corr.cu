@@ -39,10 +39,11 @@
 //     deterministic, no atomics.  K3 stores zn straight to [B, E, V].
 //   * Epochs are handled in tiles of at most EPT epochs.  When E fits
 //     one tile (E <= 32, as in the bench configurations) each block
-//     computes every correlation once; K1 callers then take the
-//     tensor-core kernel of fcma_gram_tc.cu (ops/fcma_kernels.py
-//     gram_route), and fcma_gram_f32 here runs on one tile only when
-//     forced (route="ffma").  For larger E, K1 blocks take a
+//     computes every correlation once.  K1 callers (ops/fcma_kernels.py
+//     gram_route) take the tensor-core kernels: fcma_gram_tc.cu on one
+//     tile, fcma_gram_tcm.cu on more tiles up to 104 epochs;
+//     fcma_gram_f32 here runs for E > 104, or when forced
+//     (route="ffma").  For more than one tile, K1 blocks take a
 //     PAIR of epoch tiles (A, C), A <= C, and produce the Gram's A x C
 //     block, mirrored into C x A; each epoch tile's correlations are
 //     then recomputed once per pair it belongs to.

@@ -97,14 +97,6 @@ struct CorrTc {
   static_assert(kSmem <= 232448, "shared memory of an SM");
 };
 
-// hi = tf32(x) to nearest, ties away; lo = x - hi unrounded: the
-// tensor core reads a .tf32 operand's 19 high bits
-__device__ __forceinline__ void split(float x, unsigned& hi,
-                                      unsigned& lo) {
-  hi = tf32_rna(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 // One stage: acc[e][j] += the 3xTF32 products of the warp's m16 tile of
 // each of the EPS epochs over the stage's first n_rows rows (the k-steps
 // wholly past T, zero-filled, are skipped).  ds, bs: the warp's data

@@ -69,7 +69,8 @@
 //     accumulate_gram (GramLane's fp32 FMA micro-tile) run unchanged.
 //   * The ring's constants, mma_stage, fisher_store and gram_tile are
 //     in tc_gram.cuh, shared with K4's tensor-core route
-//     (fcma_sample_gram_tc.cu).
+//     (fcma_sample_gram_tc.cu); gram_sum_kernel, with K1's multi-tile
+//     route (fcma_gram_tcm.cu).
 
 #include "tc_gram.cuh"
 
@@ -165,23 +166,6 @@ fcma_gram_tc_kernel(const __grid_constant__ CUtensorMap tmap_data,
       for (int j = 0; j < GF; ++j)
         dst[(lane.eq * 4 + i) * EPT + lane.fo * GF + j] = gr[i][j];
   }
-}
-
-// out[b, e, f] = the sum over splits, in split order, of the partials
-// [nsplit, B, ept, ept]
-__global__ void gram_sum_kernel(const float* __restrict__ partial,
-                                float* __restrict__ out, int E, int B,
-                                int ept, int nsplit) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * E * E) return;
-  const int f = (int)(idx % E);
-  const int e = (int)(idx / E % E);
-  const size_t b = idx / ((size_t)E * E);
-  const size_t per_split = (size_t)B * ept * ept;
-  const float* p = partial + (b * ept + e) * ept + f;
-  float s = 0.f;
-  for (int k = 0; k < nsplit; ++k) s += p[k * per_split];
-  out[idx] = s;
 }
 
 template <int EPT, int TB>

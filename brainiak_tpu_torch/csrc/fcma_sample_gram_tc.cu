@@ -73,55 +73,6 @@
 
 namespace {
 
-// |r| from which a correlation is formed again in fp32 FMA
-constexpr float kNearOne = 1.f - 0x1p-10f;
-
-// Bit (u * 4 + j) * 4 + i set where |acc[u][j][i]| >= kNearOne
-__device__ __forceinline__ unsigned near_one(const float (&acc)[2][4][4]) {
-  unsigned near = 0;
-#pragma unroll
-  for (int k = 0; k < 32; ++k)
-    near |= (unsigned)(fabsf(acc[k / 16][k / 4 % 4][k % 4]) >= kNearOne)
-            << k;
-  return near;
-}
-
-// For each bit of `near` (rare: a voxel with itself or a near copy),
-// r = sum_t blk[e, t, b] data[e, t, v] formed again as fcma_tile.cuh's
-// corr_tile forms it, fp32 FMA from 0 with t ascending, and its clamped
-// Fisher-z (fisher_store's expression) written over the z tile's entry
-// that fisher_store (tc_gram.cuh) wrote from the same accumulator.
-// Samples past N, block voxels past B and voxels past V load as 0, so
-// their accumulators are never flagged and every read is in range.
-template <int EPT, int TB>
-__device__ void refine_near_one(unsigned near, float* zs,
-                                const float* __restrict__ blk,
-                                const float* __restrict__ data, int warp,
-                                int g, int q, int T, int b0, int v0,
-                                int blk_ld_t, int blk_ld_e, int data_ld_t,
-                                int data_ld_e) {
-  using Tl = TcTile<EPT, TB>;
-  for (; near != 0; near &= near - 1) {
-    const int k = __ffs(near) - 1;
-    const int u = k / 16;
-    const int j = k / 4 % 4;
-    const int i = k % 4;
-    const int e = warp * Tl::kEW + u / Tl::kMT;
-    const int b = row_voxel<TB>(u % Tl::kMT, g + 8 * (i >> 1));
-    const int v = 4 * col_chunk(2 * q + (i & 1)) + j;
-    const float* x = blk + (size_t)e * blk_ld_e + b0 + b;
-    const float* y = data + (size_t)e * data_ld_e + v0 + v;
-    float r = 0.f;
-    for (int t = 0; t < T; ++t)
-      r = fmaf(x[(size_t)t * blk_ld_t], y[(size_t)t * data_ld_t], r);
-    float num = 1.f + r;
-    float den = 1.f - r;
-    if (num <= 0.f) num = kClamp;
-    if (den <= 0.f) den = kClamp;
-    zs[(b * EPT + e) * kZS + v] = 0.5f * logf(num / den);
-  }
-}
-
 // Raw mode: the accumulators themselves into zs[b][e][v] (0 for
 // samples e >= E and voxels past V), and zeroed; the layout of
 // fisher_store (tc_gram.cuh) without the Fisher-z.

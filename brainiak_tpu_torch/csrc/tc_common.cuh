@@ -109,6 +109,14 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// hi = tf32(x) to nearest, ties away; lo = x - hi unrounded: the
+// tensor core reads a .tf32 operand's 19 high bits
+__device__ __forceinline__ void split(float x, unsigned& hi,
+                                      unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // d += a . b, one m16n8k8 TF32 product with an fp32 accumulator
 __device__ __forceinline__ void mma_tf32(float (&d)[4],
                                          const unsigned (&a)[4],
@@ -156,8 +164,9 @@ bool encode_map(CUtensorMap* map, const float* src, int E, int T,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                 const_cast<float*>(src), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                n == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_64B,
+                n == 32   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : n == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -3,8 +3,14 @@
 // stage ring's constants and shared-memory layout, the 3xTF32 products
 // of one stage (mma_stage), the clamped Fisher-z of the accumulators
 // into the z tile (fisher_store) and the Gram of one voxel tile on
-// GramLane's fp32 FMA micro-tile (gram_tile).  The design they serve
-// is set out in fcma_gram_tc.cu.
+// GramLane's fp32 FMA micro-tile (gram_tile), and K1's sum of its
+// partial Grams over V splits (gram_sum_kernel, which K1's multi-tile
+// route, fcma_gram_tcm.cu, launches too).  The design they serve is set
+// out in fcma_gram_tc.cu.  Last, the near-one rule that K4's
+// route (fcma_sample_gram_tc.cu) and K1's multi-tile route
+// (fcma_gram_tcm.cu) apply: a correlation with |r| >= kNearOne formed
+// again in fp32 FMA (fisher_z, fisher_fma; near_one and refine_near_one
+// on the one-tile layout).
 
 #pragma once
 
@@ -148,6 +154,84 @@ __device__ __forceinline__ void gram_tile(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < GF; ++j) gr[i][j] = fmaf(a[i], c[j], gr[i][j]);
+  }
+}
+
+// out[b, e, f] = the sum over splits, in split order, of the partials
+// [nsplit, B, ept, ept]
+__global__ void gram_sum_kernel(const float* __restrict__ partial,
+                                float* __restrict__ out, int E, int B,
+                                int ept, int nsplit) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)B * E * E) return;
+  const int f = (int)(idx % E);
+  const int e = (int)(idx / E % E);
+  const size_t b = idx / ((size_t)E * E);
+  const size_t per_split = (size_t)B * ept * ept;
+  const float* p = partial + (b * ept + e) * ept + f;
+  float s = 0.f;
+  for (int k = 0; k < nsplit; ++k) s += p[k * per_split];
+  out[idx] = s;
+}
+
+// |r| from which a correlation is formed again in fp32 FMA
+constexpr float kNearOne = 1.f - 0x1p-10f;
+
+// Bit (u * 4 + j) * 4 + i set where |acc[u][j][i]| >= kNearOne
+__device__ __forceinline__ unsigned near_one(const float (&acc)[2][4][4]) {
+  unsigned near = 0;
+#pragma unroll
+  for (int k = 0; k < 32; ++k)
+    near |= (unsigned)(fabsf(acc[k / 16][k / 4 % 4][k % 4]) >= kNearOne)
+            << k;
+  return near;
+}
+
+// The clamped Fisher-z of r, fisher_store's expression
+__device__ __forceinline__ float fisher_z(float r) {
+  float num = 1.f + r;
+  float den = 1.f - r;
+  if (num <= 0.f) num = kClamp;
+  if (den <= 0.f) den = kClamp;
+  return 0.5f * logf(num / den);
+}
+
+// fisher_z of r = sum_t x[t ld_x] y[t ld_y] formed as fcma_tile.cuh's
+// corr_tile forms it: fp32 FMA from 0, t ascending.
+__device__ __forceinline__ float fisher_fma(const float* __restrict__ x,
+                                            const float* __restrict__ y,
+                                            int T, int ld_x, int ld_y) {
+  float r = 0.f;
+  for (int t = 0; t < T; ++t)
+    r = fmaf(x[(size_t)t * ld_x], y[(size_t)t * ld_y], r);
+  return fisher_z(r);
+}
+
+// For each bit of `near` (rare: a voxel with itself or a near copy),
+// the z tile's entry that fisher_store wrote from that accumulator
+// replaced by fisher_fma of blk[e, :, b] and data[e, :, v].
+// Samples past N, block voxels past B and voxels past V load as 0, so
+// their accumulators are never flagged and every read is in range.
+template <int EPT, int TB>
+__device__ void refine_near_one(unsigned near, float* zs,
+                                const float* __restrict__ blk,
+                                const float* __restrict__ data, int warp,
+                                int g, int q, int T, int b0, int v0,
+                                int blk_ld_t, int blk_ld_e, int data_ld_t,
+                                int data_ld_e) {
+  using Tl = TcTile<EPT, TB>;
+  for (; near != 0; near &= near - 1) {
+    const int k = __ffs(near) - 1;
+    const int u = k / 16;
+    const int j = k / 4 % 4;
+    const int i = k % 4;
+    const int e = warp * Tl::kEW + u / Tl::kMT;
+    const int b = row_voxel<TB>(u % Tl::kMT, g + 8 * (i >> 1));
+    const int v = 4 * col_chunk(2 * q + (i & 1)) + j;
+    zs[(b * EPT + e) * kZS + v] =
+        fisher_fma(blk + (size_t)e * blk_ld_e + b0 + b,
+                   data + (size_t)e * data_ld_e + v0 + v, T, blk_ld_t,
+                   data_ld_t);
   }
 }
 

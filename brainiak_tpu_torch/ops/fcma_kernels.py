@@ -23,16 +23,19 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 whole-brain shape, a voxel-tile loop inside each block, partials
 summed in a fixed order, no atomics).  The main-path routes of K1, K3
 and K4 run on the tensor cores in 3xTF32, which keeps fp32 accuracy,
-with operands brought in by the TMA: K1 on one epoch tile of whole
-subjects (:func:`gram_route` ``"tc"``) is ``csrc/fcma_gram_tc.cu``, K3
-on subjects of at most 4 epochs (:func:`corr_route` ``"tc"``) is
-``csrc/fcma_corr_tc.cu``, K4 on one sample tile of whole groups
-(:func:`sample_gram_route` ``"tc"``) is
-``csrc/fcma_sample_gram_tc.cu``.  Every other route computes in fp32
-FMA.
-``precision`` is not used by the kernels.  A subject (or
-sample group) may be longer than one epoch tile: the kernels then run
-a first pass for its z-score statistics.  On a CPU tensor the wrapper
+with operands brought in by the TMA.  K1 (:func:`gram_route`) takes
+``csrc/fcma_gram_tc.cu`` on one epoch tile of whole subjects (``"tc"``:
+at most 32 epochs), ``csrc/fcma_gram_tcm.cu`` on more tiles up to
+:data:`TCM_MAX_EPOCHS` = 104 epochs (``"tcm"``: all of a block's epochs
+in shared memory, every correlation formed once, no statistics pass),
+and ``csrc/fcma_corr.cu`` beyond (``"ffma"``).  K3 on subjects of at
+most 4 epochs (:func:`corr_route` ``"tc"``) is ``csrc/fcma_corr_tc.cu``,
+K4 on one sample tile of whole groups (:func:`sample_gram_route`
+``"tc"``) is ``csrc/fcma_sample_gram_tc.cu``.  Every other route
+computes in fp32 FMA.
+``precision`` is not used by the kernels.  On the FMA routes a subject
+(or sample group) may be longer than one epoch tile: the kernels then
+run a first pass for its z-score statistics.  On a CPU tensor the wrapper
 runs the plain version in this module (:func:`fcma_gram_plain`,
 :func:`fcma_corr_normalize_plain`, :func:`fcma_sample_gram_plain`):
 ``correlate_epochs`` then ``within_subject_normalization`` (then the
@@ -48,18 +51,19 @@ from .correlation import correlate_epochs
 from .fisherz import within_subject_normalization
 from .kernels import _build
 
-__all__ = ["aligned_rows_layout", "corr_layout", "corr_route",
-           "epoch_tiles",
+__all__ = ["TCM_MAX_EPOCHS", "aligned_rows_layout", "corr_layout",
+           "corr_route", "epoch_tiles",
            "fcma_corr_normalize",
            "fcma_corr_normalize_plain", "fcma_gram", "fcma_gram_plain",
            "fcma_sample_gram", "fcma_sample_gram_plain", "gram_route",
            "launches", "reset_launches", "sample_gram_route"]
 
 # "fcma_gram" counts every K1 launch, "fcma_gram_tc" those of them that
-# took the tensor-core one-tile kernel; the same for K3 and K4
-_launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_corr_normalize": 0,
-             "fcma_corr_normalize_tc": 0, "fcma_sample_gram": 0,
-             "fcma_sample_gram_tc": 0}
+# took the tensor-core one-tile kernel, "fcma_gram_tcm" the tensor-core
+# multi-tile one; "_tc" the same for K3 and K4
+_launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_gram_tcm": 0,
+             "fcma_corr_normalize": 0, "fcma_corr_normalize_tc": 0,
+             "fcma_sample_gram": 0, "fcma_sample_gram_tc": 0}
 
 #: threads of a kernel block; a block holds 512 // ept block voxels
 _THREADS = 512
@@ -71,6 +75,11 @@ _PLAIN_BLOCK = 128
 #: most epochs per subject of K3's tensor-core route (a thread holds a
 #: subject's epochs of one correlation in registers)
 _TC_MAX_EPS = 4
+#: most epochs of K1's tensor-core multi-tile route (csrc/fcma_gram_tcm.cu:
+#: its z tile of all E epochs beside the stage ring in shared memory)
+TCM_MAX_EPOCHS = 104
+#: block voxels a block of that route
+_TCM_BLOCK = 8
 
 
 def launches():
@@ -159,22 +168,31 @@ def epoch_tiles(n_epochs, epochs_per_subj, ept=None):
 def gram_route(n_epochs, epochs_per_subj, ept=None, route=None):
     """``(route, ept, tile_len, n_tiles)`` of K1 on the card.
 
-    ``"tc"`` (``csrc/fcma_gram_tc.cu``) when the epochs form one tile
-    of whole subjects, else ``"ffma"`` (``csrc/fcma_corr.cu``), which
-    takes every tiling.  ``ept`` forces the epoch-tile capacity and
-    ``route`` the kernel, as :func:`epoch_tiles` and ``chip_smoke.py``
-    do to run both kernels on the same inputs; ``"tc"`` is refused
-    where it does not apply.
+    By shape: ``"tc"`` (``csrc/fcma_gram_tc.cu``) when the epochs form
+    one tile of whole subjects; ``"tcm"`` (``csrc/fcma_gram_tcm.cu``)
+    for more tiles up to :data:`TCM_MAX_EPOCHS` epochs; ``"ffma"``
+    (``csrc/fcma_corr.cu``), which takes every tiling, beyond.  ``ept``
+    forces the epoch-tile capacity and ``route`` the kernel, as
+    :func:`epoch_tiles` and ``chip_smoke.py`` do to run two kernels on
+    the same inputs; ``"tc"`` and ``"tcm"`` are refused where they do
+    not apply.
     """
     ept, tile_len, n_tiles = epoch_tiles(n_epochs, epochs_per_subj, ept)
+    fits = n_epochs <= TCM_MAX_EPOCHS
     if route is None:
-        route = "tc" if n_tiles == 1 else "ffma"
-    elif route not in ("tc", "ffma"):
-        raise ValueError(f"route must be 'tc' or 'ffma', got {route!r}")
+        route = "tc" if n_tiles == 1 else "tcm" if fits else "ffma"
+    elif route not in ("tc", "tcm", "ffma"):
+        raise ValueError(
+            f"route must be 'tc', 'tcm' or 'ffma', got {route!r}")
     elif route == "tc" and n_tiles != 1:
         raise ValueError(
             f"route 'tc' takes one epoch tile; {n_epochs} epochs of "
             f"{epochs_per_subj} per subject need {n_tiles} of {ept}")
+    elif route == "tcm" and (n_tiles == 1 or not fits):
+        raise ValueError(
+            f"route 'tcm' takes more than one epoch tile and at most "
+            f"{TCM_MAX_EPOCHS} epochs; {n_epochs} epochs of "
+            f"{epochs_per_subj} per subject make {n_tiles} of {ept}")
     return route, ept, tile_len, n_tiles
 
 
@@ -247,6 +265,16 @@ def _n_split(device, n_blocks, n_vox):
                       -(-_WAVES * sms // max(1, n_blocks))))
 
 
+def _tcm_split(device, n_b, n_vox):
+    """V splits of K1's multi-tile route: its blocks of _TCM_BLOCK block
+    voxels, one an SM, in one wave where they fill it.  Each split adds
+    a [B, E, E] partial, and a block's voxel tiles share its ring, so
+    one wave of long blocks beats several of short ones."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_vtiles = max(1, -(-n_vox // _TV))
+    return max(1, min(n_vtiles, 65535, sms // -(-n_b // _TCM_BLOCK)))
+
+
 def _stats(blk, data, epochs_per_subj, tile_len):
     """Scratch of the statistics pass, ``[2, B, E / eps, V]``, when a
     subject spans several epoch tiles; else None."""
@@ -259,6 +287,7 @@ def _stats(blk, data, epochs_per_subj, tile_len):
 
 # (pointers, ints) before the stream of each C entry point
 _ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 11),
+         "fcma_gram_tcm_f32": (4, 10),
          "fcma_corr_normalize_f32": (4, 9),
          "fcma_corr_normalize_tc_f32": (3, 9),
          "fcma_sample_gram_f32": (5, 9),
@@ -280,7 +309,7 @@ def _ptr(x):
 
 def _tma_operand(x):
     """x [E, T, n] as the TMA copies of the tensor-core kernels
-    (csrc/fcma_gram_tc.cu, csrc/fcma_corr_tc.cu,
+    (csrc/fcma_gram_tc.cu, csrc/fcma_gram_tcm.cu, csrc/fcma_corr_tc.cu,
     csrc/fcma_sample_gram_tc.cu) read it: 16-byte aligned,
     unit column stride, row and epoch strides multiples of 4 floats.
     Returned as it is where it already is (a column slice of an aligned
@@ -325,7 +354,7 @@ def corr_layout(shape, epochs_per_subj, device):
 def _kernel_gram(blk, data, epochs_per_subj, ept=None, route=None):
     """K1 on the card; ``ept`` and ``route`` force the epoch-tile
     capacity and the kernel (:func:`gram_route`), as ``chip_smoke.py``
-    does to time both at one shape."""
+    does to time two at one shape."""
     blk, data = _check_inputs(blk, data, contiguous=False)
     n_e, n_t, n_b = blk.shape
     route, ept, tile_len, n_tiles = gram_route(n_e, epochs_per_subj, ept,
@@ -334,34 +363,46 @@ def _kernel_gram(blk, data, epochs_per_subj, ept=None, route=None):
                       device=blk.device)
     if n_b == 0:
         return out
-    if route == "tc":
-        blk, data = _tma_operand(blk), _tma_operand(data)
-    else:
+    if route == "ffma":
         blk, data = blk.contiguous(), data.contiguous()
+    else:
+        blk, data = _tma_operand(blk), _tma_operand(data)
     n_v = data.shape[2]
-    n_pairs = n_tiles * (n_tiles + 1) // 2
-    n_split = _n_split(blk.device,
-                       -(-n_b // (_THREADS // ept)) * n_pairs, n_v)
-    partial = torch.empty((n_split, n_pairs, n_b, ept, ept),
-                          dtype=torch.float32, device=blk.device)
     stream = torch.cuda.current_stream(blk.device).cuda_stream
+    strides = (blk.stride(1), blk.stride(0), data.stride(1),
+               data.stride(0))
+    if route == "tcm":
+        # every epoch in one block: one [B, E, E] partial a V split, the
+        # output itself when there is one split
+        n_split = _tcm_split(blk.device, n_b, n_v)
+        partial = out if n_split == 1 else torch.empty(
+            (n_split, n_b, n_e, n_e), dtype=torch.float32,
+            device=blk.device)
+    else:
+        n_pairs = n_tiles * (n_tiles + 1) // 2
+        n_split = _n_split(blk.device,
+                           -(-n_b // (_THREADS // ept)) * n_pairs, n_v)
+        partial = torch.empty((n_split, n_pairs, n_b, ept, ept),
+                              dtype=torch.float32, device=blk.device)
+    ptrs = (blk.data_ptr(), data.data_ptr(), partial.data_ptr())
     with torch.cuda.device(blk.device):
-        if route == "tc":
+        if route == "tcm":
+            err = _fn("fcma_gram_tcm", "fcma_gram_tcm_f32")(
+                *ptrs, out.data_ptr(), n_e, n_t, n_b, n_v,
+                epochs_per_subj, n_split, *strides, stream)
+        elif route == "tc":
             err = _fn("fcma_gram_tc", "fcma_gram_tc_f32")(
-                blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
-                out.data_ptr(), n_e, n_t, n_b, n_v, epochs_per_subj,
-                ept, n_split, blk.stride(1), blk.stride(0),
-                data.stride(1), data.stride(0), stream)
+                *ptrs, out.data_ptr(), n_e, n_t, n_b, n_v,
+                epochs_per_subj, ept, n_split, *strides, stream)
         else:
             stats = _stats(blk, data, epochs_per_subj, tile_len)
             err = _fn("fcma_corr", "fcma_gram_f32")(
-                blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
-                _ptr(stats), out.data_ptr(), n_e, n_t, n_b, n_v,
+                *ptrs, _ptr(stats), out.data_ptr(), n_e, n_t, n_b, n_v,
                 epochs_per_subj, ept, tile_len, n_tiles, n_split, stream)
     _build.check(err, "fcma_gram")
     _launches["fcma_gram"] += 1
-    if route == "tc":
-        _launches["fcma_gram_tc"] += 1
+    if route != "ffma":
+        _launches[f"fcma_gram_{route}"] += 1
     return out
 
 

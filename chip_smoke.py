@@ -33,8 +33,11 @@ first one that goes wrong:
         forced; and N=96, 8192 x 1024, norm_unit 12 (four sample tiles,
         the FMA kernel);
      K1, K3 and K4 with subjects of 40 epochs (E=80, 512 x 4096; K3 on
-        128 block voxels): each subject spans two epoch tiles, so the
-        statistics pass runs.
+        128 block voxels): each subject spans two epoch tiles.  K1
+        through its multi-tile tensor-core kernel (fcma_gram_tcm.cu:
+        all 80 epochs of a block at once, no statistics pass) and, on
+        the same inputs, fcma_corr.cu's FMA kernel forced; K3 and K4
+        through their FMA kernels' statistics pass.
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
    operations over the peak rate of their type: fp32 FMA at 67
@@ -66,10 +69,11 @@ first one that goes wrong:
    4 folds, through ``run('svm')`` (the tensor-core K1 once);
    kernel-vs-plain voxel accuracies on 256 voxels.
 6. Subjects of 40 epochs (E=80, 2048 + 512 voxels): ``run('svm')``
-   through fcma_corr.cu's K1, the host-CV branch through K3 and a
-   portioned
-   ``Classifier`` fit through K4 (the FMA kernel: two sample tiles),
-   each held against its plain path.
+   through K1's multi-tile tensor-core kernel alone (its voxel
+   accuracies against plain printed beside those of fcma_corr.cu's
+   K1 forced on the same 256 voxels), the host-CV branch through K3
+   and a portioned ``Classifier`` fit through K4 (the FMA kernel: two
+   sample tiles), each held against its plain path.
 7. K5, the SUMMA ring step, against its plain version (``mma_update``)
    on z-scored inputs, through the tensor-core kernel that every call
    takes (ring_mma_tc.cu: a pre-pass splits the operands, then 3xTF32
@@ -227,8 +231,9 @@ def gram_flops(n_e, n_t, n_b, n_v):
 
 def check_k1(torch, blk, data, eps, reps, alt_ept=None):
     """K1 against its plain version (blocks of 128 voxels) on blk
-    [E, T, B] and data [E, T, V]: the path's route and, where that is
-    the tensor-core kernel, fcma_corr.cu's FMA kernel forced on the
+    [E, T, B] and data [E, T, V]: the path's route and, where that is a
+    tensor-core kernel (fcma_gram_tc.cu on one epoch tile,
+    fcma_gram_tcm.cu on more), fcma_corr.cu's FMA kernel forced on the
     same inputs.  ``{route: row of its figures}``.  With ``alt_ept``
     the path's route at the other epoch tiling is checked and timed
     too."""
@@ -252,7 +257,7 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None):
     want = plain()
     route = fk.gram_route(n_e, eps)[0]
     runs = [(route, None, lambda: fk.fcma_gram(blk, data, eps))]
-    if route == "tc":
+    if route != "ffma":
         runs.append(("ffma", None, lambda: fk._kernel_gram(
             blk, data, eps, route="ffma")))
     if alt_ept is not None:
@@ -282,18 +287,19 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None):
     common = dict(plain_ms=cuda_ms(torch, plain, 1),
                   library_ms=cuda_ms(torch, library, 1))
     for name, row in rows.items():
-        b_ms, b_by = (bound_ms(n_bytes, gram, 3 * corr) if name == "tc"
-                      else bound_ms(n_bytes, corr + gram))
+        b_ms, b_by = (bound_ms(n_bytes, corr + gram) if name == "ffma"
+                      else bound_ms(n_bytes, gram, 3 * corr))
         row.update(common, bound_ms=b_ms, bound_by=b_by)
-    if "tc" in rows and "ffma" in rows:
+    if route != "ffma":
+        tc = rows[route]
         fp32_ms = bound_ms(n_bytes, corr + gram)[0]
-        log(f"  K1 at E={n_e} B={n_b} V={n_v}: tensor-core "
-            f"{rows['tc']['ms']:.3f} ms (bound {rows['tc']['bound_ms']:.3f}"
+        log(f"  K1 at E={n_e} B={n_b} V={n_v}: tensor-core [{route}] "
+            f"{tc['ms']:.3f} ms (bound {tc['bound_ms']:.3f}"
             f" ms, 3xTF32 + fp32 Gram), FMA {rows['ffma']['ms']:.3f} ms "
             f"(fp32 bound {fp32_ms:.3f} ms), cuBLAS fp32 "
             f"{common['library_ms']:.3f} ms; tensor-core / FMA "
-            f"{rows['tc']['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
-            f"{rows['tc']['ms'] / common['library_ms']:.3f}")
+            f"{tc['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
+            f"{tc['ms'] / common['library_ms']:.3f}")
     return rows
 
 
@@ -518,11 +524,14 @@ def phase_kernels(torch, dev):
     del x1, x2
     torch.cuda.empty_cache()
 
-    # subjects of 40 epochs, two epoch tiles each: the statistics pass
+    # subjects of 40 epochs, two epoch tiles each: K1's multi-tile
+    # tensor-core kernel (all 80 epochs of a block at once) beside the
+    # FMA one; K3 and K4 through the statistics pass
     n_e, eps = 80, 40
     data = normalized_epochs(torch, rng, n_e, n_t, 4096, dev)
     blk = normalized_epochs(torch, rng, n_e, n_t, 512, dev)
-    rows["fcma_gram_e80"] = check_k1(torch, blk, data, eps, 3)["ffma"]
+    k1 = check_k1(torch, blk, data, eps, 3)
+    rows["fcma_gram_e80"], rows["fcma_gram_e80_ffma"] = k1["tcm"], k1["ffma"]
     rows["fcma_corr_normalize_e80"] = check_k3(
         torch, blk[:, :, :128].contiguous(), data, eps, 3)["ffma"]
     rows["fcma_sample_gram_n80"] = check_k4(torch, data, blk, eps,
@@ -566,9 +575,11 @@ def check_accuracies(results, n_voxels):
     return accs
 
 
-def compare_with_plain(torch, vs, accs, n_check):
+def compare_with_plain(torch, vs, accs, n_check, label="kernel",
+                       gate=True):
     """Kernel-path accuracies of the first n_check voxels against the
-    plain path (plain Gram, same shrink and batched SVM CV)."""
+    plain path (plain Gram, same shrink and batched SVM CV); ``gate``:
+    fail below ACC_AGREE or beyond one test sample a fold."""
     from brainiak_tpu_torch.fcma.voxelselector import _shrink
     from brainiak_tpu_torch.ops.fcma_kernels import fcma_gram_plain
     from brainiak_tpu_torch.ops.svm import svm_cv_accuracy
@@ -584,11 +595,26 @@ def compare_with_plain(torch, vs, accs, n_check):
                                     atol=1e-6)))
     worst = float(np.max(np.abs(plain - accs[:n_check])))
     one_sample = vs.num_folds / len(vs.labels)
-    log(f"  kernel vs plain accuracies on {n_check} voxels: equal on "
+    log(f"  {label} vs plain accuracies on {n_check} voxels: equal on "
         f"{same:.4f}, max diff {worst:.4f} (one test sample per fold "
         f"= {one_sample:.4f})")
-    if same < ACC_AGREE or worst > one_sample + 1e-6:
-        fail("kernel-path accuracies disagree with the plain path")
+    if gate and (same < ACC_AGREE or worst > one_sample + 1e-6):
+        fail(f"{label} accuracies disagree with the plain path")
+
+
+def forced_route_accuracies(torch, vs, n_check, route):
+    """Accuracies of the first n_check voxels with K1 forced onto
+    ``route``, with run('svm')'s shrink and batched SVM CV."""
+    from brainiak_tpu_torch.fcma.voxelselector import _shrink
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
+    from brainiak_tpu_torch.ops.svm import svm_cv_accuracy
+
+    data1, data2 = vs._stack()
+    grams = _shrink(fk._kernel_gram(vs._slice_block(data1, 0, n_check),
+                                    data2, vs.epochs_per_subj,
+                                    route=route))
+    return svm_cv_accuracy(grams, vs.labels, vs.num_folds, C=vs.svm_C,
+                           n_iters=vs.svm_iters, device=vs.device)
 
 
 def profile_run(torch, vs, label, t_warm, top=6):
@@ -773,9 +799,11 @@ def run_stage2(torch, label, clf_kw, train, labels_train, test, y_test,
 
 def run_long_subjects(torch, rows):
     """The entry points on 2 subjects x 40 epochs (each subject spans
-    two epoch tiles: the kernels' statistics pass): run('svm') through
-    K1, the host-CV branch through K3 and a portioned Classifier fit
-    through K4, each held against its plain path."""
+    two epoch tiles): run('svm') through K1's multi-tile tensor-core
+    kernel, the host-CV branch through K3 and a portioned Classifier
+    fit through K4 (the FMA kernels' statistics pass), each held
+    against its plain path; and K1's accuracies with the FMA kernel
+    forced on the same voxels."""
     from brainiak_tpu_torch.fcma import Classifier
     from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
     from brainiak_tpu_torch.ops import fcma_kernels as fk
@@ -804,14 +832,15 @@ def run_long_subjects(torch, rows):
     log(f"long subjects (E={n_e}, {eps} epochs per subject, V={n_v}): "
         f"run('svm'), host-CV on 128 voxels and a portioned fit in "
         f"{t_all:.2f} s; launches {launches}")
-    for name, row in (("fcma_gram", "fcma_gram_e80"),
+    for name, row in (("fcma_gram_tcm", "fcma_gram_e80"),
                       ("fcma_corr_normalize", "fcma_corr_normalize_e80"),
                       ("fcma_sample_gram", "fcma_sample_gram_n80")):
         if launches[name] < 1:
             fail(f"long subjects: {name} was not launched")
         rows[row]["launches"] = launches[name]
-    if launches["fcma_gram_tc"] != 0:
-        fail("long subjects: K1 took the one-tile tensor-core kernel")
+    if launches["fcma_gram"] != launches["fcma_gram_tcm"]:
+        fail("long subjects: K1 took a kernel other than the multi-tile "
+             "tensor-core one")
     if launches["fcma_corr_normalize_tc"] != 0:
         fail("long subjects: K3 took the tensor-core kernel")
     if launches["fcma_sample_gram_tc"] != 0:
@@ -820,7 +849,12 @@ def run_long_subjects(torch, rows):
     check_accuracies(host, 128)
     if pred.shape != (n_e // 2,):
         fail("long subjects: the classifier predicted the wrong shape")
-    compare_with_plain(torch, vs, accs, 256)
+    # both K1 routes against plain on the same voxels, so that a change
+    # to K1's arithmetic shows beside the FMA kernel's; the path's gates
+    compare_with_plain(torch, vs, accs, 256, label="K1 [tcm] (the path's)")
+    compare_with_plain(torch, vs,
+                       forced_route_accuracies(torch, vs, 256, "ffma"),
+                       256, label="K1 [ffma] (forced)", gate=False)
     compare_classifier_with_plain(torch, clf, pairs, labels, n_e // 2)
 
 
@@ -1298,8 +1332,10 @@ def main():
     rows["fcma_gram"]["launches"] = launches["fcma_gram_tc"]
     rows["epoch_zscore"]["launches"] = launches["epoch_zscore"]
     # fcma_corr.cu's K1 over the FCMA paths (whole brain, one mask,
-    # long subjects): the long-subject path's launch
-    ffma_launches = launches["fcma_gram"] - launches["fcma_gram_tc"]
+    # long subjects; the last takes fcma_gram_tcm.cu alone, or
+    # run_long_subjects fails)
+    ffma_launches = launches["fcma_gram"] - launches["fcma_gram_tc"] - \
+        launches["fcma_gram_tcm"]
 
     # host-CV branch on the same data: K3 per block of 128 voxels, then
     # per block of the default voxel_unit (256); every launch must take
@@ -1380,12 +1416,13 @@ def main():
         fail(f"one mask: run('svm') launched the tensor-core K1 "
              f"{launches['fcma_gram_tc']} times, not once")
     rows["fcma_gram_e16"]["launches"] = launches["fcma_gram_tc"]
-    ffma_launches += launches["fcma_gram"] - launches["fcma_gram_tc"]
+    ffma_launches += launches["fcma_gram"] - launches["fcma_gram_tc"] - \
+        launches["fcma_gram_tcm"]
     torch.cuda.empty_cache()
 
     run_long_subjects(torch, rows)
-    ffma_launches += rows["fcma_gram_e80"]["launches"]
-    for name in ("fcma_gram_ffma", "fcma_gram_ffma_e16"):
+    for name in ("fcma_gram_ffma", "fcma_gram_ffma_e16",
+                 "fcma_gram_e80_ffma"):
         rows[name]["launches"] = ffma_launches
     # fcma_corr.cu's K3 and fcma_sample_gram.cu's K4 over the paths:
     # the long-subject host-CV branch and fit; no path runs raw
@@ -1408,6 +1445,8 @@ def main():
     k1 = ("brainiak_tpu/ops/pallas_kernels.py:223", csrc + "fcma_corr.cu")
     k1_tc = ("brainiak_tpu/ops/pallas_kernels.py:223",
              csrc + "fcma_gram_tc.cu")
+    k1_tcm = ("brainiak_tpu/ops/pallas_kernels.py:223",
+              csrc + "fcma_gram_tcm.cu")
     k3 = ("brainiak_tpu/ops/pallas_kernels.py:168", csrc + "fcma_corr.cu")
     k3_tc = ("brainiak_tpu/ops/pallas_kernels.py:168",
              csrc + "fcma_corr_tc.cu")
@@ -1419,7 +1458,8 @@ def main():
         "epoch_zscore": ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
                          csrc + "epoch_norm.cu"),
         "fcma_gram": k1_tc, "fcma_gram_e16": k1_tc,
-        "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1, "fcma_gram_e80": k1,
+        "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1,
+        "fcma_gram_e80": k1_tcm, "fcma_gram_e80_ffma": k1,
         "fcma_corr_normalize": k3_tc, "fcma_corr_normalize_b256": k3_tc,
         "fcma_corr_normalize_ffma": k3, "fcma_corr_normalize_e80": k3,
         "fcma_sample_gram": k4_tc, "fcma_sample_gram_raw": k4_tc,

@@ -169,29 +169,43 @@ def test_epoch_tiles_refuses():
     (12, 6, ("tc", 16, 12, 1)),
     (8, 4, ("tc", 16, 16, 1)),
     (24, 12, ("tc", 32, 24, 1)),
-    (40, 10, ("ffma", 32, 30, 2)),
-    (48, 4, ("ffma", 32, 32, 2)),
-    (80, 40, ("ffma", 32, 32, 3)),
-    (96, 48, ("ffma", 32, 32, 3)),
-    (64, 64, ("ffma", 32, 32, 2)),
+    (40, 10, ("tcm", 32, 30, 2)),
+    (48, 4, ("tcm", 32, 32, 2)),
+    (80, 40, ("tcm", 32, 32, 3)),
+    (96, 48, ("tcm", 32, 32, 3)),
+    (64, 64, ("tcm", 32, 32, 2)),
+    (96, 12, ("tcm", 32, 24, 4)),
+    (104, 52, ("tcm", 32, 32, 4)),
+    (108, 4, ("ffma", 32, 32, 4)),
+    (112, 56, ("ffma", 32, 32, 4)),
 ])
 def test_gram_route(n_epochs, eps, expect):
-    """One epoch tile of whole subjects takes the tensor-core kernel;
-    more tiles, or subjects longer than a tile, the FMA one."""
+    """One epoch tile of whole subjects takes the one-tile tensor-core
+    kernel; more tiles, or subjects longer than a tile, the multi-tile
+    one up to TCM_MAX_EPOCHS = 104 epochs, and the FMA one beyond."""
     assert tk.gram_route(n_epochs, eps) == expect
     assert tk.gram_route(n_epochs, eps)[1:] == tk.epoch_tiles(n_epochs,
                                                               eps)
 
 
 def test_gram_route_forced():
+    assert tk.TCM_MAX_EPOCHS == 104
     assert tk.gram_route(16, 4, ept=32) == ("tc", 32, 32, 1)
     assert tk.gram_route(32, 4, route="ffma") == ("ffma", 32, 32, 1)
     assert tk.gram_route(12, 6, route="tc") == ("tc", 16, 12, 1)
+    assert tk.gram_route(80, 40, route="ffma") == ("ffma", 32, 32, 3)
+    assert tk.gram_route(48, 4, route="tcm") == ("tcm", 32, 32, 2)
+    assert tk.gram_route(24, 4, ept=16, route="tcm") == ("tcm", 16, 16, 2)
+    assert tk.gram_route(40, 10, ept=16) == ("tcm", 16, 10, 4)
     with pytest.raises(ValueError, match="one epoch tile"):
         tk.gram_route(48, 4, route="tc")
     with pytest.raises(ValueError, match="one epoch tile"):
         tk.gram_route(40, 10, ept=16, route="tc")
-    with pytest.raises(ValueError, match="'tc' or 'ffma'"):
+    with pytest.raises(ValueError, match="more than one epoch tile"):
+        tk.gram_route(32, 4, route="tcm")
+    with pytest.raises(ValueError, match="at most 104 epochs"):
+        tk.gram_route(108, 4, route="tcm")
+    with pytest.raises(ValueError, match="'tc', 'tcm' or 'ffma'"):
         tk.gram_route(16, 4, route="wgmma")
 
 
@@ -322,6 +336,83 @@ def test_k1_3xtf32_clamp_confinement():
     assert (~poisoned).mean() > 0.9
     np.testing.assert_allclose(got[~poisoned], want[~poisoned],
                                atol=1e-4)
+
+
+def _near_one_fp32(blk, data, r):
+    """The near-one rule of K1's multi-tile route (csrc/fcma_gram_tcm.cu,
+    K4's rule): each r[b, e, v] with |r| >= 1 - 2^-10 formed again in
+    fp32, t ascending, each step an FMA (the product exact in float64,
+    one rounding to float32)."""
+    out = r.clone()
+    for b, e, v in (r.abs() >= 1 - 2.0 ** -10).nonzero().tolist():
+        x = blk[e, :, b].double().tolist()
+        y = data[e, :, v].double().tolist()
+        acc = np.float32(0)
+        for xt, yt in zip(x, y):
+            acc = np.float32(xt * yt + float(acc))
+        out[b, e, v] = float(acc)
+    return out
+
+
+def _corr_tcm(blk, data):
+    """r as csrc/fcma_gram_tcm.cu forms it: 3xTF32 with the small part
+    passed unrounded (read toward zero), as csrc/fcma_corr_tc.cu, and
+    the near-one r formed again in fp32."""
+    return _near_one_fp32(blk, data,
+                          _corr_3xtf32(blk, data, lo=_tf32_trunc))
+
+
+@pytest.mark.parametrize("e,eps", [(48, 4), (36, 12), (80, 40)])
+def test_k1_tcm_3xtf32_matches_pallas_interpret_ragged(e, eps):
+    """K1's multi-tile tensor-core route (csrc/fcma_gram_tcm.cu), its
+    arithmetic emulated: every correlation of all E epochs formed once
+    in 3xTF32, the Fisher-z, the z-score over each whole subject, the
+    Gram.  Ragged B=13, V=37 and T=37 (not whole 16-row stages); 48
+    epochs of 4 a subject (two epoch tiles), 36 of 12 (tiles of 24),
+    80 of 40 (a subject longer than a tile).  Two-region inputs: the
+    Gram within 1e-4 of each voxel's K[0, 0] of the Pallas kernel in
+    interpret mode and of the plain version."""
+    t, b, v = 37, 13, 37
+    assert tk.gram_route(e, eps)[0] == "tcm"
+    blk, data = _two_mask(40 + e, e, t, b, v)
+    want = np.asarray(jk1(jnp.asarray(_pad(blk, 16)),
+                          jnp.asarray(_pad(data, 48)), eps, tile_b=8,
+                          tile_v=16, interpret=True))[:b]
+    z = within_subject_normalization(_corr_tcm(_t(blk), _t(data)), eps)
+    got = torch.einsum('bev,bfv->bef', z, z).numpy()
+    assert got.shape == (b, e, e)
+    _assert_gram_close(got, want)
+    _assert_gram_close(got, tk.fcma_gram_plain(_t(blk), _t(data),
+                                               eps).numpy())
+
+
+def test_k1_tcm_3xtf32_clamp_confinement():
+    """One-mask input at 80 epochs of 40 a subject, with self pairs
+    (r = 1) and planted r = +-1 pairs: the emulated multi-tile route's
+    normalized correlation, near-one r formed again in fp32, agrees
+    with the Pallas kernel's outside the poisoned subject groups, and
+    is finite everywhere."""
+    e, t, b, v, eps = 80, 20, 16, 32, 40
+    rng = np.random.RandomState(17)
+    data = rng.randn(e, t, v).astype(np.float32)
+    data[:, :, 21] = data[:, :, 5]
+    data[:, :, 27] = -data[:, :, 11]
+    norm = np.asarray(normalize_for_correlation(
+        jnp.asarray(data).transpose(0, 2, 1), 2)).transpose(0, 2, 1)
+    blk = np.ascontiguousarray(norm[:, :, :b])
+    want = np.asarray(jk3(jnp.asarray(blk), jnp.asarray(norm), eps,
+                          tile_b=8, tile_v=16, interpret=True))
+    r = _corr_tcm(_t(blk), _t(norm))
+    near = r.abs() >= 1 - 2.0 ** -10
+    assert near[np.arange(b), :, np.arange(b)].all()
+    got = within_subject_normalization(r, eps).numpy()
+    poisoned = _poisoned_groups(blk, norm, eps)
+    assert poisoned[5, :, 21].all() and poisoned[11, :, 27].all()
+    assert poisoned[np.arange(b), :, np.arange(b)].all()
+    assert (~poisoned).mean() > 0.9
+    np.testing.assert_allclose(got[~poisoned], want[~poisoned],
+                               atol=1e-4)
+    assert np.isfinite(got).all()
 
 
 def _poisoned_groups(blk, data, eps):
@@ -564,6 +655,7 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
     tk.fcma_corr_normalize(blk, blk, 2)
     tk.fcma_sample_gram(blk, blk, 2)
     assert tk.launches() == {"fcma_gram": 0, "fcma_gram_tc": 0,
+                             "fcma_gram_tcm": 0,
                              "fcma_corr_normalize": 0,
                              "fcma_corr_normalize_tc": 0,
                              "fcma_sample_gram": 0,

@@ -73,16 +73,19 @@ def test_epoch_zscore_kernel(cuda, dtype, shape):
     (80, 12, 10, 100, 40), (96, 9, 17, 65, 48), (64, 20, 33, 300, 64)])
 def test_fcma_kernels(cuda, e, t, b, v, eps):
     """Two-mask inputs (no |r| near 1); ragged B, V and T (9, 12, 20:
-    not whole 8-row k-steps); one epoch tile (E <= 32: K1's tensor-core
-    kernel) and several; subjects of more than 32 epochs, which span
-    several tiles (40 and 48 epochs per subject, and one subject of
-    64)."""
+    not whole 8-row k-steps); one epoch tile (E <= 32: K1's one-tile
+    tensor-core kernel) and several (K1's multi-tile one); subjects of
+    more than 32 epochs, which span several tiles (40 and 48 epochs
+    per subject, and one subject of 64)."""
     d = _normalized(e + b, e, t, v + b, cuda)
     blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
+    route = fk.gram_route(e, eps)[0]
     fk.reset_launches()
     gram = fk.fcma_gram(blk, data, eps)
     corr = fk.fcma_corr_normalize(blk, data, eps)
-    assert fk.launches() == {"fcma_gram": 1, "fcma_gram_tc": int(e <= 32),
+    assert fk.launches() == {"fcma_gram": 1,
+                             "fcma_gram_tc": int(route == "tc"),
+                             "fcma_gram_tcm": int(route == "tcm"),
                              "fcma_corr_normalize": 1,
                              "fcma_corr_normalize_tc": int(eps <= 4),
                              "fcma_sample_gram": 0,
@@ -106,6 +109,10 @@ def test_fcma_kernels_refuse_bad_inputs(cuda):
     x = torch.zeros(48, 6, 8, device=cuda)
     with pytest.raises(ValueError, match="one epoch tile"):
         fk._kernel_gram(x, x, 4, route="tc")
+    for n_e in (32, 108):
+        x = torch.zeros(n_e, 6, 8, device=cuda)
+        with pytest.raises(ValueError, match="route 'tcm'"):
+            fk._kernel_gram(x, x, 4, route="tcm")
 
 
 def test_fcma_gram_both_tilings_at_sixteen_epochs(cuda):
@@ -157,6 +164,105 @@ def test_fcma_gram_tc_misaligned_rows(cuda):
     got = fk.fcma_gram(blk, data, 4)
     assert fk.launches()["fcma_gram_tc"] == 1 and got.shape == (21, 16, 16)
     assert torch.all((got - want).abs() <= 1e-4 * want[:, :1, :1].abs())
+
+
+def _gram_routes(blk, data, eps, routes):
+    """{route: K1 forced onto it}, each launched once as asked."""
+    got = {}
+    for route in routes:
+        fk.reset_launches()
+        got[route] = fk._kernel_gram(blk, data, eps, route=route)
+        counts = fk.launches()
+        assert counts["fcma_gram"] == 1
+        for name in ("tc", "tcm"):
+            assert counts[f"fcma_gram_{name}"] == int(route == name)
+        assert torch.isfinite(got[route]).all(), route
+    return got
+
+
+@pytest.mark.parametrize("e,t,b,v,eps", [
+    (48, 37, 13, 333, 4), (80, 150, 70, 1001, 40), (96, 20, 21, 203, 4),
+    (104, 9, 9, 77, 52), (36, 150, 130, 2000, 12), (48, 20, 45, 30, 4)])
+def test_fcma_gram_tcm_routes_agree(cuda, e, t, b, v, eps):
+    """K1's multi-tile tensor-core kernel (every correlation formed
+    once, all epochs in shared memory) and fcma_corr.cu's FMA kernel
+    forced on the same inputs: at 48 epochs of 4, 80 of 40 (subjects
+    longer than an epoch tile), 96, and 104 = TCM_MAX_EPOCHS; ragged B,
+    V and T; V=30, one voxel tile, so one V split written straight into
+    the output.  Both within 1e-4 of each voxel's K[0, 0] of the plain
+    version.  Two-region inputs (no |r| near 1)."""
+    assert fk.gram_route(e, eps)[0] == "tcm"
+    d = _normalized(e * t + b, e, t, v + b, cuda)
+    blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
+    want = fk.fcma_gram_plain(blk, data, eps)
+    scale = want[:, :1, :1].abs()
+    for route, got in _gram_routes(blk, data, eps,
+                                   ("tcm", "ffma")).items():
+        assert torch.all((got - want).abs() <= 1e-4 * scale), route
+
+
+def test_fcma_gram_tcm_misaligned_rows(cuda):
+    """Operands whose rows do not start 16-byte aligned (a view one
+    float into its storage) and whose widths are not multiples of 4
+    reach the multi-tile tensor-core kernel zero-padded, with the plain
+    version's Gram.  Two-region inputs (no |r| near 1)."""
+    d = _normalized(13, 48, 30, 203 + 21, cuda)
+    blk = d[:, :, 203:].contiguous()
+    store = torch.empty(48 * 30 * 203 + 1, device=cuda)
+    store[1:] = d[:, :, :203].reshape(-1)
+    data = store[1:].view(48, 30, 203)
+    assert data.is_contiguous() and data.data_ptr() % 16
+    want = fk.fcma_gram_plain(blk, data, 4)
+    fk.reset_launches()
+    got = fk.fcma_gram(blk, data, 4)
+    assert fk.launches()["fcma_gram_tcm"] == 1
+    assert got.shape == (21, 48, 48)
+    assert torch.all((got - want).abs() <= 1e-4 * want[:, :1, :1].abs())
+
+
+@pytest.mark.parametrize("e,eps", [(48, 4), (80, 40)])
+def test_fcma_gram_tcm_self_pairs(cuda, e, eps):
+    """One mask (VoxelSelector without raw_data2): every block voxel
+    meets itself at r = 1 up to rounding, where the clamped Fisher-z
+    turns the last ulp of r into 4.95 against 8.66 and the z-score
+    carries it into the whole subject.  The multi-tile kernel forms
+    those r again in fp32 FMA, t ascending, as the FMA kernel forms
+    them, so the two Grams agree within 1e-4 of each voxel's K[0, 0]."""
+    d = _normalized(5 * e + eps, e, 30, 203, cuda)
+    blk = d[:, :, 40:77].contiguous()
+    got = _gram_routes(blk, d, eps, ("tcm", "ffma"))
+    scale = got["ffma"][:, :1, :1].abs()
+    assert torch.all((got["tcm"] - got["ffma"]).abs() <= 1e-4 * scale)
+
+
+def test_fcma_gram_tcm_takes_no_statistics_scratch(cuda, monkeypatch):
+    """Subjects of 40 epochs span two epoch tiles: the FMA route
+    allocates its statistics pass's scratch, the multi-tile route
+    none, and it allocates no more than its Gram and one [B, E, E]
+    partial a V split."""
+    d = _normalized(9, 80, 20, 500, cuda)
+    blk, data = d[:, :, 400:].contiguous(), d[:, :, :400].contiguous()
+    calls = []
+    stats = fk._stats
+
+    def counted(*args):
+        calls.append(stats(*args))
+        return calls[-1]
+
+    monkeypatch.setattr(fk, "_stats", counted)
+    fk._kernel_gram(blk, data, 40, route="ffma")
+    assert len(calls) == 1 and calls[0] is not None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fk.reset_launches()
+    fk.fcma_gram(blk, data, 40)
+    torch.cuda.synchronize()
+    assert len(calls) == 1 and fk.launches()["fcma_gram_tcm"] == 1
+    n_split = fk._tcm_split(cuda, 100, 400)
+    gram_bytes = 4 * 100 * 80 * 80
+    assert torch.cuda.max_memory_allocated() - base <= \
+        (1 + n_split) * gram_bytes + 2 ** 20
 
 
 def _assert_k3(got, blk, data, eps):

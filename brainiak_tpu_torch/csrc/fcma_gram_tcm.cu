@@ -29,7 +29,7 @@
 // unrounded (the tensor core reads its 19 high bits), the products
 // lo*hi + hi*lo + hi*hi accumulated in that order in fp32.  A
 // correlation with |r| >= kNearOne = 1 - 2^-10 is formed again in fp32
-// FMA, t ascending, before its Fisher-z (fisher_fma, tc_gram.cuh, K4's
+// FMA, t ascending, before its Fisher-z (fisher_fma, fcma_tile.cuh, K4's
 // rule): at a voxel paired with itself (r = 1) the clamped Fisher-z
 // turns the last ulp of r into 4.95 against 8.66, and the z-score
 // carries that into the subject.  The Fisher-z and z-score are

@@ -25,6 +25,12 @@
 // Ragged edges: rows t >= T, voxels v >= V and block voxels b >= B load
 // as 0, out-of-range voxels are forced to z = 0 and nothing normalizes
 // them, so they add exactly 0 to any Gram.
+//
+// The tensor-core kernels form r in 3xTF32, and a correlation with
+// |r| >= kNearOne again as corr_tile forms it (fisher_fma): at a voxel
+// paired with itself (r = 1) the clamped Fisher-z turns the last ulp of
+// r into 4.95 against 8.66, and the z-score carries that into the
+// subject.
 
 #pragma once
 
@@ -284,6 +290,29 @@ __device__ void normalize_from_stats(float* zs, int n_slots,
     float* zp = &zs[(b * n_slots + slot) * kZS + v];
     *zp = (*zp - stats[k]) * stats[plane + k];
   }
+}
+
+// |r| from which a correlation is formed again in fp32 FMA
+constexpr float kNearOne = 1.f - 0x1p-10f;
+
+// The clamped Fisher-z of r, corr_tile's expression
+__device__ __forceinline__ float fisher_z(float r) {
+  float num = 1.f + r;
+  float den = 1.f - r;
+  if (num <= 0.f) num = kClamp;
+  if (den <= 0.f) den = kClamp;
+  return 0.5f * logf(num / den);
+}
+
+// fisher_z of r = sum_t x[t ld_x] y[t ld_y] formed as corr_tile forms
+// it: fp32 FMA from 0, t ascending.
+__device__ __forceinline__ float fisher_fma(const float* __restrict__ x,
+                                            const float* __restrict__ y,
+                                            int T, int ld_x, int ld_y) {
+  float r = 0.f;
+  for (int t = 0; t < T; ++t)
+    r = fmaf(x[(size_t)t * ld_x], y[(size_t)t * ld_y], r);
+  return fisher_z(r);
 }
 
 // A thread's Gram micro-tile in K1 and K4: block voxel gb, epochs

@@ -6,11 +6,10 @@
 // GramLane's fp32 FMA micro-tile (gram_tile), and K1's sum of its
 // partial Grams over V splits (gram_sum_kernel, which K1's multi-tile
 // route, fcma_gram_tcm.cu, launches too).  The design they serve is set
-// out in fcma_gram_tc.cu.  Last, the near-one rule that K4's
-// route (fcma_sample_gram_tc.cu) and K1's multi-tile route
-// (fcma_gram_tcm.cu) apply: a correlation with |r| >= kNearOne formed
-// again in fp32 FMA (fisher_z, fisher_fma; near_one and refine_near_one
-// on the one-tile layout).
+// out in fcma_gram_tc.cu.  Last, the near-one rule on the one-tile
+// layout, which K4's route (fcma_sample_gram_tc.cu) applies: a
+// correlation with |r| >= kNearOne formed again in fp32 FMA (near_one
+// and refine_near_one, on fcma_tile.cuh's fisher_fma).
 
 #pragma once
 
@@ -174,9 +173,6 @@ __global__ void gram_sum_kernel(const float* __restrict__ partial,
   out[idx] = s;
 }
 
-// |r| from which a correlation is formed again in fp32 FMA
-constexpr float kNearOne = 1.f - 0x1p-10f;
-
 // Bit (u * 4 + j) * 4 + i set where |acc[u][j][i]| >= kNearOne
 __device__ __forceinline__ unsigned near_one(const float (&acc)[2][4][4]) {
   unsigned near = 0;
@@ -185,26 +181,6 @@ __device__ __forceinline__ unsigned near_one(const float (&acc)[2][4][4]) {
     near |= (unsigned)(fabsf(acc[k / 16][k / 4 % 4][k % 4]) >= kNearOne)
             << k;
   return near;
-}
-
-// The clamped Fisher-z of r, fisher_store's expression
-__device__ __forceinline__ float fisher_z(float r) {
-  float num = 1.f + r;
-  float den = 1.f - r;
-  if (num <= 0.f) num = kClamp;
-  if (den <= 0.f) den = kClamp;
-  return 0.5f * logf(num / den);
-}
-
-// fisher_z of r = sum_t x[t ld_x] y[t ld_y] formed as fcma_tile.cuh's
-// corr_tile forms it: fp32 FMA from 0, t ascending.
-__device__ __forceinline__ float fisher_fma(const float* __restrict__ x,
-                                            const float* __restrict__ y,
-                                            int T, int ld_x, int ld_y) {
-  float r = 0.f;
-  for (int t = 0; t < T; ++t)
-    r = fmaf(x[(size_t)t * ld_x], y[(size_t)t * ld_y], r);
-  return fisher_z(r);
 }
 
 // For each bit of `near` (rare: a voxel with itself or a near copy),

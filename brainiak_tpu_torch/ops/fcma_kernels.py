@@ -30,9 +30,14 @@ at most 32 epochs), ``csrc/fcma_gram_tcm.cu`` on more tiles up to
 in shared memory, every correlation formed once, no statistics pass),
 and ``csrc/fcma_corr.cu`` beyond (``"ffma"``).  K3 on subjects of at
 most 4 epochs (:func:`corr_route` ``"tc"``) is ``csrc/fcma_corr_tc.cu``,
-K4 on one sample tile of whole groups (:func:`sample_gram_route`
-``"tc"``) is ``csrc/fcma_sample_gram_tc.cu``.  Every other route
-computes in fp32 FMA.
+on longer subjects (``"tcl"``: chunks of 4 epochs, the raw Fisher-z
+stored, then read back for the z-score and normalized in place)
+``csrc/fcma_corr_tcl.cu``; K4 on one sample tile of whole groups
+(:func:`sample_gram_route` ``"tc"``) is ``csrc/fcma_sample_gram_tc.cu``.
+K1's multi-tile route, K3's long-subject one and K4's form a
+correlation with ``|r| >= 1 - 2**-10`` again in fp32 FMA (a voxel with
+itself).  Every other route computes in fp32 FMA; K3's FMA kernel runs
+only when forced.
 ``precision`` is not used by the kernels.  On the FMA routes a subject
 (or sample group) may be longer than one epoch tile: the kernels then
 run a first pass for its z-score statistics.  On a CPU tensor the wrapper
@@ -60,9 +65,11 @@ __all__ = ["TCM_MAX_EPOCHS", "aligned_rows_layout", "corr_layout",
 
 # "fcma_gram" counts every K1 launch, "fcma_gram_tc" those of them that
 # took the tensor-core one-tile kernel, "fcma_gram_tcm" the tensor-core
-# multi-tile one; "_tc" the same for K3 and K4
+# multi-tile one; "_tc" the same for K3 and K4, "_tcl" K3's tensor-core
+# kernel for long subjects
 _launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_gram_tcm": 0,
              "fcma_corr_normalize": 0, "fcma_corr_normalize_tc": 0,
+             "fcma_corr_normalize_tcl": 0,
              "fcma_sample_gram": 0, "fcma_sample_gram_tc": 0}
 
 #: threads of a kernel block; a block holds 512 // ept block voxels
@@ -72,8 +79,9 @@ _WAVES = 16
 _TV = 32
 #: voxels of x1 per block of the plain sample Gram
 _PLAIN_BLOCK = 128
-#: most epochs per subject of K3's tensor-core route (a thread holds a
-#: subject's epochs of one correlation in registers)
+#: most epochs per subject of K3's route "tc" (a thread holds a
+#: subject's epochs of one correlation in registers); longer subjects
+#: take "tcl"
 _TC_MAX_EPS = 4
 #: most epochs of K1's tensor-core multi-tile route (csrc/fcma_gram_tcm.cu:
 #: its z tile of all E epochs beside the stage ring in shared memory)
@@ -219,21 +227,27 @@ def sample_gram_route(n_samples, norm_unit, route=None):
 
 
 def corr_route(n_epochs, epochs_per_subj, route=None):
-    """K3's kernel on the card: ``"tc"`` (``csrc/fcma_corr_tc.cu``)
-    when a subject has at most 4 epochs, whatever ``n_epochs``, else
-    ``"ffma"`` (``csrc/fcma_corr.cu``).  ``route`` forces one, as
-    ``chip_smoke.py`` does to run both on the same inputs; ``"tc"`` is
-    refused where it does not apply."""
+    """K3's kernel on the card, whatever ``n_epochs``: ``"tc"``
+    (``csrc/fcma_corr_tc.cu``) when a subject has at most 4 epochs,
+    else ``"tcl"`` (``csrc/fcma_corr_tcl.cu``).  ``route`` forces one,
+    or ``"ffma"`` (``csrc/fcma_corr.cu``, which takes every design), as
+    ``chip_smoke.py`` does to run two on the same inputs; ``"tc"`` and
+    ``"tcl"`` are refused where they do not apply."""
     epoch_tiles(n_epochs, epochs_per_subj)
     fits = epochs_per_subj <= _TC_MAX_EPS
     if route is None:
-        return "tc" if fits else "ffma"
-    if route not in ("tc", "ffma"):
-        raise ValueError(f"route must be 'tc' or 'ffma', got {route!r}")
+        return "tc" if fits else "tcl"
+    if route not in ("tc", "tcl", "ffma"):
+        raise ValueError(
+            f"route must be 'tc', 'tcl' or 'ffma', got {route!r}")
     if route == "tc" and not fits:
         raise ValueError(
             f"route 'tc' takes subjects of at most {_TC_MAX_EPS} epochs, "
             f"got {epochs_per_subj}")
+    if route == "tcl" and fits:
+        raise ValueError(
+            f"route 'tcl' takes subjects of more than {_TC_MAX_EPS} "
+            f"epochs, got {epochs_per_subj}")
     return route
 
 
@@ -290,6 +304,7 @@ _ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 11),
          "fcma_gram_tcm_f32": (4, 10),
          "fcma_corr_normalize_f32": (4, 9),
          "fcma_corr_normalize_tc_f32": (3, 9),
+         "fcma_corr_normalize_tcl_f32": (3, 9),
          "fcma_sample_gram_f32": (5, 9),
          "fcma_sample_gram_tc_f32": (4, 11)}
 
@@ -310,11 +325,12 @@ def _ptr(x):
 def _tma_operand(x):
     """x [E, T, n] as the TMA copies of the tensor-core kernels
     (csrc/fcma_gram_tc.cu, csrc/fcma_gram_tcm.cu, csrc/fcma_corr_tc.cu,
-    csrc/fcma_sample_gram_tc.cu) read it: 16-byte aligned,
-    unit column stride, row and epoch strides multiples of 4 floats.
-    Returned as it is where it already is (a column slice of an aligned
-    wider tensor, as :func:`aligned_rows_layout` lays it out), else
-    copied once into that layout; the width stays n."""
+    csrc/fcma_corr_tcl.cu, csrc/fcma_sample_gram_tc.cu) read it:
+    16-byte aligned, unit column stride, row and epoch strides
+    multiples of 4 floats.  Returned as it is where it already is (a
+    column slice of an aligned wider tensor, as
+    :func:`aligned_rows_layout` lays it out), else copied once into
+    that layout; the width stays n."""
     if x.stride(2) == 1 and x.stride(1) % 4 == 0 and \
             x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0 and \
             min(x.stride(0), x.stride(1)) > 0:
@@ -328,7 +344,7 @@ def _corr_operand(x, route):
     """x [E, T, n] as K3's kernel of ``route`` reads it: in place where
     it already has that kernel's layout (:func:`corr_layout`), else
     copied once."""
-    return _tma_operand(x) if route == "tc" else x.contiguous()
+    return x.contiguous() if route == "ffma" else _tma_operand(x)
 
 
 def aligned_rows_layout(shape, device):
@@ -344,11 +360,11 @@ def aligned_rows_layout(shape, device):
 def corr_layout(shape, epochs_per_subj, device):
     """An empty float32 ``[E, T, n]`` that K3's route for subjects of
     ``epochs_per_subj`` epochs (:func:`corr_route`) reads in place:
-    :func:`aligned_rows_layout` for the tensor-core kernel, contiguous
-    for the FMA kernel."""
-    if epochs_per_subj <= _TC_MAX_EPS:
-        return aligned_rows_layout(shape, device)
-    return torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    :func:`aligned_rows_layout`, whatever ``epochs_per_subj``, since
+    both tensor-core kernels (``"tc"`` and ``"tcl"``) read it.  Only
+    the FMA kernel, which a call takes only when forced, copies it
+    once into a contiguous tensor."""
+    return aligned_rows_layout(shape, device)
 
 
 def _kernel_gram(blk, data, epochs_per_subj, ept=None, route=None):
@@ -419,9 +435,10 @@ def _kernel_corr_normalize(blk, data, epochs_per_subj, route=None):
         return out
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     blk, data = _corr_operand(blk, route), _corr_operand(data, route)
-    if route == "tc":
+    if route != "ffma":
         with torch.cuda.device(blk.device):
-            err = _fn("fcma_corr_tc", "fcma_corr_normalize_tc_f32")(
+            err = _fn(f"fcma_corr_{route}",
+                      f"fcma_corr_normalize_{route}_f32")(
                 blk.data_ptr(), data.data_ptr(), out.data_ptr(), n_e, n_t,
                 n_b, n_v, epochs_per_subj, blk.stride(1), blk.stride(0),
                 data.stride(1), data.stride(0), stream)
@@ -437,8 +454,8 @@ def _kernel_corr_normalize(blk, data, epochs_per_subj, route=None):
                 tile_len, n_tiles, n_split, stream)
     _build.check(err, "fcma_corr_normalize")
     _launches["fcma_corr_normalize"] += 1
-    if route == "tc":
-        _launches["fcma_corr_normalize_tc"] += 1
+    if route != "ffma":
+        _launches[f"fcma_corr_normalize_{route}"] += 1
     return out
 
 
@@ -506,11 +523,10 @@ def fcma_corr_normalize(blk, data, epochs_per_subj, precision=None):
 
     blk : [E, T, B]; data : [E, T, V]; returns ``[B, E, V]`` float32.
     A CUDA tensor goes to the kernel of :func:`corr_route` (3xTF32 on
-    the tensor cores for subjects of at most 4 epochs, else fp32 FMA;
-    both fp32-accurate, ``precision`` is not used there), a CPU tensor
-    to :func:`fcma_corr_normalize_plain`.  The kernel reads ``data``
-    in place when it has that route's layout (:func:`corr_layout`),
-    else from one copy a call.
+    the tensor cores, fp32-accurate, ``precision`` is not used there),
+    a CPU tensor to :func:`fcma_corr_normalize_plain`.  The kernel
+    reads ``data`` in place when it has that route's layout
+    (:func:`corr_layout`), else from one copy a call.
     """
     if blk.is_cuda:
         return _kernel_corr_normalize(blk, data, epochs_per_subj)

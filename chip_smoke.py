@@ -35,15 +35,20 @@ first one that goes wrong:
      K1, K3 and K4 with subjects of 40 epochs (E=80, 512 x 4096; K3 on
         128 block voxels): each subject spans two epoch tiles.  K1
         through its multi-tile tensor-core kernel (fcma_gram_tcm.cu:
-        all 80 epochs of a block at once, no statistics pass) and, on
-        the same inputs, fcma_corr.cu's FMA kernel forced; K3 and K4
-        through their FMA kernels' statistics pass.
+        all 80 epochs of a block at once, no statistics pass) and K3
+        through its long-subject tensor-core kernel (fcma_corr_tcl.cu:
+        chunks of 4 epochs, the raw z read back and z-scored), each
+        beside fcma_corr.cu's FMA kernel forced on the same inputs; K4
+        through its FMA kernel's statistics pass;
+     K3 with subjects of 12 epochs (E=96, T=150, B=128, V=16384)
+        through fcma_corr_tcl.cu, beside the FMA kernel forced.
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
    operations over the peak rate of their type: fp32 FMA at 67
    TFLOP/s, and for the tensor-core K1, K3, K4 and K5 their
    correlation's or product's three TF32 products at 494.7 TFLOP/s
-   (plus K1's and K4's Gram in fp32; the Grams counted as their
+   (plus K1's and K4's Gram in fp32; K3's tensor-core kernels are
+   bound by their bytes; the Grams counted as their
    E (E + 1) / 2 distinct entries, being symmetric, and so K5's block
    when its panel is the resident block itself).
 3. Main path, whole brain: 8 subjects x 600 TRs on a 64x64x16 volume
@@ -71,9 +76,12 @@ first one that goes wrong:
 6. Subjects of 40 epochs (E=80, 2048 + 512 voxels): ``run('svm')``
    through K1's multi-tile tensor-core kernel alone (its voxel
    accuracies against plain printed beside those of fcma_corr.cu's
-   K1 forced on the same 256 voxels), the host-CV branch through K3
-   and a portioned ``Classifier`` fit through K4 (the FMA kernel: two
-   sample tiles), each held against its plain path.
+   K1 forced on the same 256 voxels), the host-CV branch through K3's
+   long-subject tensor-core kernel alone (its accuracies on 128 voxels
+   against those of the plain K3, printed beside those of
+   fcma_corr.cu's K3 forced) and a portioned ``Classifier`` fit
+   through K4 (the FMA kernel: two sample tiles), each held against
+   its plain path.
 7. K5, the SUMMA ring step, against its plain version (``mma_update``)
    on z-scored inputs, through the tensor-core kernel that every call
    takes (ring_mma_tc.cu: a pre-pass splits the operands, then 3xTF32
@@ -323,18 +331,19 @@ def k3_zerr(torch, got, want, blk, data, eps):
 
 
 def check_k3(torch, blk, data, eps, reps):
-    """K3 against its plain version: the path's route and, where that
-    is the tensor-core kernel, fcma_corr.cu's FMA kernel forced on the
-    same inputs.  ``{route: row of its figures}``.  The difference is
-    held in Fisher-z units: times the std of each subject group's
-    Fisher-z values."""
+    """K3 against its plain version: the path's route (a tensor-core
+    kernel: fcma_corr_tc.cu up to 4 epochs a subject, fcma_corr_tcl.cu
+    beyond) and fcma_corr.cu's FMA kernel forced on the same inputs.
+    ``{route: row of its figures}``.  The difference is held in
+    Fisher-z units: times the std of each subject group's Fisher-z
+    values."""
     from brainiak_tpu_torch.ops import fcma_kernels as fk
 
     n_e, n_t, n_b = blk.shape
     n_v = data.shape[2]
     want = fk.fcma_corr_normalize_plain(blk, data, eps)
     route = fk.corr_route(n_e, eps)
-    routes = [route] + (["ffma"] if route == "tc" else [])
+    routes = [route, "ffma"]
     rows = {}
     for name in routes:
         got = fk._kernel_corr_normalize(blk, data, eps, route=name)
@@ -360,17 +369,17 @@ def check_k3(torch, blk, data, eps, reps):
         library_ms=cuda_ms(torch, lambda: torch.einsum(
             'etb,etv->bev', blk, data), reps))
     for name, row in rows.items():
-        b_ms, b_by = (bound_ms(n_bytes, 0, 3 * corr) if name == "tc"
-                      else bound_ms(n_bytes, corr))
+        b_ms, b_by = (bound_ms(n_bytes, corr) if name == "ffma"
+                      else bound_ms(n_bytes, 0, 3 * corr))
         row.update(common, bound_ms=b_ms, bound_by=b_by)
-    if "tc" in rows and "ffma" in rows:
-        log(f"  K3 at E={n_e} B={n_b} V={n_v}: tensor-core "
-            f"{rows['tc']['ms']:.3f} ms (bound {rows['tc']['bound_ms']:.3f}"
-            f" ms, {rows['tc']['bound_by']}), FMA {rows['ffma']['ms']:.3f} "
-            f"ms (bound {rows['ffma']['bound_ms']:.3f} ms), cuBLAS fp32 "
-            f"{common['library_ms']:.3f} ms; tensor-core / FMA "
-            f"{rows['tc']['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
-            f"{rows['tc']['ms'] / common['library_ms']:.3f}")
+    tc = rows[route]
+    log(f"  K3 at E={n_e} eps={eps} B={n_b} V={n_v}: tensor-core "
+        f"[{route}] {tc['ms']:.3f} ms (bound {tc['bound_ms']:.3f} ms, "
+        f"{tc['bound_by']}), FMA {rows['ffma']['ms']:.3f} ms (bound "
+        f"{rows['ffma']['bound_ms']:.3f} ms), cuBLAS fp32 "
+        f"{common['library_ms']:.3f} ms; tensor-core / FMA "
+        f"{tc['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
+        f"{tc['ms'] / common['library_ms']:.3f}")
     return rows
 
 
@@ -525,17 +534,27 @@ def phase_kernels(torch, dev):
     torch.cuda.empty_cache()
 
     # subjects of 40 epochs, two epoch tiles each: K1's multi-tile
-    # tensor-core kernel (all 80 epochs of a block at once) beside the
-    # FMA one; K3 and K4 through the statistics pass
+    # tensor-core kernel (all 80 epochs of a block at once) and K3's
+    # long-subject one, each beside the FMA one; K4 through the
+    # statistics pass
     n_e, eps = 80, 40
     data = normalized_epochs(torch, rng, n_e, n_t, 4096, dev)
     blk = normalized_epochs(torch, rng, n_e, n_t, 512, dev)
     k1 = check_k1(torch, blk, data, eps, 3)
     rows["fcma_gram_e80"], rows["fcma_gram_e80_ffma"] = k1["tcm"], k1["ffma"]
-    rows["fcma_corr_normalize_e80"] = check_k3(
-        torch, blk[:, :, :128].contiguous(), data, eps, 3)["ffma"]
+    k3 = check_k3(torch, blk[:, :, :128].contiguous(), data, eps, 5)
+    rows["fcma_corr_normalize_e80"] = k3["tcl"]
+    rows["fcma_corr_normalize_e80_ffma"] = k3["ffma"]
     rows["fcma_sample_gram_n80"] = check_k4(torch, data, blk, eps,
                                             3)["ffma"]
+    del blk, data
+    torch.cuda.empty_cache()
+
+    # K3 with subjects of 12 epochs, three whole chunks of 4 each
+    data = normalized_epochs(torch, rng, 96, n_t, 16384, dev)
+    blk = normalized_epochs(torch, rng, 96, n_t, 128, dev)
+    rows["fcma_corr_normalize_e96"] = check_k3(torch, blk, data, 12,
+                                               5)["tcl"]
     del blk, data
     torch.cuda.empty_cache()
     for name, row in rows.items():
@@ -797,13 +816,28 @@ def run_stage2(torch, label, clf_kw, train, labels_train, test, y_test,
     return clf
 
 
+def host_cv_accuracies(hvs, k3):
+    """Accuracies of ``hvs.run(clf)`` (the host-CV branch) with
+    VoxelSelector's K3 replaced by ``k3(blk, data, eps)``."""
+    from brainiak_tpu_torch.fcma import voxelselector as vsm
+
+    saved = vsm.fcma_corr_normalize
+    vsm.fcma_corr_normalize = \
+        lambda blk, data, eps, precision=None: k3(blk, data, eps)
+    try:
+        return check_accuracies(hvs.run(_KernelNearestMean()),
+                                hvs.num_voxels)
+    finally:
+        vsm.fcma_corr_normalize = saved
+
+
 def run_long_subjects(torch, rows):
     """The entry points on 2 subjects x 40 epochs (each subject spans
     two epoch tiles): run('svm') through K1's multi-tile tensor-core
-    kernel, the host-CV branch through K3 and a portioned Classifier
-    fit through K4 (the FMA kernels' statistics pass), each held
-    against its plain path; and K1's accuracies with the FMA kernel
-    forced on the same voxels."""
+    kernel, the host-CV branch through K3's long-subject tensor-core
+    kernel and a portioned Classifier fit through K4 (the FMA kernel's
+    statistics pass), each held against its plain path; and K1's and
+    K3's accuracies with the FMA kernel forced on the same voxels."""
     from brainiak_tpu_torch.fcma import Classifier
     from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
     from brainiak_tpu_torch.ops import fcma_kernels as fk
@@ -833,7 +867,7 @@ def run_long_subjects(torch, rows):
         f"run('svm'), host-CV on 128 voxels and a portioned fit in "
         f"{t_all:.2f} s; launches {launches}")
     for name, row in (("fcma_gram_tcm", "fcma_gram_e80"),
-                      ("fcma_corr_normalize", "fcma_corr_normalize_e80"),
+                      ("fcma_corr_normalize_tcl", "fcma_corr_normalize_e80"),
                       ("fcma_sample_gram", "fcma_sample_gram_n80")):
         if launches[name] < 1:
             fail(f"long subjects: {name} was not launched")
@@ -841,12 +875,14 @@ def run_long_subjects(torch, rows):
     if launches["fcma_gram"] != launches["fcma_gram_tcm"]:
         fail("long subjects: K1 took a kernel other than the multi-tile "
              "tensor-core one")
-    if launches["fcma_corr_normalize_tc"] != 0:
-        fail("long subjects: K3 took the tensor-core kernel")
+    if launches["fcma_corr_normalize"] != \
+            launches["fcma_corr_normalize_tcl"]:
+        fail("long subjects: K3 took a kernel other than the long-subject "
+             "tensor-core one")
     if launches["fcma_sample_gram_tc"] != 0:
         fail("long subjects: K4 took the one-tile tensor-core kernel")
     accs = check_accuracies(results, n_v)
-    check_accuracies(host, 128)
+    host = check_accuracies(host, 128)
     if pred.shape != (n_e // 2,):
         fail("long subjects: the classifier predicted the wrong shape")
     # both K1 routes against plain on the same voxels, so that a change
@@ -855,6 +891,20 @@ def run_long_subjects(torch, rows):
     compare_with_plain(torch, vs,
                        forced_route_accuracies(torch, vs, 256, "ffma"),
                        256, label="K1 [ffma] (forced)", gate=False)
+    # the host-CV branch's accuracies (every block voxel paired with
+    # itself) against the plain K3's, and the FMA K3's beside them
+    plain = host_cv_accuracies(hvs, fk.fcma_corr_normalize_plain)
+    ffma = host_cv_accuracies(hvs, lambda blk, data, eps: (
+        fk._kernel_corr_normalize(blk, data, eps, route="ffma")))
+    for label, got, gate in (("K3 [tcl] (the path's)", host, True),
+                             ("K3 [ffma] (forced)", ffma, False)):
+        same = float(np.mean(got == plain))
+        log(f"  host-CV {label} vs plain K3 accuracies on 128 voxels: "
+            f"equal on {same:.4f}, max diff "
+            f"{np.max(np.abs(got - plain)):.4f}")
+        if gate and same < ACC_AGREE:
+            fail(f"long subjects: host-CV {label} accuracies disagree "
+                 "with the plain K3's")
     compare_classifier_with_plain(torch, clf, pairs, labels, n_e // 2)
 
 
@@ -1424,15 +1474,14 @@ def main():
     for name in ("fcma_gram_ffma", "fcma_gram_ffma_e16",
                  "fcma_gram_e80_ffma"):
         rows[name]["launches"] = ffma_launches
-    # fcma_corr.cu's K3 and fcma_sample_gram.cu's K4 over the paths:
-    # the long-subject host-CV branch and fit; no path runs raw
-    # features or four sample tiles
-    rows["fcma_corr_normalize_ffma"]["launches"] = \
-        rows["fcma_corr_normalize_e80"]["launches"]
+    # fcma_sample_gram.cu's K4 over the paths: the long-subject fit; no
+    # path takes fcma_corr.cu's K3 (the host-CV checks fail if one
+    # does), runs raw features, four sample tiles or K3 at E=96
     rows["fcma_sample_gram_ffma"]["launches"] = \
         rows["fcma_sample_gram_n80"]["launches"]
-    for name in ("fcma_sample_gram_raw", "fcma_sample_gram_raw_ffma",
-                 "fcma_sample_gram_n96"):
+    for name in ("fcma_corr_normalize_ffma", "fcma_corr_normalize_e80_ffma",
+                 "fcma_corr_normalize_e96", "fcma_sample_gram_raw",
+                 "fcma_sample_gram_raw_ffma", "fcma_sample_gram_n96"):
         rows[name]["launches"] = 0
     torch.cuda.empty_cache()
 
@@ -1450,6 +1499,8 @@ def main():
     k3 = ("brainiak_tpu/ops/pallas_kernels.py:168", csrc + "fcma_corr.cu")
     k3_tc = ("brainiak_tpu/ops/pallas_kernels.py:168",
              csrc + "fcma_corr_tc.cu")
+    k3_tcl = ("brainiak_tpu/ops/pallas_kernels.py:168",
+              csrc + "fcma_corr_tcl.cu")
     k4 = ("brainiak_tpu/ops/pallas_kernels.py:311",
           csrc + "fcma_sample_gram.cu")
     k4_tc = ("brainiak_tpu/ops/pallas_kernels.py:311",
@@ -1461,7 +1512,9 @@ def main():
         "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1,
         "fcma_gram_e80": k1_tcm, "fcma_gram_e80_ffma": k1,
         "fcma_corr_normalize": k3_tc, "fcma_corr_normalize_b256": k3_tc,
-        "fcma_corr_normalize_ffma": k3, "fcma_corr_normalize_e80": k3,
+        "fcma_corr_normalize_ffma": k3, "fcma_corr_normalize_e80": k3_tcl,
+        "fcma_corr_normalize_e80_ffma": k3,
+        "fcma_corr_normalize_e96": k3_tcl,
         "fcma_sample_gram": k4_tc, "fcma_sample_gram_raw": k4_tc,
         "fcma_sample_gram_ffma": k4, "fcma_sample_gram_raw_ffma": k4,
         "fcma_sample_gram_n96": k4, "fcma_sample_gram_n80": k4,

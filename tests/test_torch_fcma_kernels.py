@@ -5,8 +5,9 @@ Pallas kernels, run in interpreter mode on the CPU.
 On a CPU tensor each wrapper runs its plain PyTorch version; the CUDA
 kernels themselves are held against those plain versions on the card
 (tests/test_torch_gpu.py, chip_smoke.py).  K1's tensor-core route
-(csrc/fcma_gram_tc.cu) and K3's (csrc/fcma_corr_tc.cu) form the
-correlation in 3xTF32; their products are emulated here in plain
+(csrc/fcma_gram_tc.cu) and K3's (csrc/fcma_corr_tc.cu,
+csrc/fcma_corr_tcl.cu) form the correlation in 3xTF32; their products
+(and the long-subject K3's chunked z-score) are emulated here in plain
 PyTorch and held against the Pallas kernel too.  Tolerances:
 
 * normalized correlation: atol 1e-4 outside the (voxel-pair, subject)
@@ -502,14 +503,105 @@ def test_k3_3xtf32_clamp_confinement(e, eps):
     assert np.isfinite(got).all()
 
 
+def _chunked_corr_normalize(blk, data, eps):
+    """K3's long-subject route (csrc/fcma_corr_tcl.cu) in plain
+    PyTorch: r as its products form it (3xTF32, the near-one r again in
+    fp32), then, per subject, boxes of 4 epochs (the last one running
+    past the subject, its extra epochs dropped), each epoch's clamped
+    Fisher-z stored raw; after the subject's last chunk the raw z read
+    back for sums of z and z^2 (fmaf: the square exact in float64, one
+    rounding) in epoch order, and z-scored with them (var = E[z^2] -
+    mean^2, the inverse std 0 where var <= 0)."""
+    r = _corr_tcm(blk, data)
+    num = torch.where(1 + r <= 0, torch.tensor(1e-4), 1 + r)
+    den = torch.where(1 - r <= 0, torch.tensor(1e-4), 1 - r)
+    z = 0.5 * torch.log(num / den)
+    n_b, n_e, n_v = z.shape
+    out = torch.full_like(z, float("nan"))
+    inv_n = torch.tensor(1.0, dtype=torch.float32) / eps
+    for s0 in range(0, n_e, eps):
+        for c0 in range(s0, s0 + eps, 4):
+            box = z[:, c0:c0 + 4]  # may hold the next subject's epochs
+            n_in = min(4, s0 + eps - c0)
+            out[:, c0:c0 + n_in] = box[:, :n_in]
+        total = torch.zeros(n_b, n_v)
+        sq = torch.zeros(n_b, n_v)
+        for e in range(s0, s0 + eps):
+            ze = out[:, e]
+            total = total + ze
+            sq = (ze.double() * ze.double() + sq.double()).float()
+        mean = total * inv_n
+        var = sq * inv_n - mean * mean
+        inv = torch.where(var <= 0, torch.tensor(0.0),
+                          1 / torch.sqrt(var.clamp(min=0)))
+        raw = out[:, s0:s0 + eps]
+        out[:, s0:s0 + eps] = (raw - mean[:, None]) * inv[:, None]
+    return out
+
+
+@pytest.mark.parametrize("e,eps", [(15, 5), (12, 6), (36, 12), (80, 40)])
+def test_k3_tcl_chunked_matches_pallas_interpret_ragged(e, eps):
+    """K3's route for subjects of more than 4 epochs, its arithmetic
+    emulated (_chunked_corr_normalize): 5 and 6 epochs a subject end on
+    a partial chunk, 12 and 40 on whole ones; ragged B=13, V=37 and
+    T=37 (not whole 8-row k-steps).  Two-region inputs (no |r| near 1):
+    within the K3 rule (1e-5 in Fisher-z units) of the Pallas kernel in
+    interpret mode and of the plain version, and within 1e-5 of the
+    same r z-scored in one pass over each subject."""
+    t, b, v = 37, 13, 37
+    assert tk.corr_route(e, eps) == "tcl"
+    blk, data = _two_mask(60 + e, e, t, b, v)
+    want = np.asarray(jk3(jnp.asarray(_pad(blk, 16)),
+                          jnp.asarray(_pad(data, 48)), eps, tile_b=8,
+                          tile_v=16, interpret=True))[:b, :, :v]
+    got = _chunked_corr_normalize(_t(blk), _t(data), eps)
+    assert got.shape == (b, e, v) and not torch.isnan(got).any()
+    got = got.numpy()
+    plain = tk.fcma_corr_normalize_plain(_t(blk), _t(data), eps).numpy()
+    for ref in (want, plain):
+        _assert_k3_close(got, ref, blk, data, eps)
+    one_pass = within_subject_normalization(
+        _corr_tcm(_t(blk), _t(data)), eps).numpy()
+    np.testing.assert_allclose(got, one_pass, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("e,eps", [(24, 12), (80, 40)])
+def test_k3_tcl_chunked_clamp_confinement(e, eps):
+    """Self-correlation, as VoxelSelector.run(clf) runs K3 without
+    raw_data2, with planted r = +-1 pairs, through the emulated
+    long-subject route: the near-one r formed again in fp32 keep every
+    value finite, and outside the poisoned subject groups it agrees
+    with the Pallas kernel and the plain version under the K3 rule."""
+    t, b, v = 24, 16, 40
+    rng = np.random.RandomState(23 + eps)
+    data = rng.randn(e, t, v).astype(np.float32)
+    data[:, :, 30] = data[:, :, 3]
+    data[:, :, 35] = -data[:, :, 9]
+    norm = np.asarray(normalize_for_correlation(
+        jnp.asarray(data).transpose(0, 2, 1), 2)).transpose(0, 2, 1)
+    blk = np.ascontiguousarray(norm[:, :, :b])
+    want = np.asarray(jk3(jnp.asarray(blk), jnp.asarray(norm), eps,
+                          tile_b=8, tile_v=8, interpret=True))
+    got = _chunked_corr_normalize(_t(blk), _t(norm), eps).numpy()
+    plain = tk.fcma_corr_normalize_plain(_t(blk), _t(norm), eps).numpy()
+    poisoned = _poisoned_groups(blk, norm, eps)
+    assert poisoned[3, :, 30].all() and poisoned[9, :, 35].all()
+    assert poisoned[np.arange(b), :, np.arange(b)].all()
+    assert (~poisoned).mean() > 0.9
+    for ref in (want, plain):
+        _assert_k3_close(got, ref, blk, norm, eps, keep=~poisoned)
+    assert np.isfinite(got).all()
+
+
 @pytest.mark.parametrize("n_epochs,eps,expect", [
     (32, 4, "tc"), (16, 4, "tc"), (48, 4, "tc"), (8, 2, "tc"),
-    (3, 1, "tc"), (12, 3, "tc"), (12, 6, "ffma"), (24, 12, "ffma"),
-    (40, 10, "ffma"), (80, 40, "ffma"), (96, 48, "ffma"),
-    (64, 64, "ffma")])
+    (3, 1, "tc"), (12, 3, "tc"), (12, 6, "tcl"), (24, 12, "tcl"),
+    (40, 10, "tcl"), (80, 40, "tcl"), (96, 48, "tcl"),
+    (64, 64, "tcl"), (96, 12, "tcl"), (30, 5, "tcl")])
 def test_corr_route(n_epochs, eps, expect):
-    """Subjects of at most 4 epochs take K3's tensor-core kernel,
-    whatever the number of epochs; longer subjects the FMA one."""
+    """Subjects of at most 4 epochs take K3's tensor-core kernel
+    csrc/fcma_corr_tc.cu, longer subjects csrc/fcma_corr_tcl.cu,
+    whatever the number of epochs."""
     assert tk.corr_route(n_epochs, eps) == expect
 
 
@@ -517,11 +609,15 @@ def test_corr_route_forced():
     assert tk.corr_route(32, 4, route="ffma") == "ffma"
     assert tk.corr_route(48, 4, route="tc") == "tc"
     assert tk.corr_route(80, 40, route="ffma") == "ffma"
+    assert tk.corr_route(30, 5, route="tcl") == "tcl"
     with pytest.raises(ValueError, match="at most 4 epochs"):
         tk.corr_route(80, 40, route="tc")
     with pytest.raises(ValueError, match="at most 4 epochs"):
         tk.corr_route(12, 6, route="tc")
-    with pytest.raises(ValueError, match="'tc' or 'ffma'"):
+    for n_epochs, eps in ((32, 4), (12, 3), (3, 1)):
+        with pytest.raises(ValueError, match="more than 4 epochs"):
+            tk.corr_route(n_epochs, eps, route="tcl")
+    with pytest.raises(ValueError, match="'tc', 'tcl' or 'ffma'"):
         tk.corr_route(16, 4, route="wgmma")
     with pytest.raises(ValueError, match="multiple"):
         tk.corr_route(10, 4)
@@ -594,16 +690,18 @@ def test_tma_operand_reads_aligned_views_in_place():
 @pytest.mark.parametrize("eps", [1, 4, 5, 40])
 def test_corr_layout_is_what_the_route_reads_in_place(eps):
     """corr_layout gives the layout of K3's route for these subjects:
-    16-byte aligned rows for the tensor cores (eps <= 4), a contiguous
-    tensor for the FMA kernel; either passes _corr_operand as it is."""
+    16-byte aligned rows for either tensor-core kernel ("tc" up to 4
+    epochs a subject, "tcl" beyond), which _corr_operand passes as it
+    is; the FMA kernel, forced, gets a contiguous copy."""
     n_e = 2 * eps
     lay = tk.corr_layout((n_e, 3, 37), eps, "cpu")
     route = tk.corr_route(n_e, eps)
-    assert lay.shape == (n_e, 3, 37)
-    assert lay.is_contiguous() == (route == "ffma")
-    if route == "tc":
-        assert lay.stride() == (120, 40, 1)
+    assert route == ("tc" if eps <= 4 else "tcl")
+    assert lay.shape == (n_e, 3, 37) and not lay.is_contiguous()
+    assert lay.stride() == (120, 40, 1)
     assert tk._corr_operand(lay, route) is lay
+    copy = tk._corr_operand(lay, "ffma")
+    assert copy.is_contiguous() and torch.equal(copy, lay)
 
 
 def _tiled_gram(blk, data, eps):
@@ -658,6 +756,7 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
                              "fcma_gram_tcm": 0,
                              "fcma_corr_normalize": 0,
                              "fcma_corr_normalize_tc": 0,
+                             "fcma_corr_normalize_tcl": 0,
                              "fcma_sample_gram": 0,
                              "fcma_sample_gram_tc": 0}
 

@@ -88,6 +88,7 @@ def test_fcma_kernels(cuda, e, t, b, v, eps):
                              "fcma_gram_tcm": int(route == "tcm"),
                              "fcma_corr_normalize": 1,
                              "fcma_corr_normalize_tc": int(eps <= 4),
+                             "fcma_corr_normalize_tcl": int(eps > 4),
                              "fcma_sample_gram": 0,
                              "fcma_sample_gram_tc": 0}
     want = fk.fcma_gram_plain(blk, data, eps)
@@ -295,22 +296,89 @@ def _assert_k3(got, blk, data, eps):
 
 @pytest.mark.parametrize("e,t,b,v,eps", [
     (32, 150, 128, 4096, 4), (48, 150, 130, 1001, 4), (16, 9, 21, 77, 4),
-    (12, 20, 9, 70, 3), (8, 40, 13, 37, 2), (4, 33, 64, 250, 1)])
+    (12, 20, 9, 70, 3), (8, 40, 13, 37, 2), (4, 33, 64, 250, 1),
+    (15, 37, 13, 203, 5), (12, 9, 21, 77, 6), (48, 150, 130, 1001, 12),
+    (80, 150, 140, 4099, 40)])
 def test_fcma_corr_normalize_routes_agree(cuda, e, t, b, v, eps):
-    """K3's tensor-core kernel and fcma_corr.cu's FMA kernel on the same
-    inputs (ragged B, V and T; E=48 with 4 epochs per subject): each
-    launched as asked, both within the K3 rule of the plain version.
-    Two-region inputs (no |r| near 1)."""
+    """K3's tensor-core kernel of the route (fcma_corr_tc.cu up to 4
+    epochs a subject, fcma_corr_tcl.cu beyond: 5 and 6 end on a partial
+    chunk of 4 epochs, 12 and 40 on whole ones) and fcma_corr.cu's FMA
+    kernel on the same inputs (ragged B, V and T; E=48 with 4 epochs per
+    subject; at E=80, 260 items, so a block of the persistent grid runs
+    more than one): each launched as asked, both within the K3 rule of
+    the plain version.  Two-region inputs (no |r| near 1)."""
     d = _normalized(e * t + v, e, t, v + b, cuda)
     blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
-    assert fk.corr_route(e, eps) == "tc"
-    for route in ("tc", "ffma"):
+    route = fk.corr_route(e, eps)
+    assert route == ("tc" if eps <= 4 else "tcl")
+    for name in (route, "ffma"):
         fk.reset_launches()
-        got = fk._kernel_corr_normalize(blk, data, eps, route=route)
-        assert fk.launches()["fcma_corr_normalize"] == 1
-        assert fk.launches()["fcma_corr_normalize_tc"] == int(
-            route == "tc")
+        got = fk._kernel_corr_normalize(blk, data, eps, route=name)
+        counts = fk.launches()
+        assert counts["fcma_corr_normalize"] == 1
+        for kernel in ("tc", "tcl"):
+            assert counts[f"fcma_corr_normalize_{kernel}"] == int(
+                name == kernel)
         _assert_k3(got, blk, data, eps)
+
+
+def _dyadic(seed, e, t, n, dev):
+    """[E, T, n] float32 of k / 64, k in -4..4: every product and every
+    sum over 16 rows is exact in fp32 and in TF32, so the tensor-core
+    and FMA kernels form the same r bit for bit."""
+    k = np.random.RandomState(seed).randint(-4, 5, size=(e, t, n))
+    return torch.from_numpy((k / 64).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("e,eps", [(15, 5), (36, 12), (80, 40)])
+def test_fcma_corr_normalize_tcl_is_the_fma_z_score_bit_for_bit(cuda, e,
+                                                                eps):
+    """Inputs whose correlations are exact (|r| <= 1/16), so both
+    kernels form the same r and the same Fisher-z: the long-subject
+    kernel's chunked z-score (running sums, the raw z read back) is
+    then the FMA kernel's one-tile or statistics-pass z-score bit for
+    bit, over ragged B and V."""
+    t, b, v = 16, 45, 203
+    blk, data = _dyadic(e, e, t, b, cuda), _dyadic(e + 1, e, t, v, cuda)
+    got = fk._kernel_corr_normalize(blk, data, eps, route="tcl")
+    want = fk._kernel_corr_normalize(blk, data, eps, route="ffma")
+    assert torch.isfinite(want).all() and want.abs().max() > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("e,eps", [(24, 12), (80, 40)])
+def test_fcma_corr_normalize_tcl_self_pairs(cuda, e, eps):
+    """One mask (run(clf) without raw_data2): each block voxel meets
+    itself at r = 1 up to rounding in every epoch, where the clamped
+    Fisher-z turns the last ulp of r into 4.95 against 8.66.  The
+    long-subject kernel forms those r again in fp32 FMA, t ascending,
+    as the FMA kernel forms them, so at the self pairs the two routes'
+    output is equal bit for bit; elsewhere, outside the subject groups
+    that hold an |r| > 0.999, both meet the K3 rule of the plain
+    version."""
+    d = _normalized(5 * e + eps, e, 30, 203, cuda)
+    blk = d[:, :, 40:77].contiguous()
+    got = {}
+    for route in ("tcl", "ffma"):
+        fk.reset_launches()
+        got[route] = fk._kernel_corr_normalize(blk, d, eps, route=route)
+        assert fk.launches()["fcma_corr_normalize_tcl"] == int(
+            route == "tcl")
+        assert torch.isfinite(got[route]).all(), route
+    n_b = blk.shape[2]
+    idx = torch.arange(n_b, device=cuda)
+    assert torch.equal(got["tcl"][idx, :, 40 + idx],
+                       got["ffma"][idx, :, 40 + idx])
+    want = fk.fcma_corr_normalize_plain(blk, d, eps)
+    r = torch.einsum('etb,etv->bev', blk.double(), d.double())
+    near = (r.abs() > 0.999).reshape(n_b, e // eps, eps, -1).any(
+        dim=2, keepdim=True).expand(n_b, e // eps, eps, -1).reshape(
+        r.shape)
+    assert near[idx, :, 40 + idx].all() and (~near).float().mean() > 0.9
+    sigma = _group_sigma(blk, d, eps)
+    for route, out in got.items():
+        assert ((out - want).abs() * sigma)[~near].max().item() <= 1e-5, \
+            route
 
 
 @pytest.mark.parametrize("offset", [0, 1, 3])
@@ -379,7 +447,7 @@ def test_run_clf_reads_the_cached_data2_in_place(cuda, monkeypatch, eps):
     """run(clf) with V = 37, not a multiple of 4: every K3 launch, one
     a block of 3 voxels, gets the selector's cached data2 and its
     kernel reads it without a copy, on either route (4 epochs a
-    subject: the tensor cores; 8: the FMA kernel)."""
+    subject: fcma_corr_tc.cu; 8: fcma_corr_tcl.cu)."""
     from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
 
     rng = np.random.RandomState(3)
@@ -410,6 +478,7 @@ def test_run_clf_reads_the_cached_data2_in_place(cuda, monkeypatch, eps):
     assert passed == [True] * 4
     assert fk.launches()["fcma_corr_normalize"] == 4
     assert fk.launches()["fcma_corr_normalize_tc"] == (4 if eps == 4 else 0)
+    assert fk.launches()["fcma_corr_normalize_tcl"] == (0 if eps == 4 else 4)
 
 
 @pytest.mark.parametrize("n,norm_unit", [

@@ -288,10 +288,12 @@ def test_stack_lays_data2_out_once_with_aligned_rows(monkeypatch):
 
 
 def test_stack_keeps_data2_contiguous_for_the_fma_route(monkeypatch):
-    """V = 37 and 8 epochs a subject, which K3 runs on fcma_corr.cu's
-    FMA kernel: data2 is stacked once, contiguous, and every K3 call
-    of run(clf) gets that tensor, which the FMA kernel reads in place
-    (no copy a block)."""
+    """V = 37 and 8 epochs a subject, which K3 runs on its long-subject
+    tensor-core kernel (csrc/fcma_corr_tcl.cu; fcma_corr.cu's FMA
+    kernel, which reads a contiguous tensor, runs only when forced):
+    data2 is stacked once, its rows 16-byte aligned, and every K3 call
+    of run(clf) gets that tensor, which the kernel reads in place (no
+    copy a block)."""
     from brainiak_tpu_torch.fcma import voxelselector as tvs
     from brainiak_tpu_torch.ops import fcma_kernels as tk
 
@@ -311,12 +313,13 @@ def test_stack_keeps_data2_contiguous_for_the_fma_route(monkeypatch):
     clf = svm.SVC(kernel='precomputed', shrinking=False, C=1)
     assert vs.run(clf) == vs.run(clf)
     _, data2 = vs._stack()
-    assert data2.shape == (16, 12, 37) and data2.is_contiguous()
+    assert data2.shape == (16, 12, 37) and data2.stride(1) % 4 == 0
+    assert data2.data_ptr() % 16 == 0
     assert torch.equal(data2, torch.from_numpy(np.stack(d2)))
     assert len(seen) == 2 * 4  # 10 voxels in blocks of 3, two runs
     assert all(x is data2 for x in seen)
-    assert tk.corr_route(16, 8) == "ffma"
-    assert tk._corr_operand(data2, "ffma") is data2
+    assert tk.corr_route(16, 8) == "tcl"
+    assert tk._corr_operand(data2, "tcl") is data2
 
 
 @pytest.mark.parametrize("one_mask", [False, True])

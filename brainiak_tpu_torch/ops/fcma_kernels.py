@@ -32,9 +32,14 @@ and ``csrc/fcma_corr.cu`` beyond (``"ffma"``).  K3 on subjects of at
 most 4 epochs (:func:`corr_route` ``"tc"``) is ``csrc/fcma_corr_tc.cu``,
 on longer subjects (``"tcl"``: chunks of 4 epochs, the raw Fisher-z
 stored, then read back for the z-score and normalized in place)
-``csrc/fcma_corr_tcl.cu``; K4 on one sample tile of whole groups
-(:func:`sample_gram_route` ``"tc"``) is ``csrc/fcma_sample_gram_tc.cu``.
-K1's multi-tile route, K3's long-subject one and K4's form a
+``csrc/fcma_corr_tcl.cu``.  K4 (:func:`sample_gram_route`) takes
+``csrc/fcma_sample_gram_tc.cu`` on one sample tile of whole groups
+(``"tc"``), ``csrc/fcma_sample_gram_tcm.cu`` on more up to
+:data:`TCM_MAX_EPOCHS` = 104 samples (``"tcm"``: K1's multi-tile body,
+the block voxels summed in the Gram's own FMA chains) and
+``csrc/fcma_sample_gram.cu`` beyond (``"ffma"``).  The multi-tile
+routes of K1 and K4 share ``csrc/tc_gram_m.cuh``.  K1's multi-tile
+route, K3's long-subject one and K4's tensor-core ones form a
 correlation with ``|r| >= 1 - 2**-10`` again in fp32 FMA (a voxel with
 itself).  Every other route computes in fp32 FMA; K3's FMA kernel runs
 only when forced.
@@ -65,12 +70,13 @@ __all__ = ["TCM_MAX_EPOCHS", "aligned_rows_layout", "corr_layout",
 
 # "fcma_gram" counts every K1 launch, "fcma_gram_tc" those of them that
 # took the tensor-core one-tile kernel, "fcma_gram_tcm" the tensor-core
-# multi-tile one; "_tc" the same for K3 and K4, "_tcl" K3's tensor-core
-# kernel for long subjects
+# multi-tile one; "_tc" and "_tcm" the same for K3 and K4, "_tcl" K3's
+# tensor-core kernel for long subjects
 _launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_gram_tcm": 0,
              "fcma_corr_normalize": 0, "fcma_corr_normalize_tc": 0,
              "fcma_corr_normalize_tcl": 0,
-             "fcma_sample_gram": 0, "fcma_sample_gram_tc": 0}
+             "fcma_sample_gram": 0, "fcma_sample_gram_tc": 0,
+             "fcma_sample_gram_tcm": 0}
 
 #: threads of a kernel block; a block holds 512 // ept block voxels
 _THREADS = 512
@@ -83,8 +89,9 @@ _PLAIN_BLOCK = 128
 #: subject's epochs of one correlation in registers); longer subjects
 #: take "tcl"
 _TC_MAX_EPS = 4
-#: most epochs of K1's tensor-core multi-tile route (csrc/fcma_gram_tcm.cu:
-#: its z tile of all E epochs beside the stage ring in shared memory)
+#: most epochs (K1) or samples (K4) of the tensor-core multi-tile routes
+#: (csrc/fcma_gram_tcm.cu, csrc/fcma_sample_gram_tcm.cu: their z tile of
+#: all of them beside the stage ring in shared memory)
 TCM_MAX_EPOCHS = 104
 #: block voxels a block of that route
 _TCM_BLOCK = 8
@@ -207,22 +214,33 @@ def gram_route(n_epochs, epochs_per_subj, ept=None, route=None):
 def sample_gram_route(n_samples, norm_unit, route=None):
     """``(route, ept, tile_len, n_tiles)`` of K4 on the card.
 
-    ``"tc"`` (``csrc/fcma_sample_gram_tc.cu``) when the samples form
-    one sample tile of whole groups of ``norm_unit`` (raw features,
-    ``norm_unit <= 1``: groups of one), else ``"ffma"``
-    (``csrc/fcma_sample_gram.cu``), which takes every tiling.
-    ``route`` forces the kernel, as ``chip_smoke.py`` does to run both
-    on the same inputs; ``"tc"`` is refused where it does not apply.
+    By shape: ``"tc"`` (``csrc/fcma_sample_gram_tc.cu``) when the
+    samples form one sample tile of whole groups of ``norm_unit`` (raw
+    features, ``norm_unit <= 1``: groups of one); ``"tcm"``
+    (``csrc/fcma_sample_gram_tcm.cu``) for more tiles up to
+    :data:`TCM_MAX_EPOCHS` samples, whatever the group length (all
+    samples of a block sit in shared memory); ``"ffma"``
+    (``csrc/fcma_sample_gram.cu``), which takes every tiling, beyond.
+    ``route`` forces the kernel, as ``chip_smoke.py`` does to run two
+    on the same inputs; ``"tc"`` and ``"tcm"`` are refused where they
+    do not apply.
     """
     ept, tile_len, n_tiles = epoch_tiles(n_samples, max(norm_unit, 1))
+    fits = n_samples <= TCM_MAX_EPOCHS
     if route is None:
-        route = "tc" if n_tiles == 1 else "ffma"
-    elif route not in ("tc", "ffma"):
-        raise ValueError(f"route must be 'tc' or 'ffma', got {route!r}")
+        route = "tc" if n_tiles == 1 else "tcm" if fits else "ffma"
+    elif route not in ("tc", "tcm", "ffma"):
+        raise ValueError(
+            f"route must be 'tc', 'tcm' or 'ffma', got {route!r}")
     elif route == "tc" and n_tiles != 1:
         raise ValueError(
             f"route 'tc' takes one sample tile; {n_samples} samples in "
             f"groups of {max(norm_unit, 1)} need {n_tiles} of {ept}")
+    elif route == "tcm" and (n_tiles == 1 or not fits):
+        raise ValueError(
+            f"route 'tcm' takes more than one sample tile and at most "
+            f"{TCM_MAX_EPOCHS} samples; {n_samples} samples in groups of "
+            f"{max(norm_unit, 1)} make {n_tiles} of {ept}")
     return route, ept, tile_len, n_tiles
 
 
@@ -280,10 +298,11 @@ def _n_split(device, n_blocks, n_vox):
 
 
 def _tcm_split(device, n_b, n_vox):
-    """V splits of K1's multi-tile route: its blocks of _TCM_BLOCK block
-    voxels, one an SM, in one wave where they fill it.  Each split adds
-    a [B, E, E] partial, and a block's voxel tiles share its ring, so
-    one wave of long blocks beats several of short ones."""
+    """V splits of the multi-tile routes (K1's and K4's "tcm"): their
+    blocks of _TCM_BLOCK block voxels, one an SM, in one wave where they
+    fill it.  Each split adds a partial Gram, and a block's voxel tiles
+    share its ring, so one wave of long blocks beats several of short
+    ones."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     n_vtiles = max(1, -(-n_vox // _TV))
     return max(1, min(n_vtiles, 65535, sms // -(-n_b // _TCM_BLOCK)))
@@ -306,7 +325,8 @@ _ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 11),
          "fcma_corr_normalize_tc_f32": (3, 9),
          "fcma_corr_normalize_tcl_f32": (3, 9),
          "fcma_sample_gram_f32": (5, 9),
-         "fcma_sample_gram_tc_f32": (4, 11)}
+         "fcma_sample_gram_tc_f32": (4, 11),
+         "fcma_sample_gram_tcm_f32": (4, 10)}
 
 
 def _fn(source, name):
@@ -325,7 +345,8 @@ def _ptr(x):
 def _tma_operand(x):
     """x [E, T, n] as the TMA copies of the tensor-core kernels
     (csrc/fcma_gram_tc.cu, csrc/fcma_gram_tcm.cu, csrc/fcma_corr_tc.cu,
-    csrc/fcma_corr_tcl.cu, csrc/fcma_sample_gram_tc.cu) read it:
+    csrc/fcma_corr_tcl.cu, csrc/fcma_sample_gram_tc.cu,
+    csrc/fcma_sample_gram_tcm.cu) read it:
     16-byte aligned, unit column stride, row and epoch strides
     multiples of 4 floats.  Returned as it is where it already is (a
     column slice of an aligned wider tensor, as
@@ -461,7 +482,7 @@ def _kernel_corr_normalize(blk, data, epochs_per_subj, route=None):
 
 def _kernel_sample_gram(x1, x2, norm_unit, route=None):
     """K4 on the card; ``route`` forces the kernel
-    (:func:`sample_gram_route`), as ``chip_smoke.py`` does to time both
+    (:func:`sample_gram_route`), as ``chip_smoke.py`` does to time two
     at one shape."""
     x1, x2 = _check_inputs(x1, x2, ("x1", "x2"), contiguous=False)
     # the features of (x1, x2) are those of (x2, x1): the narrower
@@ -473,19 +494,31 @@ def _kernel_sample_gram(x1, x2, norm_unit, route=None):
     route, ept, tile_len, n_tiles = sample_gram_route(n, norm_unit, route)
     if n == 0 or n_b == 0 or n_v == 0:
         return torch.zeros((n, n), dtype=torch.float32, device=blk.device)
-    if route == "tc":
-        blk, data = _tma_operand(blk), _tma_operand(data)
-    else:
+    if route == "ffma":
         blk, data = blk.contiguous(), data.contiguous()
+    else:
+        blk, data = _tma_operand(blk), _tma_operand(data)
     out = torch.empty((n, n), dtype=torch.float32, device=blk.device)
-    n_pairs = n_tiles * (n_tiles + 1) // 2
-    n_bt = -(-n_b // (_THREADS // ept))
-    n_split = _n_split(blk.device, n_bt * n_pairs, n_v)
-    partial = torch.empty((n_split * n_bt, n_pairs, ept, ept),
-                          dtype=torch.float32, device=blk.device)
+    if route == "tcm":
+        # one [N, N] partial a (V split, block group of _TCM_BLOCK)
+        n_split = _tcm_split(blk.device, n_b, n_v)
+        partial = torch.empty((n_split * -(-n_b // _TCM_BLOCK), n, n),
+                              dtype=torch.float32, device=blk.device)
+    else:
+        n_pairs = n_tiles * (n_tiles + 1) // 2
+        n_bt = -(-n_b // (_THREADS // ept))
+        n_split = _n_split(blk.device, n_bt * n_pairs, n_v)
+        partial = torch.empty((n_split * n_bt, n_pairs, ept, ept),
+                              dtype=torch.float32, device=blk.device)
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     with torch.cuda.device(blk.device):
-        if route == "tc":
+        if route == "tcm":
+            err = _fn("fcma_sample_gram_tcm", "fcma_sample_gram_tcm_f32")(
+                blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), n, n_t, n_b, n_v, norm_unit, n_split,
+                blk.stride(1), blk.stride(0), data.stride(1),
+                data.stride(0), stream)
+        elif route == "tc":
             err = _fn("fcma_sample_gram_tc", "fcma_sample_gram_tc_f32")(
                 blk.data_ptr(), data.data_ptr(), partial.data_ptr(),
                 out.data_ptr(), n, n_t, n_b, n_v, norm_unit, ept, n_split,
@@ -499,8 +532,8 @@ def _kernel_sample_gram(x1, x2, norm_unit, route=None):
                 ept, tile_len, n_tiles, n_split, stream)
     _build.check(err, "fcma_sample_gram")
     _launches["fcma_sample_gram"] += 1
-    if route == "tc":
-        _launches["fcma_sample_gram_tc"] += 1
+    if route != "ffma":
+        _launches[f"fcma_sample_gram_{route}"] += 1
     return out
 
 
@@ -545,8 +578,8 @@ def fcma_sample_gram(x1, x2, norm_unit, precision=None):
     raw correlations.  Returns the unshrunk ``[N, N]`` float32 Gram
     features @ features.T (callers apply the digit shrink).  A CUDA
     tensor goes to the kernel of :func:`sample_gram_route` (3xTF32 on
-    the tensor cores for one sample tile of whole groups, else fp32
-    FMA; both fp32-accurate, ``precision`` is not used there), read in
+    the tensor cores up to :data:`TCM_MAX_EPOCHS` samples, else fp32
+    FMA; all fp32-accurate, ``precision`` is not used there), read in
     place where it is aligned, a CPU tensor to
     :func:`fcma_sample_gram_plain`.
     """

@@ -30,8 +30,10 @@ first one that goes wrong:
         whole-brain shape) with norm_unit 4 and 0 (raw features),
         through the path's tensor-core kernel (fcma_sample_gram_tc.cu)
         and, on the same inputs, fcma_sample_gram.cu's FMA kernel
-        forced; and N=96, 8192 x 1024, norm_unit 12 (four sample tiles,
-        the FMA kernel);
+        forced; and N=96, 8192 x 1024, norm_unit 12 (four sample tiles)
+        through the multi-tile tensor-core kernel
+        (fcma_sample_gram_tcm.cu: all 96 samples of a block at once),
+        beside the FMA kernel forced;
      K1, K3 and K4 with subjects of 40 epochs (E=80, 512 x 4096; K3 on
         128 block voxels): each subject spans two epoch tiles.  K1
         through its multi-tile tensor-core kernel (fcma_gram_tcm.cu:
@@ -39,7 +41,8 @@ first one that goes wrong:
         through its long-subject tensor-core kernel (fcma_corr_tcl.cu:
         chunks of 4 epochs, the raw z read back and z-scored), each
         beside fcma_corr.cu's FMA kernel forced on the same inputs; K4
-        through its FMA kernel's statistics pass;
+        (N=80, groups of 40) through its multi-tile tensor-core kernel,
+        beside its FMA kernel (statistics pass) forced;
      K3 with subjects of 12 epochs (E=96, T=150, B=128, V=16384)
         through fcma_corr_tcl.cu, beside the FMA kernel forced.
    Kernel times are CUDA-event means over repeated launches after a
@@ -80,8 +83,8 @@ first one that goes wrong:
    long-subject tensor-core kernel alone (its accuracies on 128 voxels
    against those of the plain K3, printed beside those of
    fcma_corr.cu's K3 forced) and a portioned ``Classifier`` fit
-   through K4 (the FMA kernel: two sample tiles), each held against
-   its plain path.
+   through K4 (the multi-tile tensor-core kernel alone: three sample
+   tiles), each held against its plain path.
 7. K5, the SUMMA ring step, against its plain version (``mma_update``)
    on z-scored inputs, through the tensor-core kernel that every call
    takes (ring_mma_tc.cu: a pre-pass splits the operands, then 3xTF32
@@ -402,8 +405,9 @@ def check_k4_errors(what, errors):
 def check_k4(torch, x1, x2, norm_unit, reps):
     """K4 against its plain version (blocks of 128 voxels of x1) on
     x1 [N, T, V1] and x2 [N, T, V2]: the path's route and, where that
-    is the tensor-core kernel, fcma_sample_gram.cu's FMA kernel forced
-    on the same inputs.  ``{route: row of its figures}``.  The
+    is a tensor-core kernel (fcma_sample_gram_tc.cu on one sample tile,
+    fcma_sample_gram_tcm.cu on more), fcma_sample_gram.cu's FMA kernel
+    forced on the same inputs.  ``{route: row of its figures}``.  The
     cross-group entries are those of samples in different groups of
     ``norm_unit`` (of different samples for raw features)."""
     from brainiak_tpu_torch.ops import fcma_kernels as fk
@@ -428,7 +432,7 @@ def check_k4(torch, x1, x2, norm_unit, reps):
     want = plain().cpu().double().numpy()
     route = fk.sample_gram_route(n, norm_unit)[0]
     runs = [(route, lambda: fk.fcma_sample_gram(x1, x2, norm_unit))]
-    if route == "tc":
+    if route != "ffma":
         runs.append(("ffma", lambda: fk._kernel_sample_gram(
             x1, x2, norm_unit, route="ffma")))
     rows = {}
@@ -446,20 +450,21 @@ def check_k4(torch, x1, x2, norm_unit, reps):
     common = dict(plain_ms=cuda_ms(torch, plain, 1),
                   library_ms=cuda_ms(torch, library, 1))
     for name, row in rows.items():
-        b_ms, b_by = (bound_ms(n_bytes, gram, 3 * corr) if name == "tc"
-                      else bound_ms(n_bytes, corr + gram))
+        b_ms, b_by = (bound_ms(n_bytes, corr + gram) if name == "ffma"
+                      else bound_ms(n_bytes, gram, 3 * corr))
         row.update(common, bound_ms=b_ms, bound_by=b_by)
         log(f"  fcma_sample_gram[{name}] N={n} norm_unit={norm_unit}: ms "
             f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} bound_ms "
             f"{b_ms:.3f} ({b_by}) library_ms {row['library_ms']:.3f}")
-    if "tc" in rows and "ffma" in rows:
+    if route != "ffma":
+        tc = rows[route]
         log(f"  K4 at N={n} norm_unit={norm_unit} {v1} x {v2}: tensor-core "
-            f"{rows['tc']['ms']:.3f} ms (bound {rows['tc']['bound_ms']:.3f}"
-            f" ms, 3xTF32 + fp32 Gram), FMA {rows['ffma']['ms']:.3f} ms "
+            f"[{route}] {tc['ms']:.3f} ms (bound {tc['bound_ms']:.3f} ms, "
+            f"3xTF32 + fp32 Gram), FMA {rows['ffma']['ms']:.3f} ms "
             f"(fp32 bound {rows['ffma']['bound_ms']:.3f} ms), cuBLAS fp32 "
             f"{common['library_ms']:.3f} ms; tensor-core / FMA "
-            f"{rows['tc']['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
-            f"{rows['tc']['ms'] / common['library_ms']:.3f}")
+            f"{tc['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
+            f"{tc['ms'] / common['library_ms']:.3f}")
     return rows
 
 
@@ -516,7 +521,8 @@ def phase_kernels(torch, dev):
     torch.cuda.empty_cache()
 
     # K4 at the classifier path's shape: x1 the wider region, as
-    # Classifier passes it; (b) raw features; (c) four sample tiles
+    # Classifier passes it; (b) raw features; (c) four sample tiles, the
+    # multi-tile tensor-core kernel
     x2 = normalized_epochs(torch, rng, 32, n_t, 1024, dev)
     x1 = normalized_epochs(torch, rng, 32, n_t, 65536, dev)
     k4 = check_k4(torch, x1, x2, 4, 3)
@@ -529,14 +535,16 @@ def phase_kernels(torch, dev):
     torch.cuda.empty_cache()
     x2 = normalized_epochs(torch, rng, 96, n_t, 1024, dev)
     x1 = normalized_epochs(torch, rng, 96, n_t, 8192, dev)
-    rows["fcma_sample_gram_n96"] = check_k4(torch, x1, x2, 12, 3)["ffma"]
+    k4 = check_k4(torch, x1, x2, 12, 3)
+    rows["fcma_sample_gram_n96"], rows["fcma_sample_gram_n96_ffma"] = \
+        k4["tcm"], k4["ffma"]
     del x1, x2
     torch.cuda.empty_cache()
 
     # subjects of 40 epochs, two epoch tiles each: K1's multi-tile
     # tensor-core kernel (all 80 epochs of a block at once) and K3's
-    # long-subject one, each beside the FMA one; K4 through the
-    # statistics pass
+    # long-subject one, each beside the FMA one; K4 through its
+    # multi-tile tensor-core kernel, beside the FMA one's statistics pass
     n_e, eps = 80, 40
     data = normalized_epochs(torch, rng, n_e, n_t, 4096, dev)
     blk = normalized_epochs(torch, rng, n_e, n_t, 512, dev)
@@ -545,8 +553,9 @@ def phase_kernels(torch, dev):
     k3 = check_k3(torch, blk[:, :, :128].contiguous(), data, eps, 5)
     rows["fcma_corr_normalize_e80"] = k3["tcl"]
     rows["fcma_corr_normalize_e80_ffma"] = k3["ffma"]
-    rows["fcma_sample_gram_n80"] = check_k4(torch, data, blk, eps,
-                                            3)["ffma"]
+    k4 = check_k4(torch, data, blk, eps, 3)
+    rows["fcma_sample_gram_n80"], rows["fcma_sample_gram_n80_ffma"] = \
+        k4["tcm"], k4["ffma"]
     del blk, data
     torch.cuda.empty_cache()
 
@@ -835,8 +844,8 @@ def run_long_subjects(torch, rows):
     """The entry points on 2 subjects x 40 epochs (each subject spans
     two epoch tiles): run('svm') through K1's multi-tile tensor-core
     kernel, the host-CV branch through K3's long-subject tensor-core
-    kernel and a portioned Classifier fit through K4 (the FMA kernel's
-    statistics pass), each held against its plain path; and K1's and
+    kernel and a portioned Classifier fit through K4's multi-tile
+    tensor-core kernel, each held against its plain path; and K1's and
     K3's accuracies with the FMA kernel forced on the same voxels."""
     from brainiak_tpu_torch.fcma import Classifier
     from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
@@ -868,7 +877,7 @@ def run_long_subjects(torch, rows):
         f"{t_all:.2f} s; launches {launches}")
     for name, row in (("fcma_gram_tcm", "fcma_gram_e80"),
                       ("fcma_corr_normalize_tcl", "fcma_corr_normalize_e80"),
-                      ("fcma_sample_gram", "fcma_sample_gram_n80")):
+                      ("fcma_sample_gram_tcm", "fcma_sample_gram_n80")):
         if launches[name] < 1:
             fail(f"long subjects: {name} was not launched")
         rows[row]["launches"] = launches[name]
@@ -879,8 +888,9 @@ def run_long_subjects(torch, rows):
             launches["fcma_corr_normalize_tcl"]:
         fail("long subjects: K3 took a kernel other than the long-subject "
              "tensor-core one")
-    if launches["fcma_sample_gram_tc"] != 0:
-        fail("long subjects: K4 took the one-tile tensor-core kernel")
+    if launches["fcma_sample_gram"] != launches["fcma_sample_gram_tcm"]:
+        fail("long subjects: K4 took a kernel other than the multi-tile "
+             "tensor-core one")
     accs = check_accuracies(results, n_v)
     host = check_accuracies(host, 128)
     if pred.shape != (n_e // 2,):
@@ -1474,14 +1484,14 @@ def main():
     for name in ("fcma_gram_ffma", "fcma_gram_ffma_e16",
                  "fcma_gram_e80_ffma"):
         rows[name]["launches"] = ffma_launches
-    # fcma_sample_gram.cu's K4 over the paths: the long-subject fit; no
-    # path takes fcma_corr.cu's K3 (the host-CV checks fail if one
+    # no path takes fcma_sample_gram.cu's K4 (the stage-2 fits fail if
+    # one does) or fcma_corr.cu's K3 (the host-CV checks fail if one
     # does), runs raw features, four sample tiles or K3 at E=96
-    rows["fcma_sample_gram_ffma"]["launches"] = \
-        rows["fcma_sample_gram_n80"]["launches"]
     for name in ("fcma_corr_normalize_ffma", "fcma_corr_normalize_e80_ffma",
-                 "fcma_corr_normalize_e96", "fcma_sample_gram_raw",
-                 "fcma_sample_gram_raw_ffma", "fcma_sample_gram_n96"):
+                 "fcma_corr_normalize_e96", "fcma_sample_gram_ffma",
+                 "fcma_sample_gram_raw", "fcma_sample_gram_raw_ffma",
+                 "fcma_sample_gram_n96", "fcma_sample_gram_n96_ffma",
+                 "fcma_sample_gram_n80_ffma"):
         rows[name]["launches"] = 0
     torch.cuda.empty_cache()
 
@@ -1505,6 +1515,8 @@ def main():
           csrc + "fcma_sample_gram.cu")
     k4_tc = ("brainiak_tpu/ops/pallas_kernels.py:311",
              csrc + "fcma_sample_gram_tc.cu")
+    k4_tcm = ("brainiak_tpu/ops/pallas_kernels.py:311",
+              csrc + "fcma_sample_gram_tcm.cu")
     origin = {
         "epoch_zscore": ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
                          csrc + "epoch_norm.cu"),
@@ -1517,7 +1529,8 @@ def main():
         "fcma_corr_normalize_e96": k3_tcl,
         "fcma_sample_gram": k4_tc, "fcma_sample_gram_raw": k4_tc,
         "fcma_sample_gram_ffma": k4, "fcma_sample_gram_raw_ffma": k4,
-        "fcma_sample_gram_n96": k4, "fcma_sample_gram_n80": k4,
+        "fcma_sample_gram_n96": k4_tcm, "fcma_sample_gram_n80": k4_tcm,
+        "fcma_sample_gram_n96_ffma": k4, "fcma_sample_gram_n80_ffma": k4,
     }
     k5 = ("brainiak_tpu/ops/kernels/ring.py:116", csrc + "ring_mma.cu")
     k5_tc = ("brainiak_tpu/ops/kernels/ring.py:116",

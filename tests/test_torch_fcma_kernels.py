@@ -632,16 +632,19 @@ def test_corr_route_forced():
     (16, 2, ("tc", 16, 16, 1)),
     (12, 12, ("tc", 16, 12, 1)),
     (8, 0, ("tc", 16, 16, 1)),
-    (33, 0, ("ffma", 32, 32, 2)),
-    (40, 4, ("ffma", 32, 32, 2)),
-    (96, 12, ("ffma", 32, 24, 4)),
-    (40, 40, ("ffma", 32, 32, 2)),
-    (80, 40, ("ffma", 32, 32, 3)),
+    (33, 0, ("tcm", 32, 32, 2)),
+    (40, 4, ("tcm", 32, 32, 2)),
+    (96, 12, ("tcm", 32, 24, 4)),
+    (40, 40, ("tcm", 32, 32, 2)),
+    (80, 40, ("tcm", 32, 32, 3)),
+    (104, 52, ("tcm", 32, 32, 4)),
+    (108, 4, ("ffma", 32, 32, 4)),
 ])
 def test_sample_gram_route(n, norm_unit, expect):
     """One sample tile of whole groups (raw features: groups of one)
-    takes K4's tensor-core kernel; more tiles, or groups longer than a
-    tile, the FMA one."""
+    takes K4's one-tile tensor-core kernel; more tiles, or groups longer
+    than a tile, the multi-tile one up to 104 samples, and the FMA one
+    beyond."""
     assert tk.sample_gram_route(n, norm_unit) == expect
     assert tk.sample_gram_route(n, norm_unit)[1:] == tk.epoch_tiles(
         n, max(norm_unit, 1))
@@ -656,7 +659,13 @@ def test_sample_gram_route_forced():
         tk.sample_gram_route(40, 40, route="tc")
     with pytest.raises(ValueError, match="one sample tile"):
         tk.sample_gram_route(33, 1, route="tc")
-    with pytest.raises(ValueError, match="'tc' or 'ffma'"):
+    assert tk.sample_gram_route(48, 4, route="tcm") == ("tcm", 32, 32, 2)
+    assert tk.sample_gram_route(108, 4, route="ffma") == \
+        ("ffma", 32, 32, 4)
+    for n, norm_unit in ((32, 4), (12, 0), (108, 4), (112, 56)):
+        with pytest.raises(ValueError, match="route 'tcm'"):
+            tk.sample_gram_route(n, norm_unit, route="tcm")
+    with pytest.raises(ValueError, match="'tc', 'tcm' or 'ffma'"):
         tk.sample_gram_route(32, 4, route="wgmma")
     with pytest.raises(ValueError, match="multiple"):
         tk.sample_gram_route(30, 4)
@@ -758,7 +767,8 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
                              "fcma_corr_normalize_tc": 0,
                              "fcma_corr_normalize_tcl": 0,
                              "fcma_sample_gram": 0,
-                             "fcma_sample_gram_tc": 0}
+                             "fcma_sample_gram_tc": 0,
+                             "fcma_sample_gram_tcm": 0}
 
 
 def _jax_feature_gram(x1, x2, norm_unit):
@@ -816,6 +826,43 @@ def test_k4_3xtf32_matches_pallas_interpret_ragged(n, norm_unit):
                           tile_2=16, interpret=True))
     got = _sample_gram_3xtf32(_t(x1), _t(x2), norm_unit).numpy()
     plain = tk.fcma_sample_gram_plain(_t(x1), _t(x2), norm_unit).numpy()
+    for ref in (want, plain):
+        assert np.all(np.abs(got - ref) <= 1e-4 * abs(ref[0, 0]))
+
+
+def _sample_gram_tcm(x1, x2, norm_unit):
+    """K4's multi-tile tensor-core route (csrc/fcma_sample_gram_tcm.cu),
+    its arithmetic emulated: the narrower region as the block operand,
+    every correlation of all N samples formed once as K1's multi-tile
+    route forms it (_corr_tcm: 3xTF32 with the small part unrounded,
+    near-one r formed again in fp32), Fisher-z'd and z-scored over each
+    whole group of norm_unit samples, then summed over the block voxels
+    into the Gram; raw r, with no near-one step, when norm_unit <= 1."""
+    blk, data = (x2, x1) if x2.shape[2] < x1.shape[2] else (x1, x2)
+    if norm_unit > 1:
+        corr = within_subject_normalization(_corr_tcm(blk, data),
+                                            norm_unit)
+    else:
+        corr = _corr_3xtf32(blk, data, lo=_tf32_trunc)
+    return torch.einsum('bnv,bmv->nm', corr, corr)
+
+
+@pytest.mark.parametrize("n,norm_unit", [(48, 4), (40, 40), (36, 0)])
+def test_k4_tcm_3xtf32_matches_pallas_interpret_ragged(n, norm_unit):
+    """The multi-tile route's arithmetic at a ragged shape (13 block
+    voxels, 37 voxels, T=37 not a multiple of the 16-row stage): 48
+    samples of 4 a group (two sample tiles), 40 in one group (a group
+    longer than a tile) and 36 raw.  Two-region inputs (no |r| near 1,
+    so no group at the Fisher-z clamp): within 1e-4 of K[0, 0] of the
+    Pallas kernel's Gram in interpret mode and of the plain version's."""
+    assert tk.sample_gram_route(n, norm_unit)[0] == "tcm"
+    x1, x2 = _two_mask(n * 5 + norm_unit, n, 37, 37, 13)
+    want = np.asarray(jk4(jnp.asarray(_pad(x1, 48)),
+                          jnp.asarray(_pad(x2, 16)), norm_unit, tile_1=16,
+                          tile_2=16, interpret=True))
+    got = _sample_gram_tcm(_t(x1), _t(x2), norm_unit).numpy()
+    plain = tk.fcma_sample_gram_plain(_t(x1), _t(x2), norm_unit).numpy()
+    assert got.shape == (n, n)
     for ref in (want, plain):
         assert np.all(np.abs(got - ref) <= 1e-4 * abs(ref[0, 0]))
 

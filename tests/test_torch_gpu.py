@@ -90,7 +90,8 @@ def test_fcma_kernels(cuda, e, t, b, v, eps):
                              "fcma_corr_normalize_tc": int(eps <= 4),
                              "fcma_corr_normalize_tcl": int(eps > 4),
                              "fcma_sample_gram": 0,
-                             "fcma_sample_gram_tc": 0}
+                             "fcma_sample_gram_tc": 0,
+                             "fcma_sample_gram_tcm": 0}
     want = fk.fcma_gram_plain(blk, data, eps)
     scale = want[:, :1, :1].abs()
     assert torch.all((gram - want).abs() <= 1e-4 * scale)
@@ -505,8 +506,9 @@ def test_fcma_sample_gram_kernel(cuda, n, norm_unit):
             rms = want[cross].pow(2).mean().sqrt()
             assert torch.all(diff[cross] <= 1e-3 * rms)
     assert fk.launches()["fcma_sample_gram"] == 2
-    one_tile = fk.sample_gram_route(n, norm_unit)[0] == "tc"
-    assert fk.launches()["fcma_sample_gram_tc"] == 2 * one_tile
+    route = fk.sample_gram_route(n, norm_unit)[0]
+    assert fk.launches()["fcma_sample_gram_tc"] == 2 * (route == "tc")
+    assert fk.launches()["fcma_sample_gram_tcm"] == 2 * (route == "tcm")
 
 
 def _cross(n, norm_unit, device):
@@ -650,6 +652,116 @@ def test_fcma_sample_gram_tc_refuses_several_tiles(cuda):
                  out.data_ptr(), n, 8, 8, 8, norm_unit, 32, 1, 8, 64, 8,
                  64, stream)
         assert err == 1  # cudaErrorInvalidValue
+
+
+def _sample_gram_routes(x1, x2, norm_unit, routes):
+    """{route: K4 forced onto it}, each launched once as asked."""
+    got = {}
+    for route in routes:
+        fk.reset_launches()
+        got[route] = fk._kernel_sample_gram(x1, x2, norm_unit, route=route)
+        counts = fk.launches()
+        assert counts["fcma_sample_gram"] == 1
+        for name in ("tc", "tcm"):
+            assert counts[f"fcma_sample_gram_{name}"] == int(route == name)
+        assert torch.isfinite(got[route]).all(), route
+    return got
+
+
+@pytest.mark.parametrize("n,norm_unit", [
+    (33, 0), (33, 11), (48, 0), (48, 4), (80, 0), (80, 40), (96, 0),
+    (96, 12), (104, 0), (104, 52)])
+def test_fcma_sample_gram_tcm_routes_agree(cuda, n, norm_unit):
+    """K4's multi-tile tensor-core kernel (every correlation of all N
+    samples formed once, the block voxels summed in the Gram's FMA
+    chains) and fcma_sample_gram.cu's FMA kernel forced on the same
+    inputs, against the plain version: N from 33 (two sample tiles) to
+    104 = TCM_MAX_EPOCHS, raw and normalized features, groups of 40 and
+    52 that span sample tiles.  Ragged widths: 37 block voxels (the last
+    block group of 8 mostly padding, which must add exactly 0) and 203
+    voxels (not whole 32-voxel tiles; rows not 16-byte aligned, copied
+    once), T=37 (not whole 16-row stages).  Two-region inputs (no |r|
+    near 1)."""
+    assert fk.sample_gram_route(n, norm_unit)[0] == "tcm"
+    d = _normalized(3 * n + norm_unit, n, 37, 203 + 37, cuda)
+    x1, x2 = d[:, :, :203].contiguous(), d[:, :, 203:].contiguous()
+    want = fk.fcma_sample_gram_plain(x1, x2, norm_unit)
+    got = _sample_gram_routes(x1, x2, norm_unit, ("tcm", "ffma"))
+    for route in ("tcm", "ffma"):
+        _assert_k4_close(got[route], want, norm_unit)
+    _assert_k4_close(got["tcm"], got["ffma"], norm_unit)
+
+
+@pytest.mark.parametrize("n,norm_unit", [(48, 4), (80, 40), (96, 12)])
+def test_fcma_sample_gram_tcm_self_pairs(cuda, n, norm_unit):
+    """Region 2 holds region 1 (the classifier's two-mask fits): every
+    region-1 voxel paired with itself has r = 1 up to rounding, where
+    the clamped Fisher-z turns the last ulp of r into an O(1) change.
+    The multi-tile kernel forms those r again in fp32 FMA, as the FMA
+    kernel does, so its Gram is the FMA kernel's and the plain
+    version's within K4's rule."""
+    d = _normalized(7 * n + norm_unit, n, 37, 203, cuda)
+    x1, x2 = d, d[:, :, 50:87].contiguous()
+    got = _sample_gram_routes(x1, x2, norm_unit, ("tcm", "ffma"))
+    want = fk.fcma_sample_gram_plain(x1, x2, norm_unit)
+    for route in ("tcm", "ffma"):
+        _assert_k4_close(got[route], want, norm_unit)
+    _assert_k4_close(got["tcm"], got["ffma"], norm_unit)
+
+
+def test_fcma_sample_gram_tcm_misaligned_rows(cuda, monkeypatch):
+    """A region whose rows do not start 16-byte aligned (a view one
+    float into its storage) is copied once into aligned rows, the
+    other (20 voxels, aligned) read in place; the multi-tile kernel's
+    Gram is the one of its aligned copy, bit for bit, and the plain
+    version's."""
+    d = _normalized(19, 48, 30, 203 + 20, cuda)
+    x2 = d[:, :, 203:].contiguous()
+    store = torch.empty(48 * 30 * 203 + 1, device=cuda)
+    store[1:] = d[:, :, :203].reshape(-1)
+    x1 = store[1:].view(48, 30, 203)
+    assert x1.is_contiguous() and x1.data_ptr() % 16
+    aligned = fk.aligned_rows_layout(x1.shape, cuda)
+    aligned.copy_(x1)
+    copies = []
+    layout = fk.aligned_rows_layout
+
+    def counted(*args):
+        copies.append(args)
+        return layout(*args)
+
+    monkeypatch.setattr(fk, "aligned_rows_layout", counted)
+    fk.reset_launches()
+    got = fk.fcma_sample_gram(x1, x2, 4)
+    assert len(copies) == 1 and fk.launches()["fcma_sample_gram_tcm"] == 1
+    assert torch.equal(got, fk.fcma_sample_gram(aligned, x2, 4))
+    assert len(copies) == 1
+    _assert_k4_close(got, fk.fcma_sample_gram_plain(x1, x2, 4), 4)
+
+
+def test_fcma_sample_gram_tcm_refuses(cuda):
+    """A forced "tcm" is refused on one sample tile and beyond 104
+    samples by the route; the C entry point itself refuses N = 105,
+    groups that do not divide N and misaligned operands."""
+    for n, norm_unit in ((32, 4), (12, 0), (108, 4)):
+        x = torch.zeros(n, 6, 8, device=cuda)
+        with pytest.raises(ValueError, match="route 'tcm'"):
+            fk._kernel_sample_gram(x, x, norm_unit, route="tcm")
+    fn = fk._fn("fcma_sample_gram_tcm", "fcma_sample_gram_tcm_f32")
+    x = torch.zeros(105 * 8 * 8 + 4, device=cuda)
+    partial = torch.empty(105, 105, device=cuda)
+    out = torch.empty(105, 105, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, norm_unit, offset in ((105, 0, 0), (48, 5, 0), (48, 4, 1)):
+        ptr = x.data_ptr() + 4 * offset
+        err = fn(ptr, ptr, partial.data_ptr(), out.data_ptr(), n, 8, 8, 8,
+                 norm_unit, 1, 8, 64, 8, 64, stream)
+        assert err == 1  # cudaErrorInvalidValue
+    err = fn(x.data_ptr(), x.data_ptr(), partial.data_ptr(),
+             out.data_ptr(), 104, 8, 8, 8, 0, 1, 8, 64, 8, 64, stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert not out.view(-1)[:104 * 104].any()
 
 
 def test_fcma_sample_gram_refuses_bad_inputs(cuda):

@@ -69,6 +69,14 @@
 //     boxes, a full and an empty mbarrier a stage, runs on across
 //     chunks and items, so the next chunk's first stage loads during a
 //     chunk's epilogue.
+//   * Raw mode (fcma_corr_fisher_tcl_f32, the template's RAW), the
+//     first stage of K1's route "tcs" (fcma_gram_tcs.cu) for subjects
+//     of more than 4 epochs: chunk_end alone, so each clamped Fisher-z,
+//     the near-one rule included, is stored once and never read back;
+//     that route's Gram z-scores it as it loads it.  The subjects do
+//     not matter to raw z, so the chunks of 4 run across the whole
+//     design (one "subject" of E epochs) and none is cut short at a
+//     subject's end.
 
 #include "tc_corr.cuh"
 
@@ -206,7 +214,10 @@ __device__ __forceinline__ void item_end(float* __restrict__ out, int E,
 
 // tmap_data, tmap_blk: tensor maps of data and blk (encode_map) with
 // [kMaxEps, kKT, 32] boxes; blk and data themselves for the near-one
-// step; n_items = block columns x subjects x voxel tiles
+// step; n_items = block columns x subjects x voxel tiles.  RAW: each
+// chunk's clamped Fisher-z stored once (chunk_end), not read back or
+// z-scored (K1's route "tcs", whose Gram z-scores as it loads)
+template <bool RAW>
 __global__ void __launch_bounds__(CorrTc::kThreads, 1)
 fcma_corr_tcl_kernel(const __grid_constant__ CUtensorMap tmap_data,
                      const __grid_constant__ CUtensorMap tmap_blk,
@@ -315,10 +326,37 @@ fcma_corr_tcl_kernel(const __grid_constant__ CUtensorMap tmap_data,
       chunk_end(acc, out, blk, data, E, T, B, V, b0, v0,
                 s * eps + ec * kMaxEps, min(kMaxEps, eps - ec * kMaxEps),
                 mt, g, q, vec, blk_ld_t, blk_ld_e, data_ld_t, data_ld_e);
-      if (ec == n_ec - 1)
+      if (!RAW && ec == n_ec - 1)
         item_end(out, E, B, V, b0, v0, s * eps, eps, mt, g, q, vec);
     }
   }
+}
+
+template <bool RAW>
+int launch(const float* blk, const float* data, float* out, int E, int T,
+           int B, int V, int eps, int blk_ld_t, int blk_ld_e, int data_ld_t,
+           int data_ld_e, cudaStream_t s) {
+  using Tl = CorrTc;
+  if (B == 0 || V == 0) return (int)cudaSuccess;
+  if (T == 0)  // every r is 0, and so is every z and z-scored z
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * B * E * V, s);
+  CUtensorMap map_data, map_blk;
+  if (!encode_map(&map_data, data, E, T, V, kBoxCols, kMaxEps, kKT,
+                  data_ld_t, data_ld_e) ||
+      !encode_map(&map_blk, blk, E, T, B, kBoxCols, kMaxEps, kKT, blk_ld_t,
+                  blk_ld_e))
+    return (int)cudaErrorInvalidValue;
+  const long long n_items = (long long)((B + Tl::kTB - 1) / Tl::kTB) *
+                            (E / eps) * ((V + Tl::kTV - 1) / Tl::kTV);
+  int grid = 0;
+  const cudaError_t err =
+      persistent_grid(fcma_corr_tcl_kernel<RAW>, n_items, grid);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = V % 4 == 0 && (reinterpret_cast<size_t>(out) & 15) == 0;
+  fcma_corr_tcl_kernel<RAW><<<grid, Tl::kThreads, Tl::kSmem, s>>>(
+      map_data, map_blk, blk, data, out, E, T, B, V, eps, (int)n_items, vec,
+      blk_ld_t, blk_ld_e, data_ld_t, data_ld_e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -332,30 +370,27 @@ extern "C" int fcma_corr_normalize_tcl_f32(const float* blk,
                                            int eps, int blk_ld_t,
                                            int blk_ld_e, int data_ld_t,
                                            int data_ld_e, void* stream) {
-  using Tl = CorrTc;
-  cudaStream_t s = (cudaStream_t)stream;
   if (E < 1 || T < 0 || B < 0 || V < 0 || eps <= kMaxEps ||
       E % eps != 0 || !tma_operand(blk, blk_ld_t, blk_ld_e) ||
       !tma_operand(data, data_ld_t, data_ld_e))
     return (int)cudaErrorInvalidValue;
-  if (B == 0 || V == 0) return (int)cudaSuccess;
-  if (T == 0)  // every r is 0, and so is every z-scored z
-    return (int)cudaMemsetAsync(out, 0, sizeof(float) * B * E * V, s);
-  CUtensorMap map_data, map_blk;
-  if (!encode_map(&map_data, data, E, T, V, kBoxCols, kMaxEps, kKT,
-                  data_ld_t, data_ld_e) ||
-      !encode_map(&map_blk, blk, E, T, B, kBoxCols, kMaxEps, kKT, blk_ld_t,
-                  blk_ld_e))
+  return launch<false>(blk, data, out, E, T, B, V, eps, blk_ld_t, blk_ld_e,
+                       data_ld_t, data_ld_e, (cudaStream_t)stream);
+}
+
+// The raw mode, for K1's route "tcs": out[b, e, v] = the clamped
+// Fisher-z of r[b, e, v], the near-one rule included, stored once and
+// not z-scored, whatever the subjects (the epochs run through the ring
+// in chunks of 4 across the whole design).  blk and data as above.
+extern "C" int fcma_corr_fisher_tcl_f32(const float* blk, const float* data,
+                                        float* out, int E, int T, int B,
+                                        int V, int blk_ld_t, int blk_ld_e,
+                                        int data_ld_t, int data_ld_e,
+                                        void* stream) {
+  if (E < 1 || T < 0 || B < 0 || V < 0 ||
+      !tma_operand(blk, blk_ld_t, blk_ld_e) ||
+      !tma_operand(data, data_ld_t, data_ld_e))
     return (int)cudaErrorInvalidValue;
-  const long long n_items = (long long)((B + Tl::kTB - 1) / Tl::kTB) *
-                            (E / eps) * ((V + Tl::kTV - 1) / Tl::kTV);
-  int grid = 0;
-  const cudaError_t err =
-      persistent_grid(fcma_corr_tcl_kernel, n_items, grid);
-  if (err != cudaSuccess) return (int)err;
-  const int vec = V % 4 == 0 && (reinterpret_cast<size_t>(out) & 15) == 0;
-  fcma_corr_tcl_kernel<<<grid, Tl::kThreads, Tl::kSmem, s>>>(
-      map_data, map_blk, blk, data, out, E, T, B, V, eps, (int)n_items, vec,
-      blk_ld_t, blk_ld_e, data_ld_t, data_ld_e);
-  return (int)cudaGetLastError();
+  return launch<true>(blk, data, out, E, T, B, V, E, blk_ld_t, blk_ld_e,
+                      data_ld_t, data_ld_e, (cudaStream_t)stream);
 }

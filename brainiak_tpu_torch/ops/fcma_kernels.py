@@ -28,7 +28,13 @@ with operands brought in by the TMA.  K1 (:func:`gram_route`) takes
 at most 32 epochs), ``csrc/fcma_gram_tcm.cu`` on more tiles up to
 :data:`TCM_MAX_EPOCHS` = 104 epochs (``"tcm"``: all of a block's epochs
 in shared memory, every correlation formed once, no statistics pass),
-and ``csrc/fcma_corr.cu`` beyond (``"ffma"``).  K3 on subjects of at
+and, beyond, up to :data:`TCS_MAX_EPOCHS` = 800 epochs, two stages
+over slabs of block voxels (``"tcs"``): K3's tensor-core bodies write
+the slab's correlation once (``csrc/fcma_corr_tc.cu`` z-scored, or
+``csrc/fcma_corr_tcl.cu``'s raw mode, the Fisher-z), and
+``csrc/fcma_gram_tcs.cu`` forms its Gram in 3xTF32, z-scoring a raw
+slab as it loads it.  ``csrc/fcma_corr.cu`` (``"ffma"``) runs when
+forced, and on designs of more than 800 epochs.  K3 on subjects of at
 most 4 epochs (:func:`corr_route` ``"tc"``) is ``csrc/fcma_corr_tc.cu``,
 on longer subjects (``"tcl"``: chunks of 4 epochs, the raw Fisher-z
 stored, then read back for the z-score and normalized in place)
@@ -61,18 +67,24 @@ from .correlation import correlate_epochs
 from .fisherz import within_subject_normalization
 from .kernels import _build
 
-__all__ = ["TCM_MAX_EPOCHS", "aligned_rows_layout", "corr_layout",
-           "corr_route", "epoch_tiles",
+__all__ = ["TCM_MAX_EPOCHS", "TCS_MAX_EPOCHS", "aligned_rows_layout",
+           "corr_layout", "corr_route", "epoch_tiles",
            "fcma_corr_normalize",
            "fcma_corr_normalize_plain", "fcma_gram", "fcma_gram_plain",
            "fcma_sample_gram", "fcma_sample_gram_plain", "gram_route",
-           "launches", "reset_launches", "sample_gram_route"]
+           "launches", "reset_launches", "sample_gram_route",
+           "tcs_slabs"]
 
 # "fcma_gram" counts every K1 launch, "fcma_gram_tc" those of them that
 # took the tensor-core one-tile kernel, "fcma_gram_tcm" the tensor-core
-# multi-tile one; "_tc" and "_tcm" the same for K3 and K4, "_tcl" K3's
-# tensor-core kernel for long subjects
+# multi-tile one, "fcma_gram_tcs" the slab route; that route's kernels,
+# one each a slab, under "fcma_gram_tcs_tc" / "_tcl" (the correlation,
+# by K3's body "tc" or the raw mode of "tcl") and "fcma_gram_tcs_gram";
+# "_tc" and "_tcm" the same for K3 and K4, "_tcl" K3's tensor-core
+# kernel for long subjects
 _launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_gram_tcm": 0,
+             "fcma_gram_tcs": 0, "fcma_gram_tcs_tc": 0,
+             "fcma_gram_tcs_tcl": 0, "fcma_gram_tcs_gram": 0,
              "fcma_corr_normalize": 0, "fcma_corr_normalize_tc": 0,
              "fcma_corr_normalize_tcl": 0,
              "fcma_sample_gram": 0, "fcma_sample_gram_tc": 0,
@@ -95,6 +107,17 @@ _TC_MAX_EPS = 4
 TCM_MAX_EPOCHS = 104
 #: block voxels a block of that route
 _TCM_BLOCK = 8
+#: most epochs of K1's slab route "tcs" (csrc/fcma_gram_tcs.cu: two
+#: stages of all E epochs of 32 voxels in shared memory)
+TCS_MAX_EPOCHS = 800
+#: bytes of that route's slab of normalized correlation [Bc, E, V], as
+#: ``distla.gram``'s default budget
+_TCS_BUDGET = 8 * 2 ** 30
+#: block voxels of an item of K3's tensor-core bodies, the slab's unit
+_TCS_UNIT = 128
+#: most V splits of its Gram, and the least 32-voxel tiles a split
+_TCS_MAX_SPLIT = 8
+_TCS_SPLIT_TILES = 64
 
 
 def launches():
@@ -185,20 +208,24 @@ def gram_route(n_epochs, epochs_per_subj, ept=None, route=None):
 
     By shape: ``"tc"`` (``csrc/fcma_gram_tc.cu``) when the epochs form
     one tile of whole subjects; ``"tcm"`` (``csrc/fcma_gram_tcm.cu``)
-    for more tiles up to :data:`TCM_MAX_EPOCHS` epochs; ``"ffma"``
-    (``csrc/fcma_corr.cu``), which takes every tiling, beyond.  ``ept``
-    forces the epoch-tile capacity and ``route`` the kernel, as
-    :func:`epoch_tiles` and ``chip_smoke.py`` do to run two kernels on
-    the same inputs; ``"tc"`` and ``"tcm"`` are refused where they do
-    not apply.
+    for more tiles up to :data:`TCM_MAX_EPOCHS` epochs; ``"tcs"``
+    (slabs: ``csrc/fcma_corr_tc.cu`` or ``csrc/fcma_corr_tcl.cu``, then
+    ``csrc/fcma_gram_tcs.cu``) beyond, up to :data:`TCS_MAX_EPOCHS`;
+    ``"ffma"`` (``csrc/fcma_corr.cu``), which takes every tiling,
+    beyond that.  ``ept`` forces the epoch-tile capacity and ``route``
+    the kernel, as :func:`epoch_tiles` and ``chip_smoke.py`` do to run
+    two kernels on the same inputs; ``"tc"``, ``"tcm"`` and ``"tcs"``
+    are refused where they do not apply.
     """
     ept, tile_len, n_tiles = epoch_tiles(n_epochs, epochs_per_subj, ept)
     fits = n_epochs <= TCM_MAX_EPOCHS
+    slabs = TCM_MAX_EPOCHS < n_epochs <= TCS_MAX_EPOCHS
     if route is None:
-        route = "tc" if n_tiles == 1 else "tcm" if fits else "ffma"
-    elif route not in ("tc", "tcm", "ffma"):
+        route = "tc" if n_tiles == 1 else "tcm" if fits else \
+            "tcs" if slabs else "ffma"
+    elif route not in ("tc", "tcm", "tcs", "ffma"):
         raise ValueError(
-            f"route must be 'tc', 'tcm' or 'ffma', got {route!r}")
+            f"route must be 'tc', 'tcm', 'tcs' or 'ffma', got {route!r}")
     elif route == "tc" and n_tiles != 1:
         raise ValueError(
             f"route 'tc' takes one epoch tile; {n_epochs} epochs of "
@@ -208,7 +235,39 @@ def gram_route(n_epochs, epochs_per_subj, ept=None, route=None):
             f"route 'tcm' takes more than one epoch tile and at most "
             f"{TCM_MAX_EPOCHS} epochs; {n_epochs} epochs of "
             f"{epochs_per_subj} per subject make {n_tiles} of {ept}")
+    elif route == "tcs" and not slabs:
+        raise ValueError(
+            f"route 'tcs' takes more than {TCM_MAX_EPOCHS} and at most "
+            f"{TCS_MAX_EPOCHS} epochs, got {n_epochs}")
     return route, ept, tile_len, n_tiles
+
+
+def tcs_slabs(n_b, n_epochs, n_vox, budget=_TCS_BUDGET):
+    """``(bc, n_slabs)`` of K1's route ``"tcs"``: block voxels a slab
+    and slabs a call of ``n_b`` block voxels.  A slab of normalized
+    correlation, ``[bc, E, V]`` float32, holds at most ``budget`` bytes
+    but at least 4 block voxels.  ``bc`` is a multiple of 128 (the block
+    voxels of an item of K3's tensor-core bodies, which would compute a
+    part-filled item's padding) where the budget holds 128, else of 4
+    (each slab's block voxels then start a 16-byte aligned column of
+    blk); the slabs are as even as that allows, the last may be
+    shorter.  A block voxel's Gram does not depend on ``bc``."""
+    fit = budget // (4 * n_epochs * max(n_vox, 1))
+    unit = _TCS_UNIT if fit >= _TCS_UNIT else 4
+    bc_max = max(4, fit // unit * unit)
+    n_slabs = max(1, -(-n_b // bc_max))
+    bc = -(-n_b // n_slabs)
+    bc = max(4, bc + -bc % unit)
+    return min(bc, max(n_b, 1)), -(-n_b // bc)
+
+
+def _tcs_split(n_vox):
+    """V splits of the slab route's Gram, from V alone (so that a block
+    voxel's Gram does not depend on the slab): one a
+    ``_TCS_SPLIT_TILES`` tiles of 32 voxels, at most
+    ``_TCS_MAX_SPLIT``."""
+    n_vtiles = -(-n_vox // 32)
+    return max(1, min(_TCS_MAX_SPLIT, n_vtiles // _TCS_SPLIT_TILES))
 
 
 def sample_gram_route(n_samples, norm_unit, route=None):
@@ -320,7 +379,8 @@ def _stats(blk, data, epochs_per_subj, tile_len):
 
 # (pointers, ints) before the stream of each C entry point
 _ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 11),
-         "fcma_gram_tcm_f32": (4, 10),
+         "fcma_gram_tcm_f32": (4, 10), "fcma_gram_tcs_f32": (3, 5),
+         "fcma_corr_fisher_tcl_f32": (3, 8),
          "fcma_corr_normalize_f32": (4, 9),
          "fcma_corr_normalize_tc_f32": (3, 9),
          "fcma_corr_normalize_tcl_f32": (3, 9),
@@ -388,10 +448,53 @@ def corr_layout(shape, epochs_per_subj, device):
     return aligned_rows_layout(shape, device)
 
 
-def _kernel_gram(blk, data, epochs_per_subj, ept=None, route=None):
+def _tcs_gram(blk, data, epochs_per_subj, out, budget):
+    """K1's route "tcs" into out [B, E, E], slab by slab of
+    :func:`tcs_slabs`: the slab's correlation written once by K3's
+    tensor-core body (``"tc"``, z-scored, for subjects of at most 4
+    epochs; else ``"tcl"``'s raw mode, the Fisher-z), then its Gram
+    (``csrc/fcma_gram_tcs.cu``, which z-scores a raw slab as it loads
+    it).  blk and data as the TMA reads them (:func:`_tma_operand`)."""
+    n_e, n_t, n_b = blk.shape
+    n_v = data.shape[2]
+    bc, _ = tcs_slabs(n_b, n_e, n_v, budget)
+    raw = epochs_per_subj > _TC_MAX_EPS
+    n_split = _tcs_split(n_v)
+    slab = torch.empty((bc, n_e, n_v), dtype=torch.float32,
+                       device=blk.device)
+    partial = None if n_split == 1 else torch.empty(
+        (n_split, bc, n_e, n_e), dtype=torch.float32, device=blk.device)
+    if raw:
+        corr = _fn("fcma_corr_tcl", "fcma_corr_fisher_tcl_f32")
+        extra, body = (), "tcl"
+    else:
+        corr = _fn("fcma_corr_tc", "fcma_corr_normalize_tc_f32")
+        extra, body = (epochs_per_subj,), "tc"
+    gram = _fn("fcma_gram_tcs", "fcma_gram_tcs_f32")
+    stream = torch.cuda.current_stream(blk.device).cuda_stream
+    with torch.cuda.device(blk.device):
+        for b0 in range(0, n_b, bc):
+            part = blk[:, :, b0:b0 + bc]
+            nb = part.shape[2]
+            err = corr(part.data_ptr(), data.data_ptr(), slab.data_ptr(),
+                       n_e, n_t, nb, n_v, *extra, part.stride(1),
+                       part.stride(0), data.stride(1), data.stride(0),
+                       stream)
+            _build.check(err, f"fcma_gram (correlation, {body})")
+            _launches[f"fcma_gram_tcs_{body}"] += 1
+            err = gram(slab.data_ptr(), _ptr(partial), out[b0].data_ptr(),
+                       n_e, nb, n_v, epochs_per_subj if raw else 0,
+                       n_split, stream)
+            _build.check(err, "fcma_gram (Gram)")
+            _launches["fcma_gram_tcs_gram"] += 1
+
+
+def _kernel_gram(blk, data, epochs_per_subj, ept=None, route=None,
+                 budget=_TCS_BUDGET):
     """K1 on the card; ``ept`` and ``route`` force the epoch-tile
     capacity and the kernel (:func:`gram_route`), as ``chip_smoke.py``
-    does to time two at one shape."""
+    does to time two at one shape; ``budget``: the slab bytes of route
+    ``"tcs"`` (:func:`tcs_slabs`)."""
     blk, data = _check_inputs(blk, data, contiguous=False)
     n_e, n_t, n_b = blk.shape
     route, ept, tile_len, n_tiles = gram_route(n_e, epochs_per_subj, ept,
@@ -404,6 +507,11 @@ def _kernel_gram(blk, data, epochs_per_subj, ept=None, route=None):
         blk, data = blk.contiguous(), data.contiguous()
     else:
         blk, data = _tma_operand(blk), _tma_operand(data)
+    if route == "tcs":
+        _tcs_gram(blk, data, epochs_per_subj, out, budget)
+        _launches["fcma_gram"] += 1
+        _launches["fcma_gram_tcs"] += 1
+        return out
     n_v = data.shape[2]
     stream = torch.cuda.current_stream(blk.device).cuda_stream
     strides = (blk.stride(1), blk.stride(0), data.stride(1),
@@ -542,9 +650,10 @@ def fcma_gram(blk, data, epochs_per_subj, precision=None):
 
     blk : [E, T, B]; data : [E, T, V]; returns the unshrunk
     ``[B, E, E]`` float32 Gram (callers apply the digit shrink).  A
-    CUDA tensor goes to the kernel of :func:`gram_route` (3xTF32 or
-    fp32 FMA, both fp32-accurate; ``precision`` is not used there), a
-    CPU tensor to :func:`fcma_gram_plain`.
+    CUDA tensor goes to the kernels of :func:`gram_route` (3xTF32 on
+    the tensor cores up to :data:`TCS_MAX_EPOCHS` epochs, else fp32
+    FMA, all fp32-accurate; ``precision`` is not used there), a CPU
+    tensor to :func:`fcma_gram_plain`.
     """
     if blk.is_cuda:
         return _kernel_gram(blk, data, epochs_per_subj)

@@ -36,7 +36,8 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "brainiak_tpu_torch"
 SOURCES = ("epoch_norm", "fcma_corr", "fcma_corr_tc", "fcma_corr_tcl",
            "fcma_gram_tc",
-           "fcma_gram_tcm", "fcma_sample_gram", "fcma_sample_gram_tc",
+           "fcma_gram_tcm", "fcma_gram_tcs", "fcma_sample_gram",
+           "fcma_sample_gram_tc",
            "fcma_sample_gram_tcm", "ring_mma", "ring_mma_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

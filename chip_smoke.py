@@ -44,14 +44,25 @@ first one that goes wrong:
         (N=80, groups of 40) through its multi-tile tensor-core kernel,
         beside its FMA kernel (statistics pass) forced;
      K3 with subjects of 12 epochs (E=96, T=150, B=128, V=16384)
-        through fcma_corr_tcl.cu, beside the FMA kernel forced.
+        through fcma_corr_tcl.cu, beside the FMA kernel forced;
+     K1 beyond 104 epochs through its slab route ("tcs": K3's
+        tensor-core body writes a slab of normalized correlation once,
+        fcma_gram_tcs.cu forms its Gram in 3xTF32), each beside
+        fcma_corr.cu's FMA kernel forced (timed over one run): E=216 of
+        12 a subject, T=12, B=1024, V=65536 (the study path's shape;
+        fcma_corr_tcl.cu in its raw mode, z-scored as the Gram loads
+        it), and E=128 of 4 a subject, T=150, B=512, V=4096 (K1's E=80
+        widths; fcma_corr_tc.cu), each with its two stages' device
+        times from one profiled call and the slab's floor (written
+        once, read once).
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
    operations over the peak rate of their type: fp32 FMA at 67
    TFLOP/s, and for the tensor-core K1, K3, K4 and K5 their
    correlation's or product's three TF32 products at 494.7 TFLOP/s
-   (plus K1's and K4's Gram in fp32; K3's tensor-core kernels are
-   bound by their bytes; the Grams counted as their
+   (plus K1's and K4's Gram in fp32, but in 3xTF32 too for K1's slab
+   route; K3's tensor-core kernels are bound by their bytes; the Grams
+   counted as their
    E (E + 1) / 2 distinct entries, being symmetric, and so K5's block
    when its panel is the resident block itself).
 3. Main path, whole brain: 8 subjects x 600 TRs on a 64x64x16 volume
@@ -85,7 +96,15 @@ first one that goes wrong:
    fcma_corr.cu's K3 forced) and a portioned ``Classifier`` fit
    through K4 (the multi-tile tensor-core kernel alone: three sample
    tiles), each held against its plain path.
-7. K5, the SUMMA ring step, against its plain version (``mma_update``)
+7. The FCMA face-scene study's design at whole brain: 18 subjects x 12
+   epochs of 12 TRs (E=216, 2 conditions x 6), 64x64x16 volume,
+   mask1 = 1024 voxels, mask2 = the whole volume, 18 folds;
+   ``prepare_fcma_data`` then ``run('svm')`` (SMO budget
+   ``STUDY_SVM_ITERS``), which must launch K1 through its slab route
+   alone; warm seconds, the profiled device time by kernel, peak device
+   memory, and kernel-vs-plain accuracies on 256 voxels, beside those
+   of fcma_corr.cu's K1 forced.
+8. K5, the SUMMA ring step, against its plain version (``mma_update``)
    on z-scored inputs, through the tensor-core kernel that every call
    takes (ring_mma_tc.cu: a pre-pass splits the operands, then 3xTF32
    wgmma; timed on operands split once, as the ring splits them), at
@@ -102,17 +121,17 @@ first one that goes wrong:
    1e-3) against the float64 product, within four times the fp32
    product's error.  The pre-pass kernel's hi and lo are held
    bit-identical to ``split_kmajor`` (row ``ring_split``).
-8. Ring path A: ``distla.gram`` of one whole-brain subject (T=600,
+9. Ring path A: ``distla.gram`` of one whole-brain subject (T=600,
    V=65,536) on the one-card mesh at the default 8 GiB budget, which
    the 17.3 GB working set exceeds, so the ring runs (one K5 launch,
    which must take the tensor-core kernel, and one split of its one
    operand); held against the plain product in row slabs; warm
    seconds, K5's device time in a profiled run, peak device memory
    with the split buffers.
-9. Ring path B: the same data on a 4-position mesh of the one card
+10. Ring path B: the same data on a 4-position mesh of the one card
    (16 K5 launches, owners other than 0, all on the tensor-core
    kernel, and 4 splits: each shard once), held against path A.
-10. Ring path C: leave-one-out ``isfc(data, mesh=...)`` of 8 subjects
+11. Ring path C: leave-one-out ``isfc(data, mesh=...)`` of 8 subjects
    x 600 TRs x 8,192 voxels (planted shared signal) on the one-card
    mesh (8 K5 launches, all on the tensor-core kernel, 16 splits),
    held against ``isfc(data)`` without a mesh; ``isc`` leave-one-out
@@ -153,6 +172,11 @@ K3_ZTOL = 1e-5
 K4_RTOL = 1e-5
 K4_XTOL = 1e-3
 ACC_AGREE = 0.95    # share of voxels whose accuracies are equal
+# SMO budget a sample of the study path (VoxelSelector's default is 10):
+# the eager SMO takes svm_iters x 216 steps on each of 14 chunks of 76
+# voxels, each step about 80 host launches, so a run('svm') takes about
+# 4 s of host time per unit of svm_iters; K1 does not depend on it
+STUDY_SVM_ITERS = 2
 STAGE2_ACC = 0.75   # held-out accuracy of stage 2 on the planted data
 # K5 and the ring paths: entries are Pearson r in [-1, 1] of z-scored
 # columns; f32 sums over T in another order than cuBLAS's
@@ -240,14 +264,40 @@ def gram_flops(n_e, n_t, n_b, n_v):
     return 2 * n_e * n_t * n_b * n_v + n_e * (n_e + 1) * n_b * n_v
 
 
-def check_k1(torch, blk, data, eps, reps, alt_ept=None):
+def stage_ms(torch, fn, names):
+    """Device milliseconds of one fn() under ``torch.profiler``, summed
+    by the first of ``names`` (each a tuple of kernel-name substrings)
+    that a kernel's name holds: ``{names[i][0]: ms}``, None where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {group[0]: 0.0 for group in names}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for group in names:
+            if any(n in ev.key for n in group):
+                out[group[0]] += ev.self_device_time_total / 1e3
+                break
+    return out if any(out.values()) else None
+
+
+def check_k1(torch, blk, data, eps, reps, alt_ept=None, ffma_reps=None):
     """K1 against its plain version (blocks of 128 voxels) on blk
     [E, T, B] and data [E, T, V]: the path's route and, where that is a
-    tensor-core kernel (fcma_gram_tc.cu on one epoch tile,
-    fcma_gram_tcm.cu on more), fcma_corr.cu's FMA kernel forced on the
-    same inputs.  ``{route: row of its figures}``.  With ``alt_ept``
-    the path's route at the other epoch tiling is checked and timed
-    too."""
+    tensor-core route (fcma_gram_tc.cu on one epoch tile,
+    fcma_gram_tcm.cu on more up to 104 epochs, beyond that the slabs of
+    route "tcs": K3's fcma_corr_tc.cu or fcma_corr_tcl.cu's raw mode,
+    then fcma_gram_tcs.cu), fcma_corr.cu's FMA kernel forced on the
+    same inputs (timed over ``ffma_reps``, by default ``reps``).
+    ``{route: row of its figures}``; a "tcs" row gives its two stages'
+    device times too.  With ``alt_ept`` the path's route at the other
+    epoch tiling is checked and timed too."""
     from brainiak_tpu_torch.ops import fcma_kernels as fk
 
     n_e, n_t, n_b = blk.shape
@@ -275,9 +325,16 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None):
         runs.append((route, alt_ept, lambda: fk._kernel_gram(
             blk, data, eps, ept=alt_ept, route=route)))
     rows = {}
+    witness = {}  # the slab route's worst voxel: every route's Gram of it
     for name, ept, fn in runs:
         got = fn()
         rel = ((got - want).abs() / want[:, :1, :1].abs()).max().item()
+        if name == "tcs":
+            worst = int(((got - want).abs() / want[:, :1, :1].abs()).amax(
+                dim=(1, 2)).argmax())
+            witness["plain"] = want[worst].clone()
+        if witness and ept is None:
+            witness[name] = got[worst].clone()
         err = (got - want).abs().max().item()
         label = f"fcma_gram[{name}" + ("" if ept is None else
                                        f", ept={ept}") + "]"
@@ -285,7 +342,10 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None):
             f"{err:.3e} max err/K[0,0] {rel:.3e} (rtol {K1_RTOL})")
         if not rel <= K1_RTOL:
             fail(f"K1 ({label}) disagrees with its plain version")
-        ms = cuda_ms(torch, fn, reps)
+        # the check's run warmed it up
+        ms = cuda_ms(torch, fn, (ffma_reps or reps) if name == "ffma"
+                     else reps, warmup=0)
+        del got
         if ept is None:
             rows[name] = {"max_abs_err": err, "ms": ms}
         else:
@@ -295,13 +355,56 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None):
     corr = 2 * n_e * n_t * n_b * n_v
     gram = gram_flops(n_e, n_t, n_b, n_v) - corr
     n_bytes = 4 * (n_e * n_t * (n_b + n_v) + n_b * n_e * n_e)
+    del want
+    torch.cuda.empty_cache()
+    if witness:
+        # float64 from the inputs up: r, Fisher-z, the z-score (its
+        # variance in two passes) and the Gram of that voxel
+        r = torch.einsum('et,etv->ev', blk[:, :, worst].double(),
+                         data.double())
+        z = (0.5 * torch.log((1 + r) / (1 - r))).reshape(
+            n_e // eps, eps, n_v)
+        z = (z - z.mean(dim=1, keepdim=True)) / z.std(
+            dim=1, keepdim=True, correction=0)
+        z = z.reshape(n_e, n_v)
+        exact = z @ z.T
+        errs = {k: ((g.double() - exact).abs().max()
+                    / exact[0, 0].abs()).item() for k, g in witness.items()}
+        log(f"  K1 at E={n_e}, block voxel {worst} (the slab route's "
+            "largest difference from plain) against float64, err/K[0,0]: "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        del r, z, exact
     common = dict(plain_ms=cuda_ms(torch, plain, 1),
                   library_ms=cuda_ms(torch, library, 1))
     for name, row in rows.items():
         b_ms, b_by = (bound_ms(n_bytes, corr + gram) if name == "ffma"
+                      else bound_ms(n_bytes, 0, 3 * (corr + gram))
+                      if name == "tcs"
                       else bound_ms(n_bytes, gram, 3 * corr))
         row.update(common, bound_ms=b_ms, bound_by=b_by)
-    if route != "ffma":
+    if route == "tcs":
+        tc = rows[route]
+        parts = stage_ms(torch, runs[0][2], (
+            ("corr", "fcma_corr_tc_kernel", "fcma_corr_tcl_kernel"),
+            ("gram", "fcma_gram_tcs_kernel", "gram_sum_kernel")))
+        tc["corr_ms"], tc["gram_ms"] = (parts["corr"], parts["gram"]) \
+            if parts else (None, None)
+        slab_ms = 1e3 * 2 * 4 * n_b * n_e * n_v / PEAK_BYTES
+        log(f"  K1 at E={n_e} eps={eps} T={n_t} B={n_b} V={n_v}: slabs "
+            f"[tcs] {tc['ms']:.3f} ms (" + (
+                f"correlation {parts['corr']:.3f} ms, Gram "
+                f"{parts['gram']:.3f} ms in one profiled call"
+                if parts else "stages not measured") +
+            f"; bound {tc['bound_ms']:.3f} ms, {tc['bound_by']}, all "
+            f"3xTF32; slab written and read once {slab_ms:.3f} ms), FMA "
+            f"{rows['ffma']['ms']:.3f} ms (fp32 bound "
+            f"{rows['ffma']['bound_ms']:.3f} ms), cuBLAS fp32 "
+            f"{common['library_ms']:.3f} ms, plain "
+            f"{common['plain_ms']:.3f} ms; slabs / FMA "
+            f"{tc['ms'] / rows['ffma']['ms']:.3f}, / cuBLAS "
+            f"{tc['ms'] / common['library_ms']:.3f}, bound / slabs "
+            f"{tc['bound_ms'] / tc['ms']:.3f}")
+    elif route != "ffma":
         tc = rows[route]
         fp32_ms = bound_ms(n_bytes, corr + gram)[0]
         log(f"  K1 at E={n_e} B={n_b} V={n_v}: tensor-core [{route}] "
@@ -566,6 +669,21 @@ def phase_kernels(torch, dev):
                                                5)["tcl"]
     del blk, data
     torch.cuda.empty_cache()
+
+    # K1 beyond 104 epochs, the slab route "tcs": E=216 of 12 a subject
+    # at T=12 (the study path's shape: K3's long-subject body in its raw
+    # mode, then the Gram z-scoring as it loads), and E=128 of 4 a
+    # subject at K1's E=80 widths (K3's short-subject body); each beside
+    # the FMA kernel forced, timed over fewer runs
+    for n_e, eps, n_t, n_b, n_v, name in (
+            (216, 12, 12, 1024, 65536, "fcma_gram_e216"),
+            (128, 4, 150, 512, 4096, "fcma_gram_e128")):
+        data = normalized_epochs(torch, rng, n_e, n_t, n_v, dev)
+        blk = normalized_epochs(torch, rng, n_e, n_t, n_b, dev)
+        k1 = check_k1(torch, blk, data, eps, 3, ffma_reps=1)
+        rows[name], rows[name + "_ffma"] = k1["tcs"], k1["ffma"]
+        del blk, data
+        torch.cuda.empty_cache()
     for name, row in rows.items():
         log(f"  {name}: ms {row['ms']:.3f} plain_ms {row['plain_ms']:.3f} "
             f"bound_ms {row['bound_ms']:.3f} ({row['bound_by']}) "
@@ -573,19 +691,20 @@ def phase_kernels(torch, dev):
     return rows
 
 
-def synthetic_images(rng, n_subj, shape, n_trs, planted_b, planted_v):
+def synthetic_images(rng, n_subj, shape, n_trs, planted_b, planted_v,
+                     epoch_len=150):
     """Images [x, y, z, T] with a condition-1 coupling between the
     flat voxels ``planted_b`` and ``planted_v``, and condition specs:
-    epochs of 150 TRs alternate condition 0 and 1."""
+    epochs of ``epoch_len`` TRs alternate condition 0 and 1."""
     n_vox = int(np.prod(shape))
-    n_ep = n_trs // 150
+    n_ep = n_trs // epoch_len
     images, conditions = [], []
     for _ in range(n_subj):
         data = rng.standard_normal((n_vox, n_trs), dtype=np.float32)
         shared = rng.standard_normal(n_trs, dtype=np.float32)
         cond = np.zeros((2, n_ep // 2, n_trs), dtype=np.int64)
         for k in range(n_ep):
-            sl = slice(150 * k, 150 * (k + 1))
+            sl = slice(epoch_len * k, epoch_len * (k + 1))
             cond[k % 2, k // 2, sl] = 1
             if k % 2:
                 data[planted_b, sl] += shared[sl]
@@ -645,19 +764,50 @@ def forced_route_accuracies(torch, vs, n_check, route):
                            n_iters=vs.svm_iters, device=vs.device)
 
 
-def profile_run(torch, vs, label, t_warm, top=6):
+K1_KERNELS = ("fcma_gram_tc_kernel", "fcma_gram_kernel")
+
+
+def device_events(torch, prof):
+    """``[(name, (microseconds, count))]`` of the device activities of a
+    finished profiler cycle, summed by name, from its raw events:
+    without the tree of Python events that ``key_averages`` builds,
+    which takes minutes for the half a million launches of a run of the
+    SMO loop at 216 epochs (``run_study``).  The step annotation, which
+    also shows as a device-side range, is left out."""
+    sums = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA or \
+                ev.name().startswith("ProfilerStep"):
+            continue
+        us, n = sums.get(ev.name(), (0.0, 0))
+        sums[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    return list(sums.items())
+
+
+def profile_run(torch, vs, label, t_warm, top=6, k1_kernels=K1_KERNELS,
+                raw=False):
     """Two more warm ``run('svm')`` under ``torch.profiler``, the first
     a profiler warm-up step: device time by kernel in the second, its
     number of kernel launches, and the device's busy share of its
-    host-clock window and of the unprofiled warm run (``t_warm`` s)."""
+    host-clock window and of the unprofiled warm run (``t_warm`` s).
+    ``raw``: summed from the profiler's raw events (``device_events``),
+    not its ``key_averages``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    def device_averages(p):
+        # the step annotation also shows as a device-side range
+        return [(ev.key, (ev.self_device_time_total, ev.count))
+                for ev in p.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA and
+                not ev.key.startswith("ProfilerStep")]
+
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    traced = []   # the active step's events, kept when its trace is ready
+    traced = []   # the active step's device events, kept when ready
     with profile(activities=acts,
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: traced.extend(
-                     p.key_averages())) as prof:
+                     device_events(torch, p) if raw
+                     else device_averages(p))) as prof:
         vs.run('svm')
         torch.cuda.synchronize()
         prof.step()
@@ -666,13 +816,7 @@ def profile_run(torch, vs, label, t_warm, top=6):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
         prof.step()
-    kernels = []
-    for ev in traced:
-        # the step annotation also shows as a device-side range
-        if ev.device_type != torch.autograd.DeviceType.CUDA or \
-                ev.key.startswith("ProfilerStep"):
-            continue
-        kernels.append((ev.self_device_time_total, ev.count, ev.key))
+    kernels = [(us, n, name) for name, (us, n) in traced]
     busy = sum(us for us, _, _ in kernels)
     if busy <= 0:
         log(f"  {label} profile: the profiler saw no device time; "
@@ -685,10 +829,11 @@ def profile_run(torch, vs, label, t_warm, top=6):
         f"{sum(n for _, n, _ in kernels)} kernel launches")
     for us, n, name in kernels[:top]:
         log(f"    {us / 1e3:9.3f} ms {n:7d}x {name[:70]}")
-    for kernel in ("fcma_gram_tc_kernel", "fcma_gram_kernel"):
+    for kernel in k1_kernels:
         k1 = [(us, n) for us, n, name in kernels if kernel in name]
         log(f"    K1 {kernel} in the trace: " + (
-            f"{k1[0][0] / 1e3:.3f} ms, {k1[0][1]}x" if k1 else "not seen"))
+            f"{sum(us for us, _ in k1) / 1e3:.3f} ms, "
+            f"{sum(n for _, n in k1)}x" if k1 else "not seen"))
 
 
 def run_path(torch, label, images, conditions, mask1, mask2, n_folds,
@@ -916,6 +1061,81 @@ def run_long_subjects(torch, rows):
             fail(f"long subjects: host-CV {label} accuracies disagree "
                  "with the plain K3's")
     compare_classifier_with_plain(torch, clf, pairs, labels, n_e // 2)
+
+
+def run_study(torch, rows):
+    """The FCMA face-scene study's design, whole brain: 18 subjects x 12
+    epochs of 12 TRs (2 conditions x 6) on the 64x64x16 volume (65,536
+    voxels), mask1 = 1024 voxels (16 of them coupled to 2048 others in
+    condition 1), mask2 = the whole volume, one subject a fold;
+    ``prepare_fcma_data``, then ``VoxelSelector(...).run('svm')``, which
+    must launch K1 through route "tcs" alone (a slab at a time,
+    fcma_corr_tcl.cu's raw mode then fcma_gram_tcs.cu).  The warm
+    seconds, the device time of a profiled run by kernel, the peak
+    device memory, and the kernel path's accuracies against plain on
+    256 voxels (gated), with those of fcma_corr.cu's K1 forced on the
+    same voxels beside them.  ``{kernel: launches}`` of the cold run."""
+    from brainiak_tpu_torch.fcma import prepare_fcma_data
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
+    from brainiak_tpu_torch.ops.kernels import epoch_norm as en
+
+    rng = np.random.default_rng(SEED + 3)
+    shape = (64, 64, 16)
+    n_vox = int(np.prod(shape))
+    order = rng.permutation(n_vox)
+    sel, planted_v = np.sort(order[:1024]), order[1024:3072]
+    images, conditions = synthetic_images(rng, 18, shape, 144, sel[:16],
+                                          planted_v, epoch_len=12)
+    mask1 = np.zeros(shape, dtype=bool)
+    mask1.flat[sel] = True
+    label = "study of 216 epochs"
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launches()
+    en.reset_launches()
+    t0 = time.perf_counter()
+    raw1, raw2, labels = prepare_fcma_data(images, conditions, mask1,
+                                           np.ones(shape, dtype=bool))
+    t_prep = time.perf_counter() - t0
+    vs = VoxelSelector(labels, 12, 18, raw1, raw_data2=raw2,
+                       svm_iters=STUDY_SVM_ITERS)
+    results = vs.run('svm')
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = dict(fk.launches(), epoch_zscore=en.launches())
+    del images
+    if launches["epoch_zscore"] < 1 or launches["fcma_gram_tcs"] < 1 or \
+            launches["fcma_gram"] != launches["fcma_gram_tcs"] or \
+            launches["fcma_gram_tcs_tcl"] < 1 or \
+            launches["fcma_gram_tcs_tc"] != 0 or \
+            launches["fcma_gram_tcs_gram"] != launches["fcma_gram_tcs_tcl"]:
+        fail(f"{label}: run('svm') did not run K2, and K1 through the slab "
+             f"route alone (raw correlation, then its Gram): {launches}")
+    rows["fcma_gram_e216"]["launches"] = launches["fcma_gram_tcs"]
+    accs = check_accuracies(results, vs.num_voxels)
+    t0 = time.perf_counter()
+    vs.run('svm')
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    top = set(np.argsort(-accs, kind="stable")[:16].tolist())
+    log(f"{label}: E={len(labels)} (12 a subject, T=12) V1="
+        f"{vs.num_voxels} V2={vs.num_voxels2} folds 18, svm_iters "
+        f"{STUDY_SVM_ITERS}; prepare {t_prep:.2f} s, cold path "
+        f"{t_cold:.2f} s, warm run('svm') {t_warm:.3f} s = "
+        f"{vs.num_voxels / t_warm:.1f} voxels/s; max KKT gap "
+        f"{float(np.max(vs.kkt_gaps_)):.3e}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; planted "
+        f"voxels in the top 16: {len(top & set(range(16)))}/16; launches "
+        f"{launches}")
+    # a run here is half a million launches: raw profiler events
+    profile_run(torch, vs, label, t_warm, k1_kernels=(
+        "fcma_corr_tcl_kernel", "fcma_gram_tcs_kernel", "gram_sum_kernel"),
+                raw=True)
+    compare_with_plain(torch, vs, accs, 256, label="K1 [tcs] (the path's)")
+    compare_with_plain(torch, vs,
+                       forced_route_accuracies(torch, vs, 256, "ffma"),
+                       256, label="K1 [ffma] (forced)", gate=False)
+    return launches
 
 
 def zscored_cols(torch, rng, n_t, n_v, dev):
@@ -1395,7 +1615,7 @@ def main():
     # long subjects; the last takes fcma_gram_tcm.cu alone, or
     # run_long_subjects fails)
     ffma_launches = launches["fcma_gram"] - launches["fcma_gram_tc"] - \
-        launches["fcma_gram_tcm"]
+        launches["fcma_gram_tcm"] - launches["fcma_gram_tcs"]
 
     # host-CV branch on the same data: K3 per block of 128 voxels, then
     # per block of the default voxel_unit (256); every launch must take
@@ -1477,18 +1697,24 @@ def main():
              f"{launches['fcma_gram_tc']} times, not once")
     rows["fcma_gram_e16"]["launches"] = launches["fcma_gram_tc"]
     ffma_launches += launches["fcma_gram"] - launches["fcma_gram_tc"] - \
-        launches["fcma_gram_tcm"]
+        launches["fcma_gram_tcm"] - launches["fcma_gram_tcs"]
     torch.cuda.empty_cache()
 
     run_long_subjects(torch, rows)
+    torch.cuda.empty_cache()
+    # the study path takes K1's slab route alone, or run_study fails
+    run_study(torch, rows)
+    torch.cuda.empty_cache()
     for name in ("fcma_gram_ffma", "fcma_gram_ffma_e16",
-                 "fcma_gram_e80_ffma"):
+                 "fcma_gram_e80_ffma", "fcma_gram_e216_ffma",
+                 "fcma_gram_e128_ffma"):
         rows[name]["launches"] = ffma_launches
     # no path takes fcma_sample_gram.cu's K4 (the stage-2 fits fail if
     # one does) or fcma_corr.cu's K3 (the host-CV checks fail if one
     # does), runs raw features, four sample tiles or K3 at E=96
     for name in ("fcma_corr_normalize_ffma", "fcma_corr_normalize_e80_ffma",
-                 "fcma_corr_normalize_e96", "fcma_sample_gram_ffma",
+                 "fcma_corr_normalize_e96", "fcma_gram_e128",
+                 "fcma_sample_gram_ffma",
                  "fcma_sample_gram_raw", "fcma_sample_gram_raw_ffma",
                  "fcma_sample_gram_n96", "fcma_sample_gram_n96_ffma",
                  "fcma_sample_gram_n80_ffma"):
@@ -1506,6 +1732,8 @@ def main():
              csrc + "fcma_gram_tc.cu")
     k1_tcm = ("brainiak_tpu/ops/pallas_kernels.py:223",
               csrc + "fcma_gram_tcm.cu")
+    k1_tcs = ("brainiak_tpu/ops/pallas_kernels.py:223",
+              csrc + "fcma_gram_tcs.cu")
     k3 = ("brainiak_tpu/ops/pallas_kernels.py:168", csrc + "fcma_corr.cu")
     k3_tc = ("brainiak_tpu/ops/pallas_kernels.py:168",
              csrc + "fcma_corr_tc.cu")
@@ -1523,6 +1751,8 @@ def main():
         "fcma_gram": k1_tc, "fcma_gram_e16": k1_tc,
         "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1,
         "fcma_gram_e80": k1_tcm, "fcma_gram_e80_ffma": k1,
+        "fcma_gram_e216": k1_tcs, "fcma_gram_e216_ffma": k1,
+        "fcma_gram_e128": k1_tcs, "fcma_gram_e128_ffma": k1,
         "fcma_corr_normalize": k3_tc, "fcma_corr_normalize_b256": k3_tc,
         "fcma_corr_normalize_ffma": k3, "fcma_corr_normalize_e80": k3_tcl,
         "fcma_corr_normalize_e80_ffma": k3,
@@ -1544,7 +1774,9 @@ def main():
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],
-                    library_ms=row["library_ms"])
+                    library_ms=row["library_ms"],
+                    **{k: row[k] for k in ("corr_ms", "gram_ms")
+                       if k in row})
                for name, row in rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

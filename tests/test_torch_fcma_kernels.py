@@ -29,7 +29,8 @@ from brainiak_tpu.ops.pallas_kernels import fcma_corr_normalize as jk3
 from brainiak_tpu.ops.pallas_kernels import fcma_gram as jk1
 from brainiak_tpu.ops.pallas_kernels import fcma_sample_gram as jk4
 from brainiak_tpu_torch.ops import fcma_kernels as tk
-from brainiak_tpu_torch.ops.fisherz import within_subject_normalization
+from brainiak_tpu_torch.ops.fisherz import (fisher_z,
+                                            within_subject_normalization)
 
 
 @pytest.fixture(autouse=True)
@@ -177,20 +178,28 @@ def test_epoch_tiles_refuses():
     (64, 64, ("tcm", 32, 32, 2)),
     (96, 12, ("tcm", 32, 24, 4)),
     (104, 52, ("tcm", 32, 32, 4)),
-    (108, 4, ("ffma", 32, 32, 4)),
-    (112, 56, ("ffma", 32, 32, 4)),
+    (108, 4, ("tcs", 32, 32, 4)),
+    (112, 56, ("tcs", 32, 32, 4)),
+    (216, 12, ("tcs", 32, 24, 9)),
+    (216, 108, ("tcs", 32, 32, 7)),
+    (800, 4, ("tcs", 32, 32, 25)),
+    (801, 3, ("ffma", 32, 30, 27)),
 ])
 def test_gram_route(n_epochs, eps, expect):
     """One epoch tile of whole subjects takes the one-tile tensor-core
     kernel; more tiles, or subjects longer than a tile, the multi-tile
-    one up to TCM_MAX_EPOCHS = 104 epochs, and the FMA one beyond."""
+    one up to TCM_MAX_EPOCHS = 104 epochs, the slab route beyond, up to
+    TCS_MAX_EPOCHS = 800 (216 epochs of 12 a subject, the face-scene
+    design, and a subject of 108), and the FMA one beyond that."""
     assert tk.gram_route(n_epochs, eps) == expect
     assert tk.gram_route(n_epochs, eps)[1:] == tk.epoch_tiles(n_epochs,
                                                               eps)
 
 
 def test_gram_route_forced():
-    assert tk.TCM_MAX_EPOCHS == 104
+    """Forced: the FMA kernel takes every design; the slab route only
+    more than 104 and at most 800 epochs."""
+    assert tk.TCM_MAX_EPOCHS == 104 and tk.TCS_MAX_EPOCHS == 800
     assert tk.gram_route(16, 4, ept=32) == ("tc", 32, 32, 1)
     assert tk.gram_route(32, 4, route="ffma") == ("ffma", 32, 32, 1)
     assert tk.gram_route(12, 6, route="tc") == ("tc", 16, 12, 1)
@@ -206,7 +215,13 @@ def test_gram_route_forced():
         tk.gram_route(32, 4, route="tcm")
     with pytest.raises(ValueError, match="at most 104 epochs"):
         tk.gram_route(108, 4, route="tcm")
-    with pytest.raises(ValueError, match="'tc', 'tcm' or 'ffma'"):
+    assert tk.gram_route(216, 12, route="ffma") == ("ffma", 32, 24, 9)
+    assert tk.gram_route(108, 4, route="tcs") == ("tcs", 32, 32, 4)
+    for n_e, eps in ((104, 52), (48, 4), (16, 4), (801, 3)):
+        with pytest.raises(ValueError, match="route 'tcs' takes more than "
+                           "104 and at most 800 epochs"):
+            tk.gram_route(n_e, eps, route="tcs")
+    with pytest.raises(ValueError, match="'tc', 'tcm', 'tcs' or 'ffma'"):
         tk.gram_route(16, 4, route="wgmma")
 
 
@@ -593,6 +608,148 @@ def test_k3_tcl_chunked_clamp_confinement(e, eps):
     assert np.isfinite(got).all()
 
 
+def _tcs_slab(blk, data, eps):
+    """(slab, raw) as K1's slab route (route "tcs") writes its slab:
+    subjects of at most 4 epochs through K3's short-subject body (r in
+    3xTF32, the small part read toward zero; the Fisher-z and z-score),
+    z-scored; longer ones through the raw mode of its long-subject body
+    (csrc/fcma_corr_tcl.cu): r as _corr_tcm forms it, the near-one r
+    again in fp32, and its clamped Fisher-z, raw."""
+    if eps <= 4:
+        return within_subject_normalization(
+            _corr_3xtf32(blk, data, lo=_tf32_trunc), eps), False
+    return fisher_z(_corr_tcm(blk, data)), True
+
+
+def _zscore_as_loaded(z, eps):
+    """csrc/fcma_gram_tcs.cu's z-score of a raw slab: per (block voxel,
+    subject, voxel), sums of z and z^2 (fmaf: the square exact in
+    float64, one rounding) in epoch order, var = E[z^2] - mean^2, the
+    inverse std 0 where var <= 0."""
+    n_b, n_e, n_v = z.shape
+    zr = z.reshape(n_b, n_e // eps, eps, n_v)
+    total = torch.zeros(n_b, n_e // eps, n_v)
+    sq = torch.zeros(n_b, n_e // eps, n_v)
+    for k in range(eps):
+        x = zr[:, :, k]
+        total = total + x
+        sq = (x.double() * x.double() + sq.double()).float()
+    inv_n = torch.tensor(1.0, dtype=torch.float32) / eps
+    mean = total * inv_n
+    var = sq * inv_n - mean * mean
+    inv = torch.where(var <= 0, torch.tensor(0.0),
+                      1 / torch.sqrt(var.clamp(min=0)))
+    return ((zr - mean[:, :, None]) * inv[:, :, None]).reshape(z.shape)
+
+
+def _gram_tcs(z):
+    """The Gram of csrc/fcma_gram_tcs.cu on a normalized slab: each value
+    split into hi = tf32(x) to nearest and lo = x - hi read toward zero;
+    per stage of 32 voxels the products lo*hi + hi*lo + hi*hi summed
+    from 0, then added in fp32 to the running sum, stages in order."""
+    hi = _tf32_rna(z)
+    lo = _tf32_trunc(z - hi)
+    acc = torch.zeros(z.shape[0], z.shape[1], z.shape[1])
+    for k0 in range(0, z.shape[2], 32):
+        h, w = hi[:, :, k0:k0 + 32], lo[:, :, k0:k0 + 32]
+        acc = acc + (torch.einsum('bev,bfv->bef', w, h)
+                     + torch.einsum('bev,bfv->bef', h, w)
+                     + torch.einsum('bev,bfv->bef', h, h))
+    return acc
+
+
+@pytest.mark.parametrize("e,eps", [(108, 4), (120, 12), (216, 108)])
+def test_k1_tcs_3xtf32_matches_pallas_interpret_ragged(e, eps):
+    """K1's slab route beyond 104 epochs, its arithmetic emulated: the
+    slab's correlation formed once in 3xTF32 (K3's short-subject body
+    at 4 epochs a subject, z-scored; the raw Fisher-z of its
+    long-subject body, near-one r again in fp32, at 12 and at 108, a
+    subject longer than 104 epochs), z-scored as the Gram loads it, and
+    the Gram in 3xTF32 with hi / lo splits.  Ragged B=13, V=37 and
+    T=9 (below the 16-row stage).  Two-region inputs: within 1e-4 of
+    each voxel's K[0, 0] of the Pallas kernel in interpret mode and of
+    the plain version."""
+    t, b, v = 9, 13, 37
+    assert tk.gram_route(e, eps)[0] == "tcs"
+    blk, data = _two_mask(80 + e, e, t, b, v)
+    want = np.asarray(jk1(jnp.asarray(_pad(blk, 16)),
+                          jnp.asarray(_pad(data, 48)), eps, tile_b=8,
+                          tile_v=16, interpret=True))[:b]
+    slab, raw = _tcs_slab(_t(blk), _t(data), eps)
+    assert raw == (eps > 4)
+    z = _zscore_as_loaded(slab, eps) if raw else slab
+    got = _gram_tcs(z).numpy()
+    assert got.shape == (b, e, e) and np.array_equal(got, got.transpose(
+        0, 2, 1))
+    _assert_gram_close(got, want)
+    _assert_gram_close(got, tk.fcma_gram_plain(_t(blk), _t(data),
+                                               eps).numpy())
+
+
+@pytest.mark.parametrize("e,eps", [(108, 4), (120, 12)])
+def test_k1_tcs_3xtf32_clamp_confinement(e, eps):
+    """One-mask input beyond 104 epochs, with self pairs (r = 1) and
+    planted r = +-1 pairs, through the emulated slab route: its
+    normalized correlation (the raw mode's near-one r formed again in
+    fp32 at 12 epochs a subject; K3's short-subject body as it is at 4)
+    agrees with the Pallas kernel's outside the poisoned subject groups
+    and is finite everywhere; so is its Gram."""
+    t, b, v = 20, 16, 32
+    rng = np.random.RandomState(31 + eps)
+    data = rng.randn(e, t, v).astype(np.float32)
+    data[:, :, 21] = data[:, :, 5]
+    data[:, :, 27] = -data[:, :, 11]
+    norm = np.asarray(normalize_for_correlation(
+        jnp.asarray(data).transpose(0, 2, 1), 2)).transpose(0, 2, 1)
+    blk = np.ascontiguousarray(norm[:, :, :b])
+    want = np.asarray(jk3(jnp.asarray(blk), jnp.asarray(norm), eps,
+                          tile_b=8, tile_v=16, interpret=True))
+    slab, raw = _tcs_slab(_t(blk), _t(norm), eps)
+    z = _zscore_as_loaded(slab, eps) if raw else slab
+    poisoned = _poisoned_groups(blk, norm, eps)
+    assert poisoned[5, :, 21].all() and poisoned[11, :, 27].all()
+    assert poisoned[np.arange(b), :, np.arange(b)].all()
+    assert (~poisoned).mean() > 0.9
+    np.testing.assert_allclose(z.numpy()[~poisoned], want[~poisoned],
+                               atol=1e-4)
+    assert torch.isfinite(z).all() and torch.isfinite(_gram_tcs(z)).all()
+
+
+def test_tcs_slabs():
+    """K1's slab route's planner: block voxels a slab from the 8 GiB
+    budget (151 fit at E=216, V=65536), in whole items of 128 of K3's
+    bodies where 128 fit, else in multiples of 4 (a slab's first block
+    voxel starts a 16-byte aligned column); at least 4 whatever the
+    budget; the slabs as even as that allows.  The Gram's V split
+    depends on V alone, so a block voxel's Gram does not depend on
+    the slab."""
+    assert tk._TCS_BUDGET == 8 * 2 ** 30
+    assert tk._TCS_BUDGET // (4 * 216 * 65536) == 151
+    assert tk.tcs_slabs(1024, 216, 65536) == (128, 8)
+    assert tk.tcs_slabs(1000, 216, 65536) == (128, 8)
+    assert tk.tcs_slabs(512, 128, 4096) == (512, 1)
+    per = 4 * 216 * 100
+    assert tk.tcs_slabs(100, 216, 100, budget=50 * per) == (36, 3)
+    assert tk.tcs_slabs(10, 216, 100, budget=per) == (4, 3)
+    assert tk.tcs_slabs(3, 216, 100) == (3, 1)
+    assert tk.tcs_slabs(1, 216, 100, budget=1) == (1, 1)
+    assert tk.tcs_slabs(0, 216, 100)[1] == 0
+    rng = np.random.RandomState(3)
+    for _ in range(200):
+        n_b = int(rng.randint(1, 3000))
+        n_e = int(rng.randint(105, 801))
+        n_v = int(rng.randint(1, 70000))
+        budget = int(rng.randint(1, 2 ** 34))
+        bc, n_slabs = tk.tcs_slabs(n_b, n_e, n_v, budget)
+        assert n_slabs == -(-n_b // bc) and 1 <= bc <= n_b
+        assert bc == n_b or bc % 4 == 0
+        assert bc <= max(4, budget // (4 * n_e * n_v))
+        if budget // (4 * n_e * n_v) >= 128 and bc < n_b:
+            assert bc % 128 == 0
+    assert tk._tcs_split(65536) == 8 and tk._tcs_split(4096) == 2
+    assert tk._tcs_split(1000) == 1 and tk._tcs_split(10 ** 6) == 8
+
+
 @pytest.mark.parametrize("n_epochs,eps,expect", [
     (32, 4, "tc"), (16, 4, "tc"), (48, 4, "tc"), (8, 2, "tc"),
     (3, 1, "tc"), (12, 3, "tc"), (12, 6, "tcl"), (24, 12, "tcl"),
@@ -762,7 +919,9 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
     tk.fcma_corr_normalize(blk, blk, 2)
     tk.fcma_sample_gram(blk, blk, 2)
     assert tk.launches() == {"fcma_gram": 0, "fcma_gram_tc": 0,
-                             "fcma_gram_tcm": 0,
+                             "fcma_gram_tcm": 0, "fcma_gram_tcs": 0,
+                             "fcma_gram_tcs_tc": 0, "fcma_gram_tcs_tcl": 0,
+                             "fcma_gram_tcs_gram": 0,
                              "fcma_corr_normalize": 0,
                              "fcma_corr_normalize_tc": 0,
                              "fcma_corr_normalize_tcl": 0,

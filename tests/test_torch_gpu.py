@@ -86,6 +86,9 @@ def test_fcma_kernels(cuda, e, t, b, v, eps):
     assert fk.launches() == {"fcma_gram": 1,
                              "fcma_gram_tc": int(route == "tc"),
                              "fcma_gram_tcm": int(route == "tcm"),
+                             "fcma_gram_tcs": 0, "fcma_gram_tcs_tc": 0,
+                             "fcma_gram_tcs_tcl": 0,
+                             "fcma_gram_tcs_gram": 0,
                              "fcma_corr_normalize": 1,
                              "fcma_corr_normalize_tc": int(eps <= 4),
                              "fcma_corr_normalize_tcl": int(eps > 4),
@@ -265,6 +268,198 @@ def test_fcma_gram_tcm_takes_no_statistics_scratch(cuda, monkeypatch):
     gram_bytes = 4 * 100 * 80 * 80
     assert torch.cuda.max_memory_allocated() - base <= \
         (1 + n_split) * gram_bytes + 2 ** 20
+
+
+def _slab_launches(route, eps, n_slabs=1):
+    """K1's launch counts of one call forced onto ``route``: for the
+    slab route, one correlation launch (K3's body "tc" up to 4 epochs a
+    subject, else "tcl"'s raw mode) and one Gram launch a slab."""
+    body = "tc" if eps <= 4 else "tcl"
+    slab = route == "tcs"
+    return {"fcma_gram": 1, "fcma_gram_tc": 0, "fcma_gram_tcm": 0,
+            "fcma_gram_tcs": int(slab),
+            "fcma_gram_tcs_tc": n_slabs * int(slab and body == "tc"),
+            "fcma_gram_tcs_tcl": n_slabs * int(slab and body == "tcl"),
+            "fcma_gram_tcs_gram": n_slabs * int(slab)}
+
+
+def _k1_launches():
+    return {k: n for k, n in fk.launches().items()
+            if k.startswith("fcma_gram")}
+
+
+@pytest.mark.parametrize("e,t,b,v,eps", [
+    (108, 37, 13, 333, 4), (120, 9, 21, 77, 12), (216, 12, 9, 203, 108),
+    (216, 12, 37, 1001, 12), (112, 20, 45, 30, 56), (300, 12, 10, 2100, 12),
+    (216, 12, 20, 4099, 6), (128, 150, 64, 4096, 4), (600, 12, 6, 101, 4),
+    (800, 9, 5, 64, 8)])
+def test_fcma_gram_tcs_routes_agree(cuda, e, t, b, v, eps):
+    """K1's slab route beyond 104 epochs and fcma_corr.cu's FMA kernel
+    forced on the same inputs: both correlation bodies (4 epochs a
+    subject through K3's "tc", z-scored; longer through "tcl"'s raw
+    mode, z-scored as the Gram loads it: 6, 8, 12, 56, and 108, a
+    subject longer than 104 epochs); ragged B, V and T (9 and 12 below
+    the 16-row stage); one V split and several (V=4096, 4099); more than
+    128 output blocks (300, 600 and 800 epochs: several groups, two
+    stages at 800).  Each launched as asked; both within 1e-4 of each
+    voxel's K[0, 0] of the plain version; the route's Gram symmetric
+    bit for bit."""
+    assert fk.gram_route(e, eps)[0] == "tcs"
+    d = _normalized(e * t + b, e, t, v + b, cuda)
+    blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
+    want = fk.fcma_gram_plain(blk, data, eps)
+    scale = want[:, :1, :1].abs()
+    for route in ("tcs", "ffma"):
+        fk.reset_launches()
+        got = fk._kernel_gram(blk, data, eps, route=route)
+        assert _k1_launches() == _slab_launches(route, eps), route
+        assert torch.all((got - want).abs() <= 1e-4 * scale), route
+        if route == "tcs":
+            assert torch.equal(got, got.transpose(1, 2))
+
+
+@pytest.mark.parametrize("e,eps", [(120, 12), (216, 108), (112, 56),
+                                   (216, 6)])
+def test_fcma_gram_tcs_self_pairs(cuda, e, eps):
+    """One mask: every block voxel meets itself at r = 1 up to
+    rounding.  The raw mode of the long-subject body forms those r
+    again in fp32 FMA, t ascending, as the FMA kernel forms them, so
+    the two Grams agree within 1e-4 of each voxel's K[0, 0].  (Subjects
+    of at most 4 epochs take K3's short-subject body, which has no
+    near-one rule, as K1's one-tile route has none.)"""
+    d = _normalized(5 * e + eps, e, 12, 203, cuda)
+    blk = d[:, :, 40:77].contiguous()
+    got = {}
+    for route in ("tcs", "ffma"):
+        fk.reset_launches()
+        got[route] = fk._kernel_gram(blk, d, eps, route=route)
+        assert _k1_launches() == _slab_launches(route, eps)
+        assert torch.isfinite(got[route]).all(), route
+    scale = got["ffma"][:, :1, :1].abs()
+    assert torch.all((got["tcs"] - got["ffma"]).abs() <= 1e-4 * scale)
+
+
+@pytest.mark.parametrize("eps", [4, 12])
+def test_fcma_gram_tcs_misaligned_rows(cuda, eps):
+    """Operands whose rows do not start 16-byte aligned (a view one
+    float into its storage) and whose widths are not multiples of 4
+    reach the slab route zero-padded, with the plain version's Gram.
+    Two-region inputs (no |r| near 1)."""
+    e, t = 120, 12
+    d = _normalized(17 + eps, e, t, 203 + 21, cuda)
+    blk = d[:, :, 203:].contiguous()
+    store = torch.empty(e * t * 203 + 1, device=cuda)
+    store[1:] = d[:, :, :203].reshape(-1)
+    data = store[1:].view(e, t, 203)
+    assert data.is_contiguous() and data.data_ptr() % 16
+    want = fk.fcma_gram_plain(blk, data, eps)
+    fk.reset_launches()
+    got = fk.fcma_gram(blk, data, eps)
+    assert _k1_launches() == _slab_launches("tcs", eps)
+    assert got.shape == (21, e, e)
+    assert torch.all((got - want).abs() <= 1e-4 * want[:, :1, :1].abs())
+
+
+@pytest.mark.parametrize("e,t,b,v,eps", [(216, 12, 37, 1001, 12),
+                                         (120, 20, 300, 4099, 4)])
+def test_fcma_gram_tcs_slabs_are_bit_for_bit(cuda, e, t, b, v, eps):
+    """A small forced slab budget (slabs of 4 or 8 block voxels, the last
+    one shorter) gives the default's Gram bit for bit: a block voxel's
+    Gram does not depend on the slab."""
+    d = _normalized(e + v, e, t, v + b, cuda)
+    blk, data = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
+    whole = fk._kernel_gram(blk, data, eps)
+    for per in (4, 8):
+        budget = 4 * e * v * per + 3
+        bc, n_slabs = fk.tcs_slabs(b, e, v, budget)
+        assert bc == per and n_slabs == -(-b // per) > 1
+        fk.reset_launches()
+        got = fk._kernel_gram(blk, data, eps, budget=budget)
+        assert _k1_launches() == _slab_launches("tcs", eps, n_slabs)
+        assert torch.equal(got, whole), per
+
+
+@pytest.mark.parametrize("e,eps", [(15, 5), (36, 12), (80, 40)])
+def test_fcma_corr_normalize_tcl_is_unchanged_by_its_raw_mode(cuda, e,
+                                                               eps):
+    """K3's long-subject kernel gained a raw mode (K1's slab route): its
+    own output, run before and after the raw mode on the same inputs,
+    is the same bit for bit, and on inputs whose correlations are exact
+    it is still the FMA kernel's z-score bit for bit; the raw mode
+    stores the clamped Fisher-z of those r (near torch's, whose log may
+    round otherwise) and leaves it not z-scored."""
+    t, b, v = 16, 45, 203
+    blk, data = _dyadic(e, e, t, b, cuda), _dyadic(e + 1, e, t, v, cuda)
+    before = fk._kernel_corr_normalize(blk, data, eps, route="tcl")
+    raw = torch.empty(b, e, v, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    x, y = fk._tma_operand(blk), fk._tma_operand(data)
+    err = fk._fn("fcma_corr_tcl", "fcma_corr_fisher_tcl_f32")(
+        x.data_ptr(), y.data_ptr(), raw.data_ptr(), e, t, b, v,
+        x.stride(1), x.stride(0), y.stride(1), y.stride(0), stream)
+    assert err == 0
+    after = fk._kernel_corr_normalize(blk, data, eps, route="tcl")
+    want = fk._kernel_corr_normalize(blk, data, eps, route="ffma")
+    assert torch.equal(before, after) and torch.equal(after, want)
+    r = torch.einsum('etb,etv->bev', blk.double(), data.double())
+    assert torch.allclose(raw.double(), fisher_z(r.float()).double(),
+                          rtol=0, atol=1e-6)
+    assert not torch.allclose(raw, after, atol=1e-2)
+
+
+def test_fcma_gram_tcs_refuses(cuda):
+    """The slab route refuses designs of at most 104 or more than 800
+    epochs, and the new C entry points refuse what they do not take:
+    more than 800 epochs, a subject length that does not divide E, a V
+    split without partials, a misaligned operand of the raw mode."""
+    x = torch.zeros(104, 6, 8, device=cuda)
+    with pytest.raises(ValueError, match="route 'tcs'"):
+        fk._kernel_gram(x, x, 52, route="tcs")
+    x = torch.zeros(804, 6, 8, device=cuda)
+    with pytest.raises(ValueError, match="route 'tcs'"):
+        fk._kernel_gram(x, x, 4, route="tcs")
+    gram = fk._fn("fcma_gram_tcs", "fcma_gram_tcs_f32")
+    z = torch.zeros(2, 120, 64, device=cuda)
+    out = torch.empty(2, 120, 120, device=cuda)
+    part = torch.empty(2, 2, 120, 120, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (z.data_ptr(), part.data_ptr(), out.data_ptr())
+    assert gram(*ptrs, 120, 2, 64, 12, 2, stream) == 0
+    assert gram(*ptrs, 120, 2, 64, 0, 1, stream) == 0
+    for args in ((801, 2, 64, 0, 1), (0, 2, 64, 0, 1), (120, 2, 64, 7, 1),
+                 (120, 2, 64, -1, 1), (120, 2, 64, 12, 0),
+                 (120, -1, 64, 12, 1)):
+        assert gram(*ptrs, *args, stream) != 0, args
+    assert gram(z.data_ptr(), None, out.data_ptr(), 120, 2, 64, 12, 2,
+                stream) != 0
+    corr = fk._fn("fcma_corr_tcl", "fcma_corr_fisher_tcl_f32")
+    d = torch.zeros(120, 6, 9, device=cuda)
+    assert corr(d.data_ptr(), d.data_ptr(), z.data_ptr(), 120, 6, 2, 9,
+                9, 54, 9, 54, stream) != 0
+    assert corr(d.data_ptr() + 4, d.data_ptr(), z.data_ptr(), 120, 6, 2, 8,
+                12, 72, 12, 72, stream) != 0
+    torch.cuda.synchronize()
+
+
+def test_voxel_selector_takes_the_slab_route_at_216_epochs(cuda):
+    """run('svm') on the face-scene design's epochs (18 subjects x 12
+    epochs of 12 TRs, one subject a fold) launches K1 through the slab
+    route alone: no FMA kernel (fcma_gram_f32) and no other K1 kernel;
+    its accuracies are the CPU path's within one test sample a fold."""
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+
+    d = _normalized(6, 216, 12, 70, torch.device("cpu")).numpy()
+    d1, d2 = list(d[:, :, :9]), list(d[:, :, 9:])
+    labels = [0, 1] * 108
+    fk.reset_launches()
+    got = dict(VoxelSelector(labels, 12, 18, d1,
+                             raw_data2=d2).run('svm'))
+    assert _k1_launches() == _slab_launches("tcs", 12)
+    want = dict(VoxelSelector(labels, 12, 18, d1, raw_data2=d2,
+                              device="cpu").run('svm'))
+    g = np.array([got[k] for k in range(9)])
+    w = np.array([want[k] for k in range(9)])
+    assert np.max(np.abs(g - w)) <= 18 / 216 + 1e-6
 
 
 def _assert_k3(got, blk, data, eps):

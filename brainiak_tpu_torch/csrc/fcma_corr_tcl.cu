@@ -69,27 +69,46 @@
 //     boxes, a full and an empty mbarrier a stage, runs on across
 //     chunks and items, so the next chunk's first stage loads during a
 //     chunk's epilogue.
-//   * Raw mode (fcma_corr_fisher_tcl_f32, the template's RAW), the
-//     first stage of K1's route "tcs" (fcma_gram_tcs.cu) for subjects
-//     of more than 4 epochs: chunk_end alone, so each clamped Fisher-z,
-//     the near-one rule included, is stored once and never read back;
-//     that route's Gram z-scores it as it loads it.  The subjects do
-//     not matter to raw z, so the chunks of 4 run across the whole
-//     design (one "subject" of E epochs) and none is cut short at a
-//     subject's end.
+//   * Raw mode (fcma_corr_fisher_tcl_f32, the template's MODE
+//     kFisher), the first stage of K1's route "tcs" (fcma_gram_tcs.cu)
+//     for subjects of more than 4 epochs and of K4's route "tcs"
+//     (fcma_sample_gram_tcs.cu) for groups of more than one sample:
+//     chunk_end alone, so each clamped Fisher-z, the near-one rule
+//     included, is stored once and never read back; that route's Gram
+//     z-scores it as it loads it.  The subjects do not matter to raw z,
+//     so the chunks of 4 run across the whole design (one "subject" of
+//     E epochs) and none is cut short at a subject's end.
+//   * r mode (fcma_corr_r_tcl_f32, MODE kCorr), the first stage of K4's
+//     route "tcs" on raw features (norm_unit <= 1): the raw mode with r
+//     itself stored in place of its Fisher-z, each near-one r again
+//     formed in fp32 FMA (corr_fma, fcma_tile.cuh), so that a voxel
+//     paired with itself has the FMA kernel's r.
 
 #include "tc_corr.cuh"
 
 namespace {
 
+// what the kernel stores (its template's MODE): the z-score over each
+// subject (route "tcl"), the raw clamped Fisher-z (the raw mode) or r
+constexpr int kNormalize = 0;
+constexpr int kFisher = 1;
+constexpr int kCorr = 2;
+
+// r as stored: its clamped Fisher-z (Z), or r itself
+template <bool Z>
+__device__ __forceinline__ float stored(float r) {
+  return Z ? fisher_z(r) : r;
+}
+
 // The end of a chunk of ne <= 4 epochs e0.. of the item's subject: each
-// accumulator's clamped Fisher-z stored raw to out, and the
-// accumulators zeroed; then each |r| >= kNearOne (rare: a voxel with
-// itself, or a near copy) formed again from blk and data, its z stored
-// over the first.  Accumulator i of n-tile j: row g + 8 (i / 2), column
-// 2q + i % 2, so j runs over 4 consecutive voxels (col_chunk).  Block
-// voxels past B and voxels past V load as 0, so theirs are never
-// formed again and every read is in range.
+// accumulator's clamped Fisher-z (Z; else r itself) stored raw to out,
+// and the accumulators zeroed; then each |r| >= kNearOne (rare: a voxel
+// with itself, or a near copy) formed again from blk and data, its
+// value stored over the first.  Accumulator i of n-tile j: row
+// g + 8 (i / 2), column 2q + i % 2, so j runs over 4 consecutive voxels
+// (col_chunk).  Block voxels past B and voxels past V load as 0, so
+// theirs are never formed again and every read is in range.
+template <bool Z>
 __device__ __forceinline__ void chunk_end(
     float (&acc)[kMaxEps][4][4], float* __restrict__ out,
     const float* __restrict__ blk, const float* __restrict__ data, int E,
@@ -110,8 +129,8 @@ __device__ __forceinline__ void chunk_end(
     const int v = v0 + 4 * col_chunk(2 * q + (i & 1));
 #pragma unroll
     for (int e = 0; e < kMaxEps; ++e) {
-      const float x[4] = {fisher_z(acc[e][0][i]), fisher_z(acc[e][1][i]),
-                          fisher_z(acc[e][2][i]), fisher_z(acc[e][3][i])};
+      const float x[4] = {stored<Z>(acc[e][0][i]), stored<Z>(acc[e][1][i]),
+                          stored<Z>(acc[e][2][i]), stored<Z>(acc[e][3][i])};
       if (e < ne && b < B)
         store4(out, (size_t)b * E + e0 + e, v, V, vec, x);
 #pragma unroll
@@ -126,9 +145,9 @@ __device__ __forceinline__ void chunk_end(
     const int b = b0 + row_voxel<kBoxCols>(mt, g + 8 * (i >> 1));
     const int v = v0 + 4 * col_chunk(2 * q + (i & 1)) + j;
     out[((size_t)b * E + e0 + e) * V + v] =
-        fisher_fma(blk + (size_t)(e0 + e) * blk_ld_e + b,
-                   data + (size_t)(e0 + e) * data_ld_e + v, T, blk_ld_t,
-                   data_ld_t);
+        stored<Z>(corr_fma(blk + (size_t)(e0 + e) * blk_ld_e + b,
+                           data + (size_t)(e0 + e) * data_ld_e + v, T,
+                           blk_ld_t, data_ld_t));
   }
 }
 
@@ -214,10 +233,11 @@ __device__ __forceinline__ void item_end(float* __restrict__ out, int E,
 
 // tmap_data, tmap_blk: tensor maps of data and blk (encode_map) with
 // [kMaxEps, kKT, 32] boxes; blk and data themselves for the near-one
-// step; n_items = block columns x subjects x voxel tiles.  RAW: each
-// chunk's clamped Fisher-z stored once (chunk_end), not read back or
-// z-scored (K1's route "tcs", whose Gram z-scores as it loads)
-template <bool RAW>
+// step; n_items = block columns x subjects x voxel tiles.  MODE
+// kFisher: each chunk's clamped Fisher-z stored once (chunk_end), not
+// read back or z-scored (the routes "tcs", whose Gram z-scores as it
+// loads); kCorr: the same with r itself
+template <int MODE>
 __global__ void __launch_bounds__(CorrTc::kThreads, 1)
 fcma_corr_tcl_kernel(const __grid_constant__ CUtensorMap tmap_data,
                      const __grid_constant__ CUtensorMap tmap_blk,
@@ -323,16 +343,17 @@ fcma_corr_tcl_kernel(const __grid_constant__ CUtensorMap tmap_data,
       const int ec = c % per_item / n_tc;
       const int b0 = bx * Tl::kTB + kBoxCols * (wb / 2);
       const int v0 = vt * Tl::kTV + kBoxCols * wc;
-      chunk_end(acc, out, blk, data, E, T, B, V, b0, v0,
-                s * eps + ec * kMaxEps, min(kMaxEps, eps - ec * kMaxEps),
-                mt, g, q, vec, blk_ld_t, blk_ld_e, data_ld_t, data_ld_e);
-      if (!RAW && ec == n_ec - 1)
+      chunk_end<MODE != kCorr>(
+          acc, out, blk, data, E, T, B, V, b0, v0, s * eps + ec * kMaxEps,
+          min(kMaxEps, eps - ec * kMaxEps), mt, g, q, vec, blk_ld_t,
+          blk_ld_e, data_ld_t, data_ld_e);
+      if (MODE == kNormalize && ec == n_ec - 1)
         item_end(out, E, B, V, b0, v0, s * eps, eps, mt, g, q, vec);
     }
   }
 }
 
-template <bool RAW>
+template <int MODE>
 int launch(const float* blk, const float* data, float* out, int E, int T,
            int B, int V, int eps, int blk_ld_t, int blk_ld_e, int data_ld_t,
            int data_ld_e, cudaStream_t s) {
@@ -350,10 +371,10 @@ int launch(const float* blk, const float* data, float* out, int E, int T,
                             (E / eps) * ((V + Tl::kTV - 1) / Tl::kTV);
   int grid = 0;
   const cudaError_t err =
-      persistent_grid(fcma_corr_tcl_kernel<RAW>, n_items, grid);
+      persistent_grid(fcma_corr_tcl_kernel<MODE>, n_items, grid);
   if (err != cudaSuccess) return (int)err;
   const int vec = V % 4 == 0 && (reinterpret_cast<size_t>(out) & 15) == 0;
-  fcma_corr_tcl_kernel<RAW><<<grid, Tl::kThreads, Tl::kSmem, s>>>(
+  fcma_corr_tcl_kernel<MODE><<<grid, Tl::kThreads, Tl::kSmem, s>>>(
       map_data, map_blk, blk, data, out, E, T, B, V, eps, (int)n_items, vec,
       blk_ld_t, blk_ld_e, data_ld_t, data_ld_e);
   return (int)cudaGetLastError();
@@ -374,23 +395,50 @@ extern "C" int fcma_corr_normalize_tcl_f32(const float* blk,
       E % eps != 0 || !tma_operand(blk, blk_ld_t, blk_ld_e) ||
       !tma_operand(data, data_ld_t, data_ld_e))
     return (int)cudaErrorInvalidValue;
-  return launch<false>(blk, data, out, E, T, B, V, eps, blk_ld_t, blk_ld_e,
-                       data_ld_t, data_ld_e, (cudaStream_t)stream);
+  return launch<kNormalize>(blk, data, out, E, T, B, V, eps, blk_ld_t,
+                            blk_ld_e, data_ld_t, data_ld_e,
+                            (cudaStream_t)stream);
 }
 
-// The raw mode, for K1's route "tcs": out[b, e, v] = the clamped
-// Fisher-z of r[b, e, v], the near-one rule included, stored once and
-// not z-scored, whatever the subjects (the epochs run through the ring
-// in chunks of 4 across the whole design).  blk and data as above.
+namespace {
+
+// The raw and r modes: every r of the design through the ring in
+// chunks of 4 epochs (one "subject" of E epochs)
+template <int MODE>
+int launch_raw(const float* blk, const float* data, float* out, int E,
+               int T, int B, int V, int blk_ld_t, int blk_ld_e,
+               int data_ld_t, int data_ld_e, void* stream) {
+  if (E < 1 || T < 0 || B < 0 || V < 0 ||
+      !tma_operand(blk, blk_ld_t, blk_ld_e) ||
+      !tma_operand(data, data_ld_t, data_ld_e))
+    return (int)cudaErrorInvalidValue;
+  return launch<MODE>(blk, data, out, E, T, B, V, E, blk_ld_t, blk_ld_e,
+                      data_ld_t, data_ld_e, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// The raw mode, for the routes "tcs" of K1 and K4: out[b, e, v] = the
+// clamped Fisher-z of r[b, e, v], the near-one rule included, stored
+// once and not z-scored, whatever the subjects (the epochs run through
+// the ring in chunks of 4 across the whole design).  blk and data as
+// above.
 extern "C" int fcma_corr_fisher_tcl_f32(const float* blk, const float* data,
                                         float* out, int E, int T, int B,
                                         int V, int blk_ld_t, int blk_ld_e,
                                         int data_ld_t, int data_ld_e,
                                         void* stream) {
-  if (E < 1 || T < 0 || B < 0 || V < 0 ||
-      !tma_operand(blk, blk_ld_t, blk_ld_e) ||
-      !tma_operand(data, data_ld_t, data_ld_e))
-    return (int)cudaErrorInvalidValue;
-  return launch<true>(blk, data, out, E, T, B, V, E, blk_ld_t, blk_ld_e,
-                      data_ld_t, data_ld_e, (cudaStream_t)stream);
+  return launch_raw<kFisher>(blk, data, out, E, T, B, V, blk_ld_t, blk_ld_e,
+                             data_ld_t, data_ld_e, stream);
+}
+
+// The r mode, for K4's route "tcs" on raw features: out[b, e, v] =
+// r[b, e, v] itself, each |r| >= kNearOne formed again in fp32 FMA, as
+// the raw mode stores its Fisher-z.  blk and data as above.
+extern "C" int fcma_corr_r_tcl_f32(const float* blk, const float* data,
+                                   float* out, int E, int T, int B, int V,
+                                   int blk_ld_t, int blk_ld_e, int data_ld_t,
+                                   int data_ld_e, void* stream) {
+  return launch_raw<kCorr>(blk, data, out, E, T, B, V, blk_ld_t, blk_ld_e,
+                           data_ld_t, data_ld_e, stream);
 }

@@ -304,15 +304,22 @@ __device__ __forceinline__ float fisher_z(float r) {
   return 0.5f * logf(num / den);
 }
 
-// fisher_z of r = sum_t x[t ld_x] y[t ld_y] formed as corr_tile forms
-// it: fp32 FMA from 0, t ascending.
-__device__ __forceinline__ float fisher_fma(const float* __restrict__ x,
-                                            const float* __restrict__ y,
-                                            int T, int ld_x, int ld_y) {
+// r = sum_t x[t ld_x] y[t ld_y] formed as corr_tile forms it: fp32 FMA
+// from 0, t ascending.
+__device__ __forceinline__ float corr_fma(const float* __restrict__ x,
+                                          const float* __restrict__ y, int T,
+                                          int ld_x, int ld_y) {
   float r = 0.f;
   for (int t = 0; t < T; ++t)
     r = fmaf(x[(size_t)t * ld_x], y[(size_t)t * ld_y], r);
-  return fisher_z(r);
+  return r;
+}
+
+// fisher_z of that r
+__device__ __forceinline__ float fisher_fma(const float* __restrict__ x,
+                                            const float* __restrict__ y,
+                                            int T, int ld_x, int ld_y) {
+  return fisher_z(corr_fma(x, y, T, ld_x, ld_y));
 }
 
 // A thread's Gram micro-tile in K1 and K4: block voxel gb, epochs

@@ -42,13 +42,18 @@ stored, then read back for the z-score and normalized in place)
 ``csrc/fcma_sample_gram_tc.cu`` on one sample tile of whole groups
 (``"tc"``), ``csrc/fcma_sample_gram_tcm.cu`` on more up to
 :data:`TCM_MAX_EPOCHS` = 104 samples (``"tcm"``: K1's multi-tile body,
-the block voxels summed in the Gram's own FMA chains) and
-``csrc/fcma_sample_gram.cu`` beyond (``"ffma"``).  The multi-tile
-routes of K1 and K4 share ``csrc/tc_gram_m.cuh``.  K1's multi-tile
-route, K3's long-subject one and K4's tensor-core ones form a
-correlation with ``|r| >= 1 - 2**-10`` again in fp32 FMA (a voxel with
-itself).  Every other route computes in fp32 FMA; K3's FMA kernel runs
-only when forced.
+the block voxels summed in the Gram's own FMA chains), K1's slab route
+beyond, up to :data:`TCS_MAX_EPOCHS` = 800 samples (``"tcs"``:
+``csrc/fcma_corr_tcl.cu``'s raw mode, or its r mode on raw features,
+then ``csrc/fcma_gram_tcs.cu``, then ``csrc/fcma_sample_gram_tcs.cu``
+adds the per-block-voxel Grams in block-voxel order), and
+``csrc/fcma_sample_gram.cu`` (``"ffma"``) only when forced or beyond
+800 samples.  The multi-tile routes of K1 and K4 share
+``csrc/tc_gram_m.cuh``.  K1's multi-tile and slab routes (the latter
+for subjects of more than 4 epochs), K3's long-subject one and K4's
+tensor-core ones form a correlation with ``|r| >= 1 - 2**-10`` again in
+fp32 FMA (a voxel with itself).  Every other route computes in fp32
+FMA; K3's FMA kernel runs only when forced.
 ``precision`` is not used by the kernels.  On the FMA routes a subject
 (or sample group) may be longer than one epoch tile: the kernels then
 run a first pass for its z-score statistics.  On a CPU tensor the wrapper
@@ -81,14 +86,20 @@ __all__ = ["TCM_MAX_EPOCHS", "TCS_MAX_EPOCHS", "aligned_rows_layout",
 # one each a slab, under "fcma_gram_tcs_tc" / "_tcl" (the correlation,
 # by K3's body "tc" or the raw mode of "tcl") and "fcma_gram_tcs_gram";
 # "_tc" and "_tcm" the same for K3 and K4, "_tcl" K3's tensor-core
-# kernel for long subjects
+# kernel for long subjects; "fcma_sample_gram_tcs" K4's slab route, and
+# its kernels, one each a slab, under "fcma_sample_gram_tcs_tcl" /
+# "_r" (the correlation, by K3's long-subject body in its raw or r
+# mode), "_gram" and "_sum" (the block-voxel sum)
 _launches = {"fcma_gram": 0, "fcma_gram_tc": 0, "fcma_gram_tcm": 0,
              "fcma_gram_tcs": 0, "fcma_gram_tcs_tc": 0,
              "fcma_gram_tcs_tcl": 0, "fcma_gram_tcs_gram": 0,
              "fcma_corr_normalize": 0, "fcma_corr_normalize_tc": 0,
              "fcma_corr_normalize_tcl": 0,
              "fcma_sample_gram": 0, "fcma_sample_gram_tc": 0,
-             "fcma_sample_gram_tcm": 0}
+             "fcma_sample_gram_tcm": 0, "fcma_sample_gram_tcs": 0,
+             "fcma_sample_gram_tcs_tcl": 0, "fcma_sample_gram_tcs_r": 0,
+             "fcma_sample_gram_tcs_gram": 0,
+             "fcma_sample_gram_tcs_sum": 0}
 
 #: threads of a kernel block; a block holds 512 // ept block voxels
 _THREADS = 512
@@ -107,8 +118,9 @@ _TC_MAX_EPS = 4
 TCM_MAX_EPOCHS = 104
 #: block voxels a block of that route
 _TCM_BLOCK = 8
-#: most epochs of K1's slab route "tcs" (csrc/fcma_gram_tcs.cu: two
-#: stages of all E epochs of 32 voxels in shared memory)
+#: most epochs (K1) or samples (K4) of the slab routes "tcs"
+#: (csrc/fcma_gram_tcs.cu: two stages of all E epochs of 32 voxels in
+#: shared memory)
 TCS_MAX_EPOCHS = 800
 #: bytes of that route's slab of normalized correlation [Bc, E, V], as
 #: ``distla.gram``'s default budget
@@ -158,8 +170,14 @@ def _check_norm_unit(n_samples, norm_unit):
 
 def fcma_sample_gram_plain(x1, x2, norm_unit, precision=None):
     """Plain version of K4: the unshrunk ``[N, N]`` sample Gram of the
-    correlation features, built in blocks of 128 voxels of x1."""
+    correlation features, built in blocks of 128 voxels of the wider
+    region (the features of (x1, x2) are those of (x2, x1)), so that
+    each block's product sums 128 x the narrower width of terms in fp32
+    (128 x 65536 of them put the diagonal 1.6e-4 of K[0, 0] off float64
+    at 216 samples of 1024 x 65536 voxels, 128 x 1024 1.8e-6)."""
     _check_norm_unit(x1.shape[0], norm_unit)
+    if x2.shape[2] > x1.shape[2]:
+        x1, x2 = x2, x1
     n = x1.shape[0]
     gram = torch.zeros((n, n), dtype=torch.float32, device=x1.device)
     for s in range(0, x1.shape[2], _PLAIN_BLOCK):
@@ -243,7 +261,8 @@ def gram_route(n_epochs, epochs_per_subj, ept=None, route=None):
 
 
 def tcs_slabs(n_b, n_epochs, n_vox, budget=_TCS_BUDGET):
-    """``(bc, n_slabs)`` of K1's route ``"tcs"``: block voxels a slab
+    """``(bc, n_slabs)`` of the routes ``"tcs"`` of K1 and K4 (samples
+    for epochs): block voxels a slab
     and slabs a call of ``n_b`` block voxels.  A slab of normalized
     correlation, ``[bc, E, V]`` float32, holds at most ``budget`` bytes
     but at least 4 block voxels.  ``bc`` is a multiple of 128 (the block
@@ -278,19 +297,24 @@ def sample_gram_route(n_samples, norm_unit, route=None):
     features, ``norm_unit <= 1``: groups of one); ``"tcm"``
     (``csrc/fcma_sample_gram_tcm.cu``) for more tiles up to
     :data:`TCM_MAX_EPOCHS` samples, whatever the group length (all
-    samples of a block sit in shared memory); ``"ffma"``
-    (``csrc/fcma_sample_gram.cu``), which takes every tiling, beyond.
-    ``route`` forces the kernel, as ``chip_smoke.py`` does to run two
-    on the same inputs; ``"tc"`` and ``"tcm"`` are refused where they
-    do not apply.
+    samples of a block sit in shared memory); ``"tcs"`` (slabs:
+    ``csrc/fcma_corr_tcl.cu``, ``csrc/fcma_gram_tcs.cu``, then
+    ``csrc/fcma_sample_gram_tcs.cu``) beyond, up to
+    :data:`TCS_MAX_EPOCHS`, whatever the group length; ``"ffma"``
+    (``csrc/fcma_sample_gram.cu``), which takes every tiling, beyond
+    that.  ``route`` forces the kernel, as ``chip_smoke.py`` does to
+    run two on the same inputs; ``"tc"``, ``"tcm"`` and ``"tcs"`` are
+    refused where they do not apply.
     """
     ept, tile_len, n_tiles = epoch_tiles(n_samples, max(norm_unit, 1))
     fits = n_samples <= TCM_MAX_EPOCHS
+    slabs = TCM_MAX_EPOCHS < n_samples <= TCS_MAX_EPOCHS
     if route is None:
-        route = "tc" if n_tiles == 1 else "tcm" if fits else "ffma"
-    elif route not in ("tc", "tcm", "ffma"):
+        route = "tc" if n_tiles == 1 else "tcm" if fits else \
+            "tcs" if slabs else "ffma"
+    elif route not in ("tc", "tcm", "tcs", "ffma"):
         raise ValueError(
-            f"route must be 'tc', 'tcm' or 'ffma', got {route!r}")
+            f"route must be 'tc', 'tcm', 'tcs' or 'ffma', got {route!r}")
     elif route == "tc" and n_tiles != 1:
         raise ValueError(
             f"route 'tc' takes one sample tile; {n_samples} samples in "
@@ -300,6 +324,10 @@ def sample_gram_route(n_samples, norm_unit, route=None):
             f"route 'tcm' takes more than one sample tile and at most "
             f"{TCM_MAX_EPOCHS} samples; {n_samples} samples in groups of "
             f"{max(norm_unit, 1)} make {n_tiles} of {ept}")
+    elif route == "tcs" and not slabs:
+        raise ValueError(
+            f"route 'tcs' takes more than {TCM_MAX_EPOCHS} and at most "
+            f"{TCS_MAX_EPOCHS} samples, got {n_samples}")
     return route, ept, tile_len, n_tiles
 
 
@@ -381,12 +409,14 @@ def _stats(blk, data, epochs_per_subj, tile_len):
 _ARGS = {"fcma_gram_f32": (5, 9), "fcma_gram_tc_f32": (4, 11),
          "fcma_gram_tcm_f32": (4, 10), "fcma_gram_tcs_f32": (3, 5),
          "fcma_corr_fisher_tcl_f32": (3, 8),
+         "fcma_corr_r_tcl_f32": (3, 8),
          "fcma_corr_normalize_f32": (4, 9),
          "fcma_corr_normalize_tc_f32": (3, 9),
          "fcma_corr_normalize_tcl_f32": (3, 9),
          "fcma_sample_gram_f32": (5, 9),
          "fcma_sample_gram_tc_f32": (4, 11),
-         "fcma_sample_gram_tcm_f32": (4, 10)}
+         "fcma_sample_gram_tcm_f32": (4, 10),
+         "fcma_sample_gram_tcs_sum_f32": (2, 3)}
 
 
 def _fn(source, name):
@@ -588,10 +618,58 @@ def _kernel_corr_normalize(blk, data, epochs_per_subj, route=None):
     return out
 
 
-def _kernel_sample_gram(x1, x2, norm_unit, route=None):
+def _tcs_sample_gram(blk, data, norm_unit, out, budget):
+    """K4's route "tcs" into out [N, N], slab by slab of
+    :func:`tcs_slabs`: the slab's correlation written once by K3's
+    long-subject body (``csrc/fcma_corr_tcl.cu``: its raw mode, the
+    Fisher-z, for groups of ``norm_unit > 1``; its r mode, r itself, for
+    raw features), each block voxel's Gram (``csrc/fcma_gram_tcs.cu``,
+    which z-scores each group as it loads), then those Grams added into
+    out in block-voxel order, slab after slab
+    (``csrc/fcma_sample_gram_tcs.cu``), so that out does not depend on
+    ``budget``.  blk and data as the TMA reads them
+    (:func:`_tma_operand`)."""
+    n, n_t, n_b = blk.shape
+    n_v = data.shape[2]
+    bc, _ = tcs_slabs(n_b, n, n_v, budget)
+    n_split = _tcs_split(n_v)
+    slab = torch.empty((bc, n, n_v), dtype=torch.float32, device=blk.device)
+    grams = torch.empty((bc, n, n), dtype=torch.float32, device=blk.device)
+    partial = None if n_split == 1 else torch.empty(
+        (n_split, bc, n, n), dtype=torch.float32, device=blk.device)
+    if norm_unit > 1:
+        corr = _fn("fcma_corr_tcl", "fcma_corr_fisher_tcl_f32")
+        body, eps = "tcl", norm_unit
+    else:
+        corr = _fn("fcma_corr_tcl", "fcma_corr_r_tcl_f32")
+        body, eps = "r", 0
+    gram = _fn("fcma_gram_tcs", "fcma_gram_tcs_f32")
+    total = _fn("fcma_sample_gram_tcs", "fcma_sample_gram_tcs_sum_f32")
+    stream = torch.cuda.current_stream(blk.device).cuda_stream
+    with torch.cuda.device(blk.device):
+        for b0 in range(0, n_b, bc):
+            part = blk[:, :, b0:b0 + bc]
+            nb = part.shape[2]
+            err = corr(part.data_ptr(), data.data_ptr(), slab.data_ptr(),
+                       n, n_t, nb, n_v, part.stride(1), part.stride(0),
+                       data.stride(1), data.stride(0), stream)
+            _build.check(err, f"fcma_sample_gram (correlation, {body})")
+            _launches[f"fcma_sample_gram_tcs_{body}"] += 1
+            err = gram(slab.data_ptr(), _ptr(partial), grams.data_ptr(), n,
+                       nb, n_v, eps, n_split, stream)
+            _build.check(err, "fcma_sample_gram (Gram)")
+            _launches["fcma_sample_gram_tcs_gram"] += 1
+            err = total(grams.data_ptr(), out.data_ptr(), n, nb,
+                        int(b0 == 0), stream)
+            _build.check(err, "fcma_sample_gram (block-voxel sum)")
+            _launches["fcma_sample_gram_tcs_sum"] += 1
+
+
+def _kernel_sample_gram(x1, x2, norm_unit, route=None, budget=_TCS_BUDGET):
     """K4 on the card; ``route`` forces the kernel
     (:func:`sample_gram_route`), as ``chip_smoke.py`` does to time two
-    at one shape."""
+    at one shape; ``budget``: the slab bytes of route ``"tcs"``
+    (:func:`tcs_slabs`)."""
     x1, x2 = _check_inputs(x1, x2, ("x1", "x2"), contiguous=False)
     # the features of (x1, x2) are those of (x2, x1): the narrower
     # region is the block operand
@@ -607,6 +685,11 @@ def _kernel_sample_gram(x1, x2, norm_unit, route=None):
     else:
         blk, data = _tma_operand(blk), _tma_operand(data)
     out = torch.empty((n, n), dtype=torch.float32, device=blk.device)
+    if route == "tcs":
+        _tcs_sample_gram(blk, data, norm_unit, out, budget)
+        _launches["fcma_sample_gram"] += 1
+        _launches["fcma_sample_gram_tcs"] += 1
+        return out
     if route == "tcm":
         # one [N, N] partial a (V split, block group of _TCM_BLOCK)
         n_split = _tcm_split(blk.device, n_b, n_v)
@@ -686,8 +769,8 @@ def fcma_sample_gram(x1, x2, norm_unit, precision=None):
     be 0, else ``ValueError``), with ``norm_unit <= 1`` they are the
     raw correlations.  Returns the unshrunk ``[N, N]`` float32 Gram
     features @ features.T (callers apply the digit shrink).  A CUDA
-    tensor goes to the kernel of :func:`sample_gram_route` (3xTF32 on
-    the tensor cores up to :data:`TCM_MAX_EPOCHS` samples, else fp32
+    tensor goes to the kernels of :func:`sample_gram_route` (3xTF32 on
+    the tensor cores up to :data:`TCS_MAX_EPOCHS` samples, else fp32
     FMA; all fp32-accurate, ``precision`` is not used there), read in
     place where it is aligned, a CPU tensor to
     :func:`fcma_sample_gram_plain`.

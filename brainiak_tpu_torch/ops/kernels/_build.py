@@ -38,7 +38,8 @@ SOURCES = ("epoch_norm", "fcma_corr", "fcma_corr_tc", "fcma_corr_tcl",
            "fcma_gram_tc",
            "fcma_gram_tcm", "fcma_gram_tcs", "fcma_sample_gram",
            "fcma_sample_gram_tc",
-           "fcma_sample_gram_tcm", "ring_mma", "ring_mma_tc")
+           "fcma_sample_gram_tcm", "fcma_sample_gram_tcs", "ring_mma",
+           "ring_mma_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

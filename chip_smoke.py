@@ -53,8 +53,17 @@ first one that goes wrong:
         fcma_corr_tcl.cu in its raw mode, z-scored as the Gram loads
         it), and E=128 of 4 a subject, T=150, B=512, V=4096 (K1's E=80
         widths; fcma_corr_tc.cu), each with its two stages' device
-        times from one profiled call and the slab's floor (written
-        once, read once).
+        times from one call (CUDA events) and the slab's floor (written
+        once, read once);
+     K4 beyond 104 samples through its slab route ("tcs": K1's slab
+        route with samples for epochs, fcma_corr_tcl.cu's raw mode, or
+        its r mode on raw features, then fcma_gram_tcs.cu, then
+        fcma_sample_gram_tcs.cu adds the per-block-voxel Grams):
+        N=216 in groups of 12, T=12, 1024 x 65536 (the study's stage
+        2), beside fcma_sample_gram.cu's FMA kernel forced (timed over
+        one run); N=128 in groups of 4, T=150, 512 x 4096, beside the
+        FMA kernel; and N=128 raw there; each with its three stages'
+        device times from one call (CUDA events).
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
    operations over the peak rate of their type: fp32 FMA at 67
@@ -103,7 +112,13 @@ first one that goes wrong:
    ``STUDY_SVM_ITERS``), which must launch K1 through its slab route
    alone; warm seconds, the profiled device time by kernel, peak device
    memory, and kernel-vs-plain accuracies on 256 voxels, beside those
-   of fcma_corr.cu's K1 forced.
+   of fcma_corr.cu's K1 forced.  Then its stage 2: a portioned
+   ``Classifier`` fit on all 216 samples (mask1 x the whole volume, 128
+   voxels a portion, groups of 12), the last subject held out, which
+   must launch K4 through its slab route alone (8 slabs a fit); warm
+   fit seconds, the stacking and upload seconds, peak device memory,
+   its test similarities and predictions held against the plain fit,
+   and a held-out accuracy of at least 0.75.
 8. K5, the SUMMA ring step, against its plain version (``mma_update``)
    on z-scored inputs, through the tensor-core kernel that every call
    takes (ring_mma_tc.cu: a pre-pass splits the operands, then 3xTF32
@@ -265,26 +280,50 @@ def gram_flops(n_e, n_t, n_b, n_v):
 
 
 def stage_ms(torch, fn, names):
-    """Device milliseconds of one fn() under ``torch.profiler``, summed
-    by the first of ``names`` (each a tuple of kernel-name substrings)
-    that a kernel's name holds: ``{names[i][0]: ms}``, None where the
-    profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device milliseconds and launches of one warm fn(), summed by
+    stage: ``names`` holds tuples (stage, C entry point names...), and
+    each call of such an entry point (``fcma_kernels._fn``) is timed
+    by CUDA events recorded just before and after it on the stream it
+    launches on, the kernels it launches itself included.  Returns
+    ``{stage: ms}`` and ``{stage: calls}``, (None, None) where none was
+    called.  Events, not ``torch.profiler``: the profiler left out
+    kernels of the slab routes here (one of 8 correlation launches, at
+    times a whole stage), warm-up step or not."""
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    spans = []  # (stage, start event, stop event)
+    entry = fk._fn
+
+    def timed(source, name):
+        launch = entry(source, name)
+        stage = next((g[0] for g in names if name in g[1:]), None)
+        if stage is None:
+            return launch
+
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = launch(*args)
+            stop.record()
+            spans.append((stage, start, stop))
+            return err
+        return call
+
+    fk._fn = timed
+    try:
         fn()
-        torch.cuda.synchronize()
+    finally:
+        fk._fn = entry
+    torch.cuda.synchronize()
     out = {group[0]: 0.0 for group in names}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for group in names:
-            if any(n in ev.key for n in group):
-                out[group[0]] += ev.self_device_time_total / 1e3
-                break
-    return out if any(out.values()) else None
+    seen = {group[0]: 0 for group in names}
+    for stage, start, stop in spans:
+        out[stage] += start.elapsed_time(stop)
+        seen[stage] += 1
+    return (out, seen) if spans else (None, None)
 
 
 def check_k1(torch, blk, data, eps, reps, alt_ept=None, ffma_reps=None):
@@ -384,16 +423,18 @@ def check_k1(torch, blk, data, eps, reps, alt_ept=None, ffma_reps=None):
         row.update(common, bound_ms=b_ms, bound_by=b_by)
     if route == "tcs":
         tc = rows[route]
-        parts = stage_ms(torch, runs[0][2], (
-            ("corr", "fcma_corr_tc_kernel", "fcma_corr_tcl_kernel"),
-            ("gram", "fcma_gram_tcs_kernel", "gram_sum_kernel")))
+        parts, seen = stage_ms(torch, runs[0][2], (
+            ("corr", "fcma_corr_normalize_tc_f32",
+             "fcma_corr_fisher_tcl_f32"),
+            ("gram", "fcma_gram_tcs_f32")))
         tc["corr_ms"], tc["gram_ms"] = (parts["corr"], parts["gram"]) \
             if parts else (None, None)
         slab_ms = 1e3 * 2 * 4 * n_b * n_e * n_v / PEAK_BYTES
         log(f"  K1 at E={n_e} eps={eps} T={n_t} B={n_b} V={n_v}: slabs "
             f"[tcs] {tc['ms']:.3f} ms (" + (
                 f"correlation {parts['corr']:.3f} ms, Gram "
-                f"{parts['gram']:.3f} ms in one profiled call"
+                f"{parts['gram']:.3f} ms in one call, CUDA events "
+                f"around each launch: {seen}"
                 if parts else "stages not measured") +
             f"; bound {tc['bound_ms']:.3f} ms, {tc['bound_by']}, all "
             f"3xTF32; slab written and read once {slab_ms:.3f} ms), FMA "
@@ -505,12 +546,40 @@ def check_k4_errors(what, errors):
         fail(f"{what} disagrees with the plain version")
 
 
-def check_k4(torch, x1, x2, norm_unit, reps):
+def k4_float64(torch, x1, x2, norm_unit, chunk=16):
+    """K4's Gram in float64 from the inputs up: r, and for norm_unit > 1
+    its Fisher-z and the z-score over each group (its variance in two
+    passes), in chunks of ``chunk`` voxels of the narrower region."""
+    blk, data = (x2, x1) if x2.shape[2] < x1.shape[2] else (x1, x2)
+    n = blk.shape[0]
+    exact = torch.zeros((n, n), dtype=torch.float64, device=blk.device)
+    for s in range(0, blk.shape[2], chunk):
+        f = torch.einsum('ntb,ntv->bnv', blk[:, :, s:s + chunk].double(),
+                         data.double())
+        if norm_unit > 1:
+            z = (0.5 * torch.log((1 + f) / (1 - f))).reshape(
+                f.shape[0], n // norm_unit, norm_unit, -1)
+            f = ((z - z.mean(dim=2, keepdim=True)) / z.std(
+                dim=2, keepdim=True, correction=0)).reshape(f.shape)
+            del z
+        exact += torch.einsum('bnv,bmv->nm', f, f)
+        del f
+    return exact.cpu().numpy()
+
+
+def check_k4(torch, x1, x2, norm_unit, reps, ffma_reps=None):
     """K4 against its plain version (blocks of 128 voxels of x1) on
     x1 [N, T, V1] and x2 [N, T, V2]: the path's route and, where that
-    is a tensor-core kernel (fcma_sample_gram_tc.cu on one sample tile,
-    fcma_sample_gram_tcm.cu on more), fcma_sample_gram.cu's FMA kernel
-    forced on the same inputs.  ``{route: row of its figures}``.  The
+    is a tensor-core route (fcma_sample_gram_tc.cu on one sample tile,
+    fcma_sample_gram_tcm.cu on more up to 104 samples, beyond that the
+    slabs of route "tcs": fcma_corr_tcl.cu's raw or r mode, then
+    fcma_gram_tcs.cu, then fcma_sample_gram_tcs.cu's block-voxel sum)
+    and fcma_sample_gram.cu's FMA kernel forced on the same inputs (timed
+    over ``ffma_reps`` runs after the check's, by default ``reps``
+    after a warm-up; 0: not run).
+    ``{route: row of its figures}``; a "tcs" row gives its three
+    stages' device times too, and the route, the FMA kernel and the
+    plain version are each held to the float64 Gram (logged).  The
     cross-group entries are those of samples in different groups of
     ``norm_unit`` (of different samples for raw features)."""
     from brainiak_tpu_torch.ops import fcma_kernels as fk
@@ -535,31 +604,76 @@ def check_k4(torch, x1, x2, norm_unit, reps):
     want = plain().cpu().double().numpy()
     route = fk.sample_gram_route(n, norm_unit)[0]
     runs = [(route, lambda: fk.fcma_sample_gram(x1, x2, norm_unit))]
-    if route != "ffma":
+    ffma = ffma_reps != 0
+    if route != "ffma" and ffma:
         runs.append(("ffma", lambda: fk._kernel_sample_gram(
             x1, x2, norm_unit, route="ffma")))
     rows = {}
+    witness = {"plain": want}  # the slab route's: every Gram vs float64
     for name, fn in runs:
         got = fn().cpu().double().numpy()
+        if route == "tcs":
+            witness[name] = got
         err = float(np.abs(got - want).max())
         log(f"K4 fcma_sample_gram[{name}] N={n} T={n_t} V1={v1} V2={v2} "
             f"norm_unit={norm_unit} max_abs_err {err:.3e}")
         check_k4_errors(f"K4 [{name}] (N={n}, norm_unit={norm_unit})",
                         k4_errors(got, want, want[0, 0], cross))
-        rows[name] = {"max_abs_err": err, "ms": cuda_ms(torch, fn, reps)}
+        # a forced FMA run timed over ffma_reps: the check's run warmed
+        # it up
+        slow = name == "ffma" and ffma_reps is not None
+        rows[name] = {"max_abs_err": err, "ms": cuda_ms(
+            torch, fn, ffma_reps if slow else reps, warmup=int(not slow))}
     corr = 2 * n * n_t * v1 * v2
     gram = gram_flops(n, n_t, v1, v2) - corr
     n_bytes = 4 * (n * n_t * (v1 + v2) + n * n)
+    torch.cuda.empty_cache()
+    if route == "tcs":
+        exact = k4_float64(torch, x1, x2, norm_unit)
+        torch.cuda.empty_cache()
+        log(f"  K4 at N={n} norm_unit={norm_unit} against float64, "
+            "err/K[0,0]: " + ", ".join(
+                f"{k} {np.abs(g - exact).max() / abs(exact[0, 0]):.3e}"
+                for k, g in witness.items()))
     common = dict(plain_ms=cuda_ms(torch, plain, 1),
                   library_ms=cuda_ms(torch, library, 1))
     for name, row in rows.items():
         b_ms, b_by = (bound_ms(n_bytes, corr + gram) if name == "ffma"
+                      else bound_ms(n_bytes, 0, 3 * (corr + gram))
+                      if name == "tcs"
                       else bound_ms(n_bytes, gram, 3 * corr))
         row.update(common, bound_ms=b_ms, bound_by=b_by)
         log(f"  fcma_sample_gram[{name}] N={n} norm_unit={norm_unit}: ms "
             f"{row['ms']:.3f} plain_ms {row['plain_ms']:.3f} bound_ms "
             f"{b_ms:.3f} ({b_by}) library_ms {row['library_ms']:.3f}")
-    if route != "ffma":
+    if route == "tcs":
+        tc = rows[route]
+        parts, seen = stage_ms(torch, runs[0][1], (
+            ("corr", "fcma_corr_fisher_tcl_f32", "fcma_corr_r_tcl_f32"),
+            ("gram", "fcma_gram_tcs_f32"),
+            ("sum", "fcma_sample_gram_tcs_sum_f32")))
+        for key in ("corr", "gram", "sum"):
+            tc[f"{key}_ms"] = parts[key] if parts else None
+        b_n = min(v1, v2)
+        slab_ms = 1e3 * 2 * 4 * b_n * n * max(v1, v2) / PEAK_BYTES
+        beside = (f"FMA {rows['ffma']['ms']:.3f} ms (fp32 bound "
+                  f"{rows['ffma']['bound_ms']:.3f} ms), " if ffma else "")
+        log(f"  K4 at N={n} norm_unit={norm_unit} T={n_t} {v1} x {v2}: "
+            f"slabs [tcs] {tc['ms']:.3f} ms (" + (
+                f"correlation {parts['corr']:.3f} ms, Gram "
+                f"{parts['gram']:.3f} ms, block-voxel sum "
+                f"{parts['sum']:.3f} ms in one call, CUDA events around "
+                f"each launch: {seen}"
+                if parts else "stages not measured") +
+            f"; bound {tc['bound_ms']:.3f} ms, {tc['bound_by']}, all "
+            f"3xTF32; slab written and read once {slab_ms:.3f} ms), "
+            f"{beside}cuBLAS fp32 {common['library_ms']:.3f} ms, plain "
+            f"{common['plain_ms']:.3f} ms; slabs / cuBLAS "
+            f"{tc['ms'] / common['library_ms']:.3f}, bound / slabs "
+            f"{tc['bound_ms'] / tc['ms']:.3f}" + (
+                f", slabs / FMA {tc['ms'] / rows['ffma']['ms']:.3f}"
+                if ffma else ""))
+    elif route != "ffma":
         tc = rows[route]
         log(f"  K4 at N={n} norm_unit={norm_unit} {v1} x {v2}: tensor-core "
             f"[{route}] {tc['ms']:.3f} ms (bound {tc['bound_ms']:.3f} ms, "
@@ -683,6 +797,25 @@ def phase_kernels(torch, dev):
         k1 = check_k1(torch, blk, data, eps, 3, ffma_reps=1)
         rows[name], rows[name + "_ffma"] = k1["tcs"], k1["ffma"]
         del blk, data
+        torch.cuda.empty_cache()
+
+    # K4 beyond 104 samples, the slab route "tcs": N=216 in groups of 12
+    # at T=12, 1024 x 65536 (the study's stage 2: fcma_corr_tcl.cu's raw
+    # mode), beside the FMA kernel forced (timed over one run); N=128 in
+    # groups of 4 at K1's E=80 widths (the group length that would take
+    # K3's "tc" body), beside the FMA kernel; raw features there (the r
+    # mode)
+    for n, unit, n_t, v1, v2, name, ffma_reps in (
+            (216, 12, 12, 1024, 65536, "fcma_sample_gram_n216", 1),
+            (128, 4, 150, 512, 4096, "fcma_sample_gram_n128", None),
+            (128, 0, 150, 512, 4096, "fcma_sample_gram_n128_raw", 0)):
+        x1 = normalized_epochs(torch, rng, n, n_t, v1, dev)
+        x2 = normalized_epochs(torch, rng, n, n_t, v2, dev)
+        k4 = check_k4(torch, x1, x2, unit, 3, ffma_reps=ffma_reps)
+        rows[name] = k4["tcs"]
+        if ffma_reps != 0:
+            rows[name + "_ffma"] = k4["ffma"]
+        del x1, x2
         torch.cuda.empty_cache()
     for name, row in rows.items():
         log(f"  {name}: ms {row['ms']:.3f} plain_ms {row['plain_ms']:.3f} "
@@ -1135,7 +1268,49 @@ def run_study(torch, rows):
     compare_with_plain(torch, vs,
                        forced_route_accuracies(torch, vs, 256, "ffma"),
                        256, label="K1 [ffma] (forced)", gate=False)
-    return launches
+    del vs
+    torch.cuda.empty_cache()
+    run_study_stage2(torch, rows, raw1, raw2, np.asarray(labels))
+
+
+def run_study_stage2(torch, rows, raw1, raw2, labels):
+    """Stage 2 of the study: a portioned Classifier fit on all 216
+    samples (mask1 x the whole volume, 128 voxels a portion, groups of
+    12), the last subject held out as leave-one-subject-out FCMA does.
+    Every K4 launch must take the slab route "tcs" (a slab at a time,
+    fcma_corr_tcl.cu's raw mode, fcma_gram_tcs.cu, then
+    fcma_sample_gram_tcs.cu's block-voxel sum); the fit is held against
+    the plain fit and its held-out accuracy gated at STAGE2_ACC."""
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
+
+    pairs = list(zip(raw1, raw2))
+    n_train = len(labels) - 12
+    fk.reset_launches()
+    clf = run_stage2(torch, "study of 216 epochs, portioned (K4)",
+                     dict(num_processed_voxels=128, epochs_per_subj=12),
+                     pairs, labels, None, labels[n_train:],
+                     dict(num_training_samples=n_train))
+    k4 = fk.launches()
+    calls = k4["fcma_sample_gram_tcs"]
+    n_slabs = fk.tcs_slabs(raw1[0].shape[1], len(labels),
+                           raw2[0].shape[1])[1]
+    log(f"  K4 launches {k4['fcma_sample_gram']}, {calls} of them the slab "
+        f"route ({n_slabs} slabs a call): correlation "
+        f"{k4['fcma_sample_gram_tcs_tcl']} (raw mode) + "
+        f"{k4['fcma_sample_gram_tcs_r']} (r mode), Gram "
+        f"{k4['fcma_sample_gram_tcs_gram']}, block-voxel sum "
+        f"{k4['fcma_sample_gram_tcs_sum']}")
+    per_call = calls * n_slabs
+    if calls < 1 or k4["fcma_sample_gram"] != calls or n_slabs != 8 or \
+            k4["fcma_sample_gram_tcs_r"] != 0 or \
+            any(k4[f"fcma_sample_gram_tcs_{key}"] != per_call
+                for key in ("tcl", "gram", "sum")):
+        fail("study stage 2: K4 did not run through the slab route alone, "
+             f"8 slabs a call: {k4}")
+    rows["fcma_sample_gram_n216"]["launches"] = calls
+    compare_classifier_with_plain(torch, clf, pairs, labels, n_train)
+    del clf, pairs
+    torch.cuda.empty_cache()
 
 
 def zscored_cols(torch, rng, n_t, n_v, dev):
@@ -1711,13 +1886,16 @@ def main():
         rows[name]["launches"] = ffma_launches
     # no path takes fcma_sample_gram.cu's K4 (the stage-2 fits fail if
     # one does) or fcma_corr.cu's K3 (the host-CV checks fail if one
-    # does), runs raw features, four sample tiles or K3 at E=96
+    # does), runs raw features, four sample tiles, K4's slab route at
+    # N=128 or K3 at E=96
     for name in ("fcma_corr_normalize_ffma", "fcma_corr_normalize_e80_ffma",
                  "fcma_corr_normalize_e96", "fcma_gram_e128",
                  "fcma_sample_gram_ffma",
                  "fcma_sample_gram_raw", "fcma_sample_gram_raw_ffma",
                  "fcma_sample_gram_n96", "fcma_sample_gram_n96_ffma",
-                 "fcma_sample_gram_n80_ffma"):
+                 "fcma_sample_gram_n80_ffma", "fcma_sample_gram_n216_ffma",
+                 "fcma_sample_gram_n128", "fcma_sample_gram_n128_ffma",
+                 "fcma_sample_gram_n128_raw"):
         rows[name]["launches"] = 0
     torch.cuda.empty_cache()
 
@@ -1745,6 +1923,8 @@ def main():
              csrc + "fcma_sample_gram_tc.cu")
     k4_tcm = ("brainiak_tpu/ops/pallas_kernels.py:311",
               csrc + "fcma_sample_gram_tcm.cu")
+    k4_tcs = ("brainiak_tpu/ops/pallas_kernels.py:311",
+              csrc + "fcma_sample_gram_tcs.cu")
     origin = {
         "epoch_zscore": ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
                          csrc + "epoch_norm.cu"),
@@ -1761,6 +1941,9 @@ def main():
         "fcma_sample_gram_ffma": k4, "fcma_sample_gram_raw_ffma": k4,
         "fcma_sample_gram_n96": k4_tcm, "fcma_sample_gram_n80": k4_tcm,
         "fcma_sample_gram_n96_ffma": k4, "fcma_sample_gram_n80_ffma": k4,
+        "fcma_sample_gram_n216": k4_tcs, "fcma_sample_gram_n128": k4_tcs,
+        "fcma_sample_gram_n128_raw": k4_tcs,
+        "fcma_sample_gram_n216_ffma": k4, "fcma_sample_gram_n128_ffma": k4,
     }
     k5 = ("brainiak_tpu/ops/kernels/ring.py:116", csrc + "ring_mma.cu")
     k5_tc = ("brainiak_tpu/ops/kernels/ring.py:116",
@@ -1775,7 +1958,7 @@ def main():
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],
                     library_ms=row["library_ms"],
-                    **{k: row[k] for k in ("corr_ms", "gram_ms")
+                    **{k: row[k] for k in ("corr_ms", "gram_ms", "sum_ms")
                        if k in row})
                for name, row in rows.items()]
     print(json.dumps({"kernels": kernels}))

@@ -795,13 +795,26 @@ def test_corr_route_forced():
     (40, 40, ("tcm", 32, 32, 2)),
     (80, 40, ("tcm", 32, 32, 3)),
     (104, 52, ("tcm", 32, 32, 4)),
-    (108, 4, ("ffma", 32, 32, 4)),
+    (108, 4, ("tcs", 32, 32, 4)),
+    (105, 0, ("tcs", 32, 32, 4)),
+    (112, 0, ("tcs", 32, 32, 4)),
+    (120, 12, ("tcs", 32, 24, 5)),
+    (216, 12, ("tcs", 32, 24, 9)),
+    (216, 0, ("tcs", 32, 32, 7)),
+    (216, 108, ("tcs", 32, 32, 7)),
+    (800, 4, ("tcs", 32, 32, 25)),
+    (800, 0, ("tcs", 32, 32, 25)),
+    (792, 12, ("tcs", 32, 24, 33)),
+    (801, 0, ("ffma", 32, 32, 26)),
+    (804, 4, ("ffma", 32, 32, 26)),
+    (804, 12, ("ffma", 32, 24, 34)),
 ])
 def test_sample_gram_route(n, norm_unit, expect):
     """One sample tile of whole groups (raw features: groups of one)
     takes K4's one-tile tensor-core kernel; more tiles, or groups longer
-    than a tile, the multi-tile one up to 104 samples, and the FMA one
-    beyond."""
+    than a tile, the multi-tile one up to 104 samples, the slab route
+    beyond up to 800 samples, whatever the group length, and the FMA
+    one beyond that."""
     assert tk.sample_gram_route(n, norm_unit) == expect
     assert tk.sample_gram_route(n, norm_unit)[1:] == tk.epoch_tiles(
         n, max(norm_unit, 1))
@@ -822,7 +835,15 @@ def test_sample_gram_route_forced():
     for n, norm_unit in ((32, 4), (12, 0), (108, 4), (112, 56)):
         with pytest.raises(ValueError, match="route 'tcm'"):
             tk.sample_gram_route(n, norm_unit, route="tcm")
-    with pytest.raises(ValueError, match="'tc', 'tcm' or 'ffma'"):
+    assert tk.sample_gram_route(216, 12, route="tcs") == \
+        ("tcs", 32, 24, 9)
+    assert tk.sample_gram_route(105, 0, route="tcs")[0] == "tcs"
+    assert tk.sample_gram_route(800, 4, route="tcs")[0] == "tcs"
+    for n, norm_unit in ((32, 4), (12, 0), (104, 52), (104, 0), (801, 0),
+                         (804, 4)):
+        with pytest.raises(ValueError, match="route 'tcs'"):
+            tk.sample_gram_route(n, norm_unit, route="tcs")
+    with pytest.raises(ValueError, match="'tc', 'tcm', 'tcs' or 'ffma'"):
         tk.sample_gram_route(32, 4, route="wgmma")
     with pytest.raises(ValueError, match="multiple"):
         tk.sample_gram_route(30, 4)
@@ -927,7 +948,12 @@ def test_kernel_entry_checks_refuse_cpu_tensors():
                              "fcma_corr_normalize_tcl": 0,
                              "fcma_sample_gram": 0,
                              "fcma_sample_gram_tc": 0,
-                             "fcma_sample_gram_tcm": 0}
+                             "fcma_sample_gram_tcm": 0,
+                             "fcma_sample_gram_tcs": 0,
+                             "fcma_sample_gram_tcs_tcl": 0,
+                             "fcma_sample_gram_tcs_r": 0,
+                             "fcma_sample_gram_tcs_gram": 0,
+                             "fcma_sample_gram_tcs_sum": 0}
 
 
 def _jax_feature_gram(x1, x2, norm_unit):
@@ -1026,6 +1052,87 @@ def test_k4_tcm_3xtf32_matches_pallas_interpret_ragged(n, norm_unit):
         assert np.all(np.abs(got - ref) <= 1e-4 * abs(ref[0, 0]))
 
 
+def _sample_gram_tcs(x1, x2, norm_unit):
+    """K4's slab route beyond 104 samples (route "tcs"), its arithmetic
+    emulated: the narrower region as the block operand; the slab as
+    csrc/fcma_corr_tcl.cu writes it (r as _corr_tcm forms it, the
+    near-one r formed again in fp32; its raw mode stores the clamped
+    Fisher-z for groups of norm_unit > 1, its r mode r itself), z-scored
+    over each group as csrc/fcma_gram_tcs.cu loads it, each block
+    voxel's Gram in 3xTF32 (_gram_tcs), and those Grams added in fp32,
+    block voxels ascending, from 0, as csrc/fcma_sample_gram_tcs.cu adds
+    them."""
+    blk, data = (x2, x1) if x2.shape[2] < x1.shape[2] else (x1, x2)
+    r = _corr_tcm(blk, data)
+    z = _zscore_as_loaded(fisher_z(r), norm_unit) if norm_unit > 1 else r
+    out = torch.zeros(r.shape[1], r.shape[1])
+    for gram in _gram_tcs(z):
+        out = out + gram
+    return out
+
+
+@pytest.mark.parametrize("n,norm_unit", [(108, 4), (120, 12), (112, 0)])
+def test_k4_tcs_3xtf32_matches_pallas_interpret_ragged(n, norm_unit):
+    """The slab route's arithmetic at a ragged shape (13 block voxels,
+    37 voxels, T=9 below the 16-row stage): 108 samples in groups of 4
+    (the group length that K3's short-subject body would take, here the
+    raw mode all the same), 120 in groups of 12, and 112 raw (the r
+    mode).  Two-region inputs (no |r| near 1): within 1e-4 of K[0, 0]
+    of the Pallas kernel's Gram in interpret mode and of the plain
+    version's; symmetric bit for bit."""
+    assert tk.sample_gram_route(n, norm_unit)[0] == "tcs"
+    x1, x2 = _two_mask(n * 3 + norm_unit, n, 9, 37, 13)
+    want = np.asarray(jk4(jnp.asarray(_pad(x1, 48)),
+                          jnp.asarray(_pad(x2, 16)), norm_unit, tile_1=16,
+                          tile_2=16, interpret=True))
+    got = _sample_gram_tcs(_t(x1), _t(x2), norm_unit).numpy()
+    plain = tk.fcma_sample_gram_plain(_t(x1), _t(x2), norm_unit).numpy()
+    assert got.shape == (n, n) and np.array_equal(got, got.T)
+    for ref in (want, plain):
+        assert np.all(np.abs(got - ref) <= 1e-4 * abs(ref[0, 0]))
+
+
+@pytest.mark.parametrize("n,norm_unit", [(108, 4), (120, 12), (112, 0)])
+def test_k4_tcs_3xtf32_clamp_confinement(n, norm_unit):
+    """Self pairs (region 2 holds region 1, as the study's stage 2 fit
+    of mask1 x the whole volume) and planted r = +-1 pairs beyond 104
+    samples, through the emulated slab route.  Groups of norm_unit: its
+    features (the raw mode's near-one r formed again in fp32, Fisher-z'd
+    and z-scored as the Gram loads them) agree with the Pallas K3's
+    outside the poisoned groups and are finite everywhere, and so is
+    the Gram.  Raw features (the r mode): no clamp, so the Gram is the
+    Pallas kernel's within 1e-4 of K[0, 0], and each self-pair r is
+    within 1e-6 of 1."""
+    t, b, v = 20, 16, 32
+    rng = np.random.RandomState(43 + norm_unit)
+    data = rng.randn(n, t, v).astype(np.float32)
+    data[:, :, 21] = data[:, :, 5]
+    data[:, :, 27] = -data[:, :, 11]
+    norm = np.asarray(normalize_for_correlation(
+        jnp.asarray(data).transpose(0, 2, 1), 2)).transpose(0, 2, 1)
+    blk = np.ascontiguousarray(norm[:, :, :b])
+    r = _corr_tcm(_t(blk), _t(norm))
+    if norm_unit <= 1:
+        self_r = r[np.arange(b), :, np.arange(b)]
+        assert torch.all((self_r - 1).abs() <= 1e-6)
+        want = np.asarray(jk4(jnp.asarray(blk), jnp.asarray(norm), 0,
+                              tile_1=16, tile_2=16, interpret=True))
+        got = _sample_gram_tcs(_t(blk), _t(norm), 0).numpy()
+        assert np.all(np.abs(got - want) <= 1e-4 * abs(want[0, 0]))
+        return
+    want = np.asarray(jk3(jnp.asarray(blk), jnp.asarray(norm), norm_unit,
+                          tile_b=8, tile_v=16, interpret=True))
+    z = _zscore_as_loaded(fisher_z(r), norm_unit)
+    poisoned = _poisoned_groups(blk, norm, norm_unit)
+    assert poisoned[5, :, 21].all() and poisoned[11, :, 27].all()
+    assert poisoned[np.arange(b), :, np.arange(b)].all()
+    assert (~poisoned).mean() > 0.9
+    np.testing.assert_allclose(z.numpy()[~poisoned], want[~poisoned],
+                               atol=1e-4)
+    gram = _sample_gram_tcs(_t(blk), _t(norm), norm_unit)
+    assert torch.isfinite(z).all() and torch.isfinite(gram).all()
+
+
 @pytest.mark.parametrize("norm_unit", [0, 4])
 @pytest.mark.parametrize("widths", [(9, 4), (3, 7)])
 def test_classifier_cpu_matches_pallas_sample_gram(norm_unit, widths):
@@ -1053,6 +1160,47 @@ def test_classifier_cpu_matches_pallas_sample_gram(norm_unit, widths):
     assert clf.test_data_.shape == (8, 12)
     assert np.all(np.abs(clf.test_data_ - gram[12:, :12] * scale)
                   <= 1e-4 * abs(gram[0, 0]) * scale)
+
+
+@pytest.mark.parametrize("norm_unit", [0, 4])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_classifier_cpu_matches_jax_beyond_104_samples(norm_unit,
+                                                       use_pallas):
+    """The slice beyond 104 samples (K4's route "tcs" on the card): 27
+    subjects x 4 samples of 12 TRs, regions of 9 and 4 voxels, the last
+    subject held out.  The port's portioned Classifier on the CPU (K4's
+    plain version) against the JAX package's on the same inputs, its
+    portioned XLA Gram or its Pallas kernel in interpret mode: the same
+    digit shrink, test similarities within 1e-4 of the shrunk K[0, 0],
+    the same predictions and decision values within 5e-3."""
+    from sklearn import svm
+
+    from brainiak_tpu.fcma.classifier import Classifier as JaxClassifier
+    from brainiak_tpu_torch.fcma import Classifier
+
+    n, n_train = 108, 104
+    assert tk.sample_gram_route(n, norm_unit)[0] == "tcs"
+    r1, r2 = _two_mask(61 + norm_unit, n, 12, 9, 4)
+    pairs = list(zip(r1, r2))
+    labels = [0, 1] * (n // 2)
+
+    def make():
+        return svm.SVC(kernel="precomputed", shrinking=False, C=1)
+
+    port = Classifier(make(), num_processed_voxels=2,
+                      epochs_per_subj=norm_unit, device="cpu")
+    ref = JaxClassifier(make(), num_processed_voxels=2,
+                        epochs_per_subj=norm_unit, use_pallas=use_pallas)
+    for clf in (port, ref):
+        clf.fit(pairs, labels, num_training_samples=n_train)
+    gram = tk.fcma_sample_gram(_t(r1), _t(r2), norm_unit)
+    k00 = abs(float(gram[0, 0])) * 10.0 ** min(0, 2 - port.num_digits_)
+    assert port.num_digits_ == ref.num_digits_
+    assert port.test_data_.shape == (n - n_train, n_train)
+    assert np.all(np.abs(port.test_data_ - ref.test_data_) <= 1e-4 * k00)
+    np.testing.assert_array_equal(port.predict(), ref.predict())
+    np.testing.assert_allclose(port.decision_function(),
+                               ref.decision_function(), atol=5e-3, rtol=0)
 
 
 def test_k4_plain_groups_of_two_miss_float64():
@@ -1083,6 +1231,26 @@ def test_k4_plain_is_k1_summed_over_block_voxels():
     for a, b in ((x1, x2), (x2, x1)):
         got = tk.fcma_sample_gram(_t(a), _t(b), 4)
         assert torch.all((got - g1).abs() <= 1e-4 * g1[0, 0].abs())
+
+
+@pytest.mark.parametrize("norm_unit", [0, 4])
+def test_k4_plain_blocks_the_wider_region(norm_unit):
+    """The plain K4 blocks the wider region, whichever argument it is,
+    so both orders give the same Gram bit for bit, and that Gram is
+    the one blocked over the wider region by hand."""
+    x1, x2 = _two_mask(9 + norm_unit, 12, 20, 5, 300)
+    a = tk.fcma_sample_gram_plain(_t(x1), _t(x2), norm_unit)
+    b = tk.fcma_sample_gram_plain(_t(x2), _t(x1), norm_unit)
+    assert torch.equal(a, b)
+    want = torch.zeros(12, 12)
+    for s in range(0, 300, 128):
+        blk = _t(x2)[:, :, s:s + 128]
+        feats = (tk.fcma_corr_normalize_plain(blk, _t(x1), norm_unit)
+                 if norm_unit > 1 else
+                 torch.einsum('ntb,ntv->bnv', blk, _t(x1)))
+        feats = feats.transpose(0, 1).reshape(12, -1)
+        want += feats @ feats.T
+    assert torch.allclose(a, want, rtol=1e-6, atol=0)
 
 
 def test_k4_refuses_samples_that_cut_a_group():

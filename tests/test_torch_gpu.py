@@ -94,7 +94,12 @@ def test_fcma_kernels(cuda, e, t, b, v, eps):
                              "fcma_corr_normalize_tcl": int(eps > 4),
                              "fcma_sample_gram": 0,
                              "fcma_sample_gram_tc": 0,
-                             "fcma_sample_gram_tcm": 0}
+                             "fcma_sample_gram_tcm": 0,
+                             "fcma_sample_gram_tcs": 0,
+                             "fcma_sample_gram_tcs_tcl": 0,
+                             "fcma_sample_gram_tcs_r": 0,
+                             "fcma_sample_gram_tcs_gram": 0,
+                             "fcma_sample_gram_tcs_sum": 0}
     want = fk.fcma_gram_plain(blk, data, eps)
     scale = want[:, :1, :1].abs()
     assert torch.all((gram - want).abs() <= 1e-4 * scale)
@@ -379,29 +384,43 @@ def test_fcma_gram_tcs_slabs_are_bit_for_bit(cuda, e, t, b, v, eps):
         assert torch.equal(got, whole), per
 
 
+def _tcl_mode(name, blk, data):
+    """[B, E, V] of fcma_corr_tcl.cu's raw mode (``"fisher"``) or r mode
+    (``"r"``) on blk [E, T, B] and data [E, T, V]."""
+    e, t, b = blk.shape
+    v = data.shape[2]
+    out = torch.empty(b, e, v, device=blk.device)
+    x, y = fk._tma_operand(blk), fk._tma_operand(data)
+    err = fk._fn("fcma_corr_tcl", f"fcma_corr_{name}_tcl_f32")(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), e, t, b, v,
+        x.stride(1), x.stride(0), y.stride(1), y.stride(0),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
 @pytest.mark.parametrize("e,eps", [(15, 5), (36, 12), (80, 40)])
 def test_fcma_corr_normalize_tcl_is_unchanged_by_its_raw_mode(cuda, e,
                                                                eps):
-    """K3's long-subject kernel gained a raw mode (K1's slab route): its
-    own output, run before and after the raw mode on the same inputs,
-    is the same bit for bit, and on inputs whose correlations are exact
-    it is still the FMA kernel's z-score bit for bit; the raw mode
-    stores the clamped Fisher-z of those r (near torch's, whose log may
-    round otherwise) and leaves it not z-scored."""
+    """K3's long-subject kernel gained a raw mode (the slab routes of K1
+    and K4) and an r mode (K4's slab route on raw features): its own
+    output and the raw mode's, run before and after the other modes on
+    the same inputs, are the same bit for bit, and on inputs whose
+    correlations are exact its output is still the FMA kernel's z-score
+    bit for bit; the raw mode stores the clamped Fisher-z of those r
+    (near torch's, whose log may round otherwise) and leaves it not
+    z-scored; the r mode stores those exact r themselves."""
     t, b, v = 16, 45, 203
     blk, data = _dyadic(e, e, t, b, cuda), _dyadic(e + 1, e, t, v, cuda)
     before = fk._kernel_corr_normalize(blk, data, eps, route="tcl")
-    raw = torch.empty(b, e, v, device=cuda)
-    stream = torch.cuda.current_stream().cuda_stream
-    x, y = fk._tma_operand(blk), fk._tma_operand(data)
-    err = fk._fn("fcma_corr_tcl", "fcma_corr_fisher_tcl_f32")(
-        x.data_ptr(), y.data_ptr(), raw.data_ptr(), e, t, b, v,
-        x.stride(1), x.stride(0), y.stride(1), y.stride(0), stream)
-    assert err == 0
+    raw = _tcl_mode("fisher", blk, data)
+    r_mode = _tcl_mode("r", blk, data)
     after = fk._kernel_corr_normalize(blk, data, eps, route="tcl")
     want = fk._kernel_corr_normalize(blk, data, eps, route="ffma")
     assert torch.equal(before, after) and torch.equal(after, want)
+    assert torch.equal(_tcl_mode("fisher", blk, data), raw)
     r = torch.einsum('etb,etv->bev', blk.double(), data.double())
+    assert torch.equal(r_mode.double(), r)
     assert torch.allclose(raw.double(), fisher_z(r.float()).double(),
                           rtol=0, atol=1e-6)
     assert not torch.allclose(raw, after, atol=1e-2)
@@ -704,6 +723,7 @@ def test_fcma_sample_gram_kernel(cuda, n, norm_unit):
     route = fk.sample_gram_route(n, norm_unit)[0]
     assert fk.launches()["fcma_sample_gram_tc"] == 2 * (route == "tc")
     assert fk.launches()["fcma_sample_gram_tcm"] == 2 * (route == "tcm")
+    assert fk.launches()["fcma_sample_gram_tcs"] == 0
 
 
 def _cross(n, norm_unit, device):
@@ -849,16 +869,35 @@ def test_fcma_sample_gram_tc_refuses_several_tiles(cuda):
         assert err == 1  # cudaErrorInvalidValue
 
 
+def _k4_route_launches(route, norm_unit, n_slabs=1):
+    """K4's launch counts of one call forced onto ``route``: for the
+    slab route, one correlation launch (fcma_corr_tcl.cu's raw mode for
+    groups of more than one sample, its r mode for raw features), one
+    Gram launch and one block-voxel sum a slab."""
+    slab = n_slabs * int(route == "tcs")
+    return {"fcma_sample_gram": 1,
+            "fcma_sample_gram_tc": int(route == "tc"),
+            "fcma_sample_gram_tcm": int(route == "tcm"),
+            "fcma_sample_gram_tcs": int(route == "tcs"),
+            "fcma_sample_gram_tcs_tcl": slab * int(norm_unit > 1),
+            "fcma_sample_gram_tcs_r": slab * int(norm_unit <= 1),
+            "fcma_sample_gram_tcs_gram": slab,
+            "fcma_sample_gram_tcs_sum": slab}
+
+
+def _k4_launches():
+    return {k: n for k, n in fk.launches().items()
+            if k.startswith("fcma_sample_gram")}
+
+
 def _sample_gram_routes(x1, x2, norm_unit, routes):
-    """{route: K4 forced onto it}, each launched once as asked."""
+    """{route: K4 forced onto it}, each launched as asked."""
     got = {}
     for route in routes:
         fk.reset_launches()
         got[route] = fk._kernel_sample_gram(x1, x2, norm_unit, route=route)
-        counts = fk.launches()
-        assert counts["fcma_sample_gram"] == 1
-        for name in ("tc", "tcm"):
-            assert counts[f"fcma_sample_gram_{name}"] == int(route == name)
+        assert _k4_launches() == _k4_route_launches(route, norm_unit), \
+            route
         assert torch.isfinite(got[route]).all(), route
     return got
 
@@ -959,6 +998,136 @@ def test_fcma_sample_gram_tcm_refuses(cuda):
     assert not out.view(-1)[:104 * 104].any()
 
 
+@pytest.mark.parametrize("n,t,v1,v2,norm_unit", [
+    (108, 37, 203, 37, 4), (112, 37, 203, 37, 0), (120, 9, 203, 37, 12),
+    (120, 12, 4099, 21, 12), (105, 20, 77, 13, 0), (120, 20, 77, 13, 1),
+    (216, 12, 203, 37, 12), (216, 12, 37, 203, 0), (216, 12, 203, 37, 108),
+    (300, 12, 1001, 9, 4), (800, 9, 64, 5, 8)])
+def test_fcma_sample_gram_tcs_routes_agree(cuda, n, t, v1, v2, norm_unit):
+    """K4's slab route beyond 104 samples and fcma_sample_gram.cu's FMA
+    kernel forced on the same inputs, against the plain version: raw
+    features (the r mode: norm_unit 0 and 1) and groups of 4, 8, 12 and
+    108 (a group longer than 104 samples) through the raw mode; either
+    region the narrower (the block operand); ragged widths (rows not
+    16-byte aligned, copied once) and T (9 and 12 below the 16-row
+    stage); one V split and two (4099 voxels); more than 224 samples
+    (the Gram's several groups of output blocks, two stages at 800).
+    Two-region inputs (no |r| near 1): both within K4's rule of the
+    plain version and of each other; the route's Gram symmetric bit
+    for bit."""
+    assert fk.sample_gram_route(n, norm_unit)[0] == "tcs"
+    d = _normalized(n * t + v1, n, t, v1 + v2, cuda)
+    x1, x2 = d[:, :, :v1].contiguous(), d[:, :, v1:].contiguous()
+    want = fk.fcma_sample_gram_plain(x1, x2, norm_unit)
+    got = _sample_gram_routes(x1, x2, norm_unit, ("tcs", "ffma"))
+    for route in ("tcs", "ffma"):
+        _assert_k4_close(got[route], want, norm_unit)
+    _assert_k4_close(got["tcs"], got["ffma"], norm_unit)
+    assert torch.equal(got["tcs"], got["tcs"].T)
+
+
+@pytest.mark.parametrize("n,norm_unit", [(108, 4), (120, 12), (216, 12),
+                                         (216, 108), (112, 0)])
+def test_fcma_sample_gram_tcs_self_pairs(cuda, n, norm_unit):
+    """Region 2 holds region 1 (the study's stage 2 fit, mask1 x the
+    whole volume): every region-1 voxel paired with itself has r = 1 up
+    to rounding, where the clamped Fisher-z turns the last ulp of r into
+    an O(1) change.  The slab route's correlation (the raw mode, and the
+    r mode for raw features) forms those r again in fp32 FMA, as the FMA
+    kernel does, so its Gram is the FMA kernel's and the plain
+    version's within K4's rule."""
+    d = _normalized(7 * n + norm_unit, n, 12, 203, cuda)
+    x1, x2 = d[:, :, 50:87].contiguous(), d
+    got = _sample_gram_routes(x1, x2, norm_unit, ("tcs", "ffma"))
+    want = fk.fcma_sample_gram_plain(x1, x2, norm_unit)
+    for route in ("tcs", "ffma"):
+        _assert_k4_close(got[route], want, norm_unit)
+    _assert_k4_close(got["tcs"], got["ffma"], norm_unit)
+
+
+def test_fcma_sample_gram_tcs_misaligned_rows(cuda, monkeypatch):
+    """A region whose rows do not start 16-byte aligned (a view one
+    float into its storage) is copied once into aligned rows, the
+    other (20 voxels, aligned) read in place; the slab route's Gram is
+    the one of its aligned copy, bit for bit, and the plain version's."""
+    n = 120
+    d = _normalized(23, n, 20, 203 + 20, cuda)
+    x2 = d[:, :, 203:].contiguous()
+    store = torch.empty(n * 20 * 203 + 1, device=cuda)
+    store[1:] = d[:, :, :203].reshape(-1)
+    x1 = store[1:].view(n, 20, 203)
+    assert x1.is_contiguous() and x1.data_ptr() % 16
+    aligned = fk.aligned_rows_layout(x1.shape, cuda)
+    aligned.copy_(x1)
+    copies = []
+    layout = fk.aligned_rows_layout
+
+    def counted(*args):
+        copies.append(args)
+        return layout(*args)
+
+    monkeypatch.setattr(fk, "aligned_rows_layout", counted)
+    fk.reset_launches()
+    got = fk.fcma_sample_gram(x1, x2, 4)
+    assert len(copies) == 1
+    assert _k4_launches() == _k4_route_launches("tcs", 4)
+    assert torch.equal(got, fk.fcma_sample_gram(aligned, x2, 4))
+    assert len(copies) == 1
+    _assert_k4_close(got, fk.fcma_sample_gram_plain(x1, x2, 4), 4)
+
+
+@pytest.mark.parametrize("norm_unit", [12, 0])
+def test_fcma_sample_gram_tcs_slabs_are_bit_for_bit(cuda, norm_unit):
+    """Slab budgets of 128 and 256 block voxels (5 and 3 slabs of 600
+    block voxels, the last one shorter) give the default's one-slab
+    [N, N] bit for bit: each block voxel's Gram does not depend on the
+    slab, and the block-voxel sum runs in one order."""
+    n, t, b, v = 120, 12, 600, 1000
+    d = _normalized(n + norm_unit, n, t, v + b, cuda)
+    x1, x2 = d[:, :, v:].contiguous(), d[:, :, :v].contiguous()
+    assert fk.tcs_slabs(b, n, v) == (b, 1)
+    whole = fk._kernel_sample_gram(x1, x2, norm_unit)
+    for per, n_slabs in ((128, 5), (256, 3)):
+        budget = 4 * n * v * per + 3
+        assert fk.tcs_slabs(b, n, v, budget) == (per, n_slabs)
+        fk.reset_launches()
+        got = fk._kernel_sample_gram(x1, x2, norm_unit, budget=budget)
+        assert _k4_launches() == _k4_route_launches("tcs", norm_unit,
+                                                    n_slabs)
+        assert torch.equal(got, whole), per
+
+
+def test_fcma_sample_gram_tcs_refuses(cuda):
+    """A forced "tcs" is refused at 104 samples or fewer and beyond 800
+    by the route; the new C entry points refuse what they do not take:
+    the r mode a misaligned operand, the block-voxel sum more than 800
+    samples, negative sizes and a missing output."""
+    for n, norm_unit in ((104, 52), (32, 4), (12, 0), (804, 4)):
+        x = torch.zeros(n, 6, 8, device=cuda)
+        with pytest.raises(ValueError, match="route 'tcs'"):
+            fk._kernel_sample_gram(x, x, norm_unit, route="tcs")
+    stream = torch.cuda.current_stream().cuda_stream
+    corr = fk._fn("fcma_corr_tcl", "fcma_corr_r_tcl_f32")
+    d = torch.zeros(120, 6, 9, device=cuda)
+    z = torch.empty(2, 120, 9, device=cuda)
+    assert corr(d.data_ptr(), d.data_ptr(), z.data_ptr(), 120, 6, 2, 9,
+                9, 54, 9, 54, stream) != 0
+    assert corr(d.data_ptr() + 4, d.data_ptr(), z.data_ptr(), 120, 6, 2, 8,
+                12, 72, 12, 72, stream) != 0
+    total = fk._fn("fcma_sample_gram_tcs", "fcma_sample_gram_tcs_sum_f32")
+    grams = torch.ones(3, 120, 120, device=cuda)
+    out = torch.full((120, 120), 5.0, device=cuda)
+    for args in ((801, 3, 1), (-1, 3, 1), (120, -1, 1)):
+        assert total(grams.data_ptr(), out.data_ptr(), *args, stream) != 0
+    assert total(grams.data_ptr(), None, 120, 3, 1, stream) != 0
+    assert total(grams.data_ptr(), out.data_ptr(), 120, 3, 0, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.all(out == 8.0)
+    assert total(grams.data_ptr(), out.data_ptr(), 120, 2, 1, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.all(out == 2.0)
+
+
 def test_fcma_sample_gram_refuses_bad_inputs(cuda):
     x = torch.zeros(8, 6, 5, device=cuda)
     with pytest.raises(ValueError, match="multiple"):
@@ -1018,17 +1187,20 @@ class _NearestMean:
         return (self.decision_function(k_test) > 0).astype(int)
 
 
+@pytest.mark.parametrize("n", [24, 216])
 @pytest.mark.parametrize("epochs_per_subj", [0, 4])
-def test_classifier_cuda_matches_cpu(cuda, epochs_per_subj):
+def test_classifier_cuda_matches_cpu(cuda, epochs_per_subj, n):
     """The portioned fit (K4 on the card, its plain version on the
     CPU) and the single-portion fit (features on the device) give the
-    same test similarities and predictions on two-region inputs."""
+    same test similarities and predictions on two-region inputs; at 216
+    samples the portioned fit takes K4's slab route alone."""
     from brainiak_tpu_torch.fcma import Classifier
 
-    d = _normalized(5, 24, 30, 40 + 9, torch.device("cpu")).numpy()
+    d = _normalized(5, n, 30, 40 + 9, torch.device("cpu")).numpy()
     pairs = list(zip(d[:, :, :40], d[:, :, 40:]))
-    labels = [0, 1] * 12
-    for n_proc, n_train in ((8, 16), (2000, None)):
+    labels = [0, 1] * (n // 2)
+    fk.reset_launches()
+    for n_proc, n_train in ((8, n - 8), (2000, None)):
         fits = [Classifier(_NearestMean(), num_processed_voxels=n_proc,
                            epochs_per_subj=epochs_per_subj,
                            device=dev).fit(pairs[:16] if n_train is None
@@ -1042,6 +1214,11 @@ def test_classifier_cuda_matches_cpu(cuda, epochs_per_subj):
         else:
             preds = [f.predict() for f in fits]
         got, want = (f.test_data_ for f in fits)
+        if n_train is not None:
+            route = fk.sample_gram_route(n, epochs_per_subj)[0]
+            assert _k4_launches()["fcma_sample_gram"] == 1
+            assert _k4_launches()[f"fcma_sample_gram_{route}"] == 1
+            assert route == ("tcs" if n > 104 else "tc")
         assert fits[0].num_digits_ == fits[1].num_digits_
         assert np.all(np.abs(got - want) <= 1e-4 * np.abs(want).max())
         np.testing.assert_array_equal(preds[0], preds[1])

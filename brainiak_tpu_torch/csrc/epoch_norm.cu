@@ -10,6 +10,10 @@
 // and the column is 0 where it is exactly constant (max == min) or
 // where the result is not finite (NaN and inf inputs normalize to 0).
 //
+// This is K2's "simple" route: ops/kernels/epoch_norm.py::zscore_route
+// takes it beyond the rows that epoch_norm_tile.cu's shared-memory
+// tile holds (T > 1814 in f32, 906 in f64), or when forced.
+//
 // Bound: memory.  Each element is read and written once by the
 // algorithm: 2 * N * T * V * sizeof(T) bytes, 2.5 GB at
 // [32, 150, 65536] f32, about 0.75 ms at 3.35 TB/s.  The arithmetic is
@@ -18,10 +22,16 @@
 // Design: one thread per column, consecutive threads on consecutive
 // voxels, so every row step of a warp reads one contiguous 128-byte
 // (f32) segment.  The column is read three times (sum/max/min, then
-// the centred sum of squares, then the output pass); the second and
-// third reads of a warp's columns mostly hit L1/L2.  The variance is
-// two-pass (mean of squared deviations), as the JAX kernel computes
-// it.  No fast-math: sqrt and division are IEEE-rounded.
+// the centred sum of squares, then the output pass).  At T=150 the
+// rereads miss L1 and L2 (a block's 256 columns are 154 KB, some 160
+// MB over the card's resident blocks, against 256 KB of L1 an SM and
+// 50 MB of L2), so it moves three reads and a write, about 5.0 GB:
+// 1.777 ms on an H100 80GB HBM3 at 700 W (chip_smoke.py), 2.83 TB/s
+// of mostly rereads, where epoch_norm_tile.cu takes 0.856 ms.  At
+// T=12 a block's columns (12 KB) stay in L1: 0.465 ms against 0.455.
+// The variance is two-pass (mean of squared deviations), as the JAX
+// kernel computes it.  No fast-math: sqrt and division are
+// IEEE-rounded.
 
 #include <cuda_runtime.h>
 

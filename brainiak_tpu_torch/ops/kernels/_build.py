@@ -34,8 +34,8 @@ __all__ = ["BUILD_DIR", "CSRC_DIR", "SOURCES", "build", "check",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "brainiak_tpu_torch"
-SOURCES = ("epoch_norm", "fcma_corr", "fcma_corr_tc", "fcma_corr_tcl",
-           "fcma_gram_tc",
+SOURCES = ("epoch_norm", "epoch_norm_tile", "fcma_corr", "fcma_corr_tc",
+           "fcma_corr_tcl", "fcma_gram_tc",
            "fcma_gram_tcm", "fcma_gram_tcs", "fcma_sample_gram",
            "fcma_sample_gram_tc",
            "fcma_sample_gram_tcm", "fcma_sample_gram_tcs", "ring_mma",

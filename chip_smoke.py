@@ -16,7 +16,11 @@ first one that goes wrong:
 2. Each kernel against its plain PyTorch version at the shapes the
    main paths give it (inputs from a numpy seed, TF32 off, two-region
    inputs so that no |r| is near 1):
-     K2 epoch_zscore [32, 150, 65536];
+     K2 epoch_zscore [32, 150, 65536] (whole-brain ingest) and [216,
+        12, 65536] (the study's), through the paths' tile route
+        (epoch_norm_tile.cu) and, on the same inputs, epoch_norm.cu's
+        simple kernel forced (bit for bit the same output), timed in
+        turns, beside plain and a copy of the same bytes;
      K1 fcma_gram E=32, T=150, B=1024, V=65536 (whole brain), through
         the path's tensor-core kernel (fcma_gram_tc.cu) and, on the
         same inputs, fcma_corr.cu's FMA kernel forced (route="ffma");
@@ -78,8 +82,10 @@ first one that goes wrong:
    (65,536 voxels), 2 conditions x 2 epochs of 150 TRs each (E=32,
    4 epochs per subject), mask1 = 1024 voxels, mask2 = the whole volume;
    ``prepare_fcma_data`` then ``VoxelSelector(..., num_folds=4)
-   .run('svm')``.  That run must launch K2 and the tensor-core K1
-   once.
+   .run('svm')``.  That run must launch K2 on its tile route alone
+   and the tensor-core K1 once (every FCMA path below launches K2 on
+   its tile route alone, the long subjects' epochs normalized by
+   ``normalize_epochs``).
    A warm run is timed, and one more runs under ``torch.profiler`` for
    the device time by kernel and the device's busy share.  Then the
    host-CV branch, ``run(clf)`` with a precomputed-kernel classifier,
@@ -151,6 +157,10 @@ first one that goes wrong:
    mesh (8 K5 launches, all on the tensor-core kernel, 16 splits),
    held against ``isfc(data)`` without a mesh; ``isc`` leave-one-out
    and pairwise on the same data.
+12. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
+   epochs, split into host stack, upload, K2 and download (last, so
+   that its pinned buffer, which PyTorch's host allocator keeps, is
+   not there while the paths above are timed).
 
 It prints progress lines, then one JSON line with every kernel's
 figures, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -208,6 +218,20 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
+def k2_launches(label):
+    """K2's launches since the last reset, all and by route; fails
+    unless the tile route took every one, at least one."""
+    from brainiak_tpu_torch.ops.kernels import epoch_norm as en
+
+    out = {"epoch_zscore": en.launches(),
+           "epoch_zscore_tile": en.launches("tile"),
+           "epoch_zscore_simple": en.launches("simple")}
+    if out["epoch_zscore"] < 1 or \
+            out["epoch_zscore_tile"] != out["epoch_zscore"]:
+        fail(f"{label}: K2 did not run on its tile route alone: {out}")
+    return out
+
+
 def bound_ms(n_bytes, n_flops, n_tf32_flops=0):
     """The least time for the work: bytes over the memory rate, or the
     fp32 and TF32 operations each over its peak rate, the larger."""
@@ -248,9 +272,9 @@ def ptxas_summary(output):
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(I(?:L[ib]\d+E)+E|I[fd]E)?",
+            k = re.search(r"([a-z_]+_kernel)(I[fd]?(?:L[ib]\d+E)*E)?",
                           m.group(1))
-            args = re.findall(r"L[ib](\d+)E|I([fd])E", k.group(2) or "")
+            args = re.findall(r"L[ib](\d+)E|([fd])", k.group(2) or "")
             name = k.group(1) + (
                 "<" + ",".join(a or {"f": "float", "d": "double"}[b]
                                for a, b in args) + ">" if args else "")
@@ -685,31 +709,132 @@ def check_k4(torch, x1, x2, norm_unit, reps, ffma_reps=None):
     return rows
 
 
+def check_k2(torch, en, rng, n, t, v, dev, reps=20):
+    """K2 on [n, t, v] float32 (from rng, with a constant, a NaN and an
+    inf column): its tile route (the one the paths take) within K2_ATOL
+    of plain and the forced simple kernel's output bit for bit, those
+    columns 0.  Times by CUDA events: tile and simple in turns (tile,
+    simple, simple, tile), plain, and a copy of the same bytes
+    (``torch.empty_like(x).copy_(x)``: the rate the card attains for
+    one read and one write).  Returns the two rows (tile, simple)."""
+    x = torch.from_numpy(
+        rng.standard_normal((n, t, v), dtype=np.float32) * 3 + 1).to(dev)
+    x[0, :, 5] = 2.5
+    x[1, 3, 7] = float("nan")
+    x[2, t - 1, 9] = float("inf")
+    if en.zscore_route(t, x.dtype) != "tile":
+        fail(f"K2 at T={t} does not take the tile route")
+    got, want = en.batch_zscore(x), en.batch_zscore_plain(x)
+    simple = en._kernel_zscore(x, "simple")
+    err = (got - want).abs().max().item()
+    err_simple = (simple - want).abs().max().item()
+    same = torch.equal(got, simple)
+    zeros = all(bool(torch.all(got[e, :, c] == 0))
+                for e, c in ((0, 5), (1, 7), (2, 9)))
+    del got, want, simple
+    w = en.tile_width(t, x.dtype)
+    log(f"K2 epoch_zscore [{n},{t},{v}] tile route (W={w}) max_abs_err "
+        f"{err:.3e}, simple {err_simple:.3e} (atol {K2_ATOL}); tile == "
+        f"simple bit for bit: {same}; constant, NaN and inf columns 0: "
+        f"{zeros}")
+    if not (err <= K2_ATOL and err_simple <= K2_ATOL and same and zeros):
+        fail("K2 disagrees with its plain version or between its routes")
+    tile_ms, simple_ms = [], []
+    for timed in (tile_ms, simple_ms, simple_ms, tile_ms):
+        route = "tile" if timed is tile_ms else "simple"
+        timed.append(cuda_ms(torch, lambda: en._kernel_zscore(x, route),
+                             reps))
+    common = {
+        "plain_ms": cuda_ms(torch, lambda: en.batch_zscore_plain(x), 5),
+        "copy_ms": cuda_ms(torch, lambda: torch.empty_like(x).copy_(x),
+                           reps),
+        "library_ms": None}
+    common["bound_ms"], common["bound_by"] = bound_ms(2 * x.numel() * 4,
+                                                      8 * x.numel())
+    tile = dict(common, max_abs_err=err, ms=sum(tile_ms) / 2, tile_w=w)
+    simple = dict(common, max_abs_err=err_simple, ms=sum(simple_ms) / 2)
+    log(f"  K2 at [{n},{t},{v}]: tile {tile['ms']:.3f} ms ("
+        f"{tile_ms[0]:.3f}, {tile_ms[1]:.3f}), simple {simple['ms']:.3f} "
+        f"ms ({simple_ms[0]:.3f}, {simple_ms[1]:.3f}), plain "
+        f"{common['plain_ms']:.3f} ms, copy of the same bytes "
+        f"{common['copy_ms']:.3f} ms, bound {common['bound_ms']:.3f} ms "
+        f"({common['bound_by']}); bound / tile "
+        f"{common['bound_ms'] / tile['ms']:.3f}, copy / tile "
+        f"{common['copy_ms'] / tile['ms']:.3f}, tile / simple "
+        f"{tile['ms'] / simple['ms']:.3f}")
+    return tile, simple
+
+
+def run_ingest_split(torch, dev, n=32, t=150, v=65536):
+    """One ``normalize_epochs`` call on n whole-brain epochs [t, v]
+    float32 (mask2's batch in the whole-brain path), timed whole, then
+    its steps one by one as the function takes them: the host stack,
+    the upload from pageable memory, K2 and the download; and an
+    upload from a pinned buffer beside them (the copy into it timed
+    apart).  Host clock, each step ending in a synchronize."""
+    from brainiak_tpu_torch.ops.kernels import epoch_norm as en
+
+    rng = np.random.default_rng(SEED + 6)
+    mats = list(rng.standard_normal((n, t, v), dtype=np.float32))
+    nbytes = n * t * v * 4
+    en.normalize_epochs(mats[:1])  # the library loaded
+    en.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = en.normalize_epochs(mats)
+    t_whole = time.perf_counter() - t0
+    tile = en.launches("tile")
+    if en.launches() != 1 or tile != 1:
+        fail(f"normalize_epochs launched K2 {en.launches()} times, "
+             f"{tile} on the tile route: one tile launch expected")
+    stamps = [time.perf_counter()]
+    stacked = np.stack(mats)
+    stamps.append(time.perf_counter())
+    batch = torch.from_numpy(stacked).to(dev)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    out = en.batch_zscore(batch)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    res = out.cpu().numpy()
+    stamps.append(time.perf_counter())
+    if not np.array_equal(res[n - 1], whole[n - 1]):
+        fail("the timed steps of normalize_epochs gave other bits")
+    del batch, out, res, whole
+    t0 = time.perf_counter()
+    pinned = torch.from_numpy(stacked).pin_memory()
+    t_pin = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = pinned.to(dev, non_blocking=True)
+    torch.cuda.synchronize()
+    t_up_pinned = time.perf_counter() - t0
+    del batch, pinned, stacked
+    stack, up, k2, down = (b - a for a, b in zip(stamps, stamps[1:]))
+    log(f"ingest split, normalize_epochs of {n} epochs [{t}, {v}] "
+        f"float32 ({nbytes / 1e9:.3f} GB): whole call {t_whole:.4f} s; "
+        f"host stack {stack:.4f} s, upload {up:.4f} s "
+        f"({nbytes / up / 1e9:.2f} GB/s, pageable), K2 {1e3 * k2:.3f} "
+        f"ms (host clock, launch included), download {down:.4f} s "
+        f"({nbytes / down / 1e9:.2f} GB/s); from a pinned buffer the "
+        f"upload takes {t_up_pinned:.4f} s "
+        f"({nbytes / t_up_pinned / 1e9:.2f} GB/s), the copy into it "
+        f"{t_pin:.4f} s")
+
+
 def phase_kernels(torch, dev):
     from brainiak_tpu_torch.ops.kernels import epoch_norm as en
 
     rng = np.random.default_rng(SEED)
     rows = {}
 
-    # K2 at the whole-brain ingest shape
-    n, t, v = 32, 150, 65536
-    x = torch.from_numpy(
-        rng.standard_normal((n, t, v), dtype=np.float32) * 3 + 1).to(dev)
-    x[0, :, 5] = 2.5
-    x[1, 3, 7] = float("nan")
-    got, want = en.batch_zscore(x), en.batch_zscore_plain(x)
-    err = (got - want).abs().max().item()
-    log(f"K2 epoch_zscore [{n},{t},{v}] max_abs_err {err:.3e} "
-        f"(atol {K2_ATOL})")
-    if not err <= K2_ATOL:
-        fail("K2 disagrees with its plain version")
-    b_ms, b_by = bound_ms(2 * x.numel() * 4, 8 * x.numel())
-    rows["epoch_zscore"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: en.batch_zscore(x), 20),
-        "plain_ms": cuda_ms(torch, lambda: en.batch_zscore_plain(x), 5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    del x, got, want
+    # K2 at the whole-brain ingest shape (mask2's batch), then at the
+    # study's (its own seed, so the other kernels' inputs stay as they
+    # were)
+    rows["epoch_zscore"], rows["epoch_zscore_simple"] = check_k2(
+        torch, en, rng, 32, 150, 65536, dev)
+    rows["epoch_zscore_e216"], rows["epoch_zscore_e216_simple"] = check_k2(
+        torch, en, np.random.default_rng(SEED + 5), 216, 12, 65536, dev)
+    torch.cuda.empty_cache()
 
     # K1 at the whole-brain main-path shape (two-mask inputs)
     n_e, n_t, n_b, n_v, eps = 32, 150, 1024, 65536, 4
@@ -987,10 +1112,10 @@ def run_path(torch, label, images, conditions, mask1, mask2, n_folds,
     results = vs.run('svm')
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
-    launches = dict(fk.launches(), epoch_zscore=en.launches())
+    launches = dict(fk.launches(), **k2_launches(label))
     n_sel = vs.num_voxels
-    if launches["fcma_gram"] < 1 or launches["epoch_zscore"] < 1:
-        fail(f"{label}: the main path did not run K1 and K2: {launches}")
+    if launches["fcma_gram"] < 1:
+        fail(f"{label}: the main path did not run K1: {launches}")
     accs = check_accuracies(results, n_sel)
     t0 = time.perf_counter()
     vs.run('svm')
@@ -1128,10 +1253,15 @@ def run_long_subjects(torch, rows):
     from brainiak_tpu_torch.fcma import Classifier
     from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
     from brainiak_tpu_torch.ops import fcma_kernels as fk
+    from brainiak_tpu_torch.ops.kernels import epoch_norm as en
 
     rng = np.random.default_rng(SEED + 2)
     n_e, eps, n_v = 80, 40, 2048
-    x = normalized_epochs(torch, rng, n_e, 150, n_v + 512, "cpu").numpy()
+    # the epochs normalized by the ingest entry point (K2 on the card)
+    en.reset_launches()
+    x = en.normalize_epochs(list(rng.standard_normal(
+        (n_e, 150, n_v + 512), dtype=np.float32)))
+    k2 = k2_launches("long subjects")
     raw1 = [e[:, :n_v] for e in x]
     raw2 = [e[:, n_v:] for e in x]
     labels = np.array([0, 1] * (n_e // 2))
@@ -1152,7 +1282,7 @@ def run_long_subjects(torch, rows):
     launches = fk.launches()
     log(f"long subjects (E={n_e}, {eps} epochs per subject, V={n_v}): "
         f"run('svm'), host-CV on 128 voxels and a portioned fit in "
-        f"{t_all:.2f} s; launches {launches}")
+        f"{t_all:.2f} s; launches {launches}; K2 before them {k2}")
     for name, row in (("fcma_gram_tcm", "fcma_gram_e80"),
                       ("fcma_corr_normalize_tcl", "fcma_corr_normalize_e80"),
                       ("fcma_sample_gram_tcm", "fcma_sample_gram_n80")):
@@ -1235,14 +1365,15 @@ def run_study(torch, rows):
     results = vs.run('svm')
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
-    launches = dict(fk.launches(), epoch_zscore=en.launches())
+    launches = dict(fk.launches(), **k2_launches(label))
     del images
-    if launches["epoch_zscore"] < 1 or launches["fcma_gram_tcs"] < 1 or \
+    rows["epoch_zscore_e216"]["launches"] = launches["epoch_zscore_tile"]
+    if launches["fcma_gram_tcs"] < 1 or \
             launches["fcma_gram"] != launches["fcma_gram_tcs"] or \
             launches["fcma_gram_tcs_tcl"] < 1 or \
             launches["fcma_gram_tcs_tc"] != 0 or \
             launches["fcma_gram_tcs_gram"] != launches["fcma_gram_tcs_tcl"]:
-        fail(f"{label}: run('svm') did not run K2, and K1 through the slab "
+        fail(f"{label}: run('svm') did not run K1 through the slab "
              f"route alone (raw correlation, then its Gram): {launches}")
     rows["fcma_gram_e216"]["launches"] = launches["fcma_gram_tcs"]
     accs = check_accuracies(results, vs.num_voxels)
@@ -1785,7 +1916,7 @@ def main():
         fail(f"whole brain: run('svm') launched the tensor-core K1 "
              f"{launches['fcma_gram_tc']} times, not once")
     rows["fcma_gram"]["launches"] = launches["fcma_gram_tc"]
-    rows["epoch_zscore"]["launches"] = launches["epoch_zscore"]
+    rows["epoch_zscore"]["launches"] = launches["epoch_zscore_tile"]
     # fcma_corr.cu's K1 over the FCMA paths (whole brain, one mask,
     # long subjects; the last takes fcma_gram_tcm.cu alone, or
     # run_long_subjects fails)
@@ -1884,11 +2015,13 @@ def main():
                  "fcma_gram_e80_ffma", "fcma_gram_e216_ffma",
                  "fcma_gram_e128_ffma"):
         rows[name]["launches"] = ffma_launches
-    # no path takes fcma_sample_gram.cu's K4 (the stage-2 fits fail if
-    # one does) or fcma_corr.cu's K3 (the host-CV checks fail if one
-    # does), runs raw features, four sample tiles, K4's slab route at
+    # no path takes epoch_norm.cu's K2 (k2_launches fails if one does),
+    # fcma_sample_gram.cu's K4 (the stage-2 fits fail if one does) or
+    # fcma_corr.cu's K3 (the host-CV checks fail if one does), runs raw
+    # features, four sample tiles, K4's slab route at
     # N=128 or K3 at E=96
-    for name in ("fcma_corr_normalize_ffma", "fcma_corr_normalize_e80_ffma",
+    for name in ("epoch_zscore_simple", "epoch_zscore_e216_simple",
+                 "fcma_corr_normalize_ffma", "fcma_corr_normalize_e80_ffma",
                  "fcma_corr_normalize_e96", "fcma_gram_e128",
                  "fcma_sample_gram_ffma",
                  "fcma_sample_gram_raw", "fcma_sample_gram_raw_ffma",
@@ -1903,6 +2036,8 @@ def main():
     rows.update(phase_ring_kernel(torch, dev))
     run_ring_paths(torch, rows)
     run_isfc_path(torch, rows)
+    torch.cuda.empty_cache()
+    run_ingest_split(torch, dev)
 
     csrc = "brainiak_tpu_torch/csrc/"
     k1 = ("brainiak_tpu/ops/pallas_kernels.py:223", csrc + "fcma_corr.cu")
@@ -1925,9 +2060,13 @@ def main():
               csrc + "fcma_sample_gram_tcm.cu")
     k4_tcs = ("brainiak_tpu/ops/pallas_kernels.py:311",
               csrc + "fcma_sample_gram_tcs.cu")
+    k2 = ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
+          csrc + "epoch_norm.cu")
+    k2_tile = ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
+               csrc + "epoch_norm_tile.cu")
     origin = {
-        "epoch_zscore": ("brainiak_tpu/ops/kernels/epoch_norm.py:118",
-                         csrc + "epoch_norm.cu"),
+        "epoch_zscore": k2_tile, "epoch_zscore_e216": k2_tile,
+        "epoch_zscore_simple": k2, "epoch_zscore_e216_simple": k2,
         "fcma_gram": k1_tc, "fcma_gram_e16": k1_tc,
         "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1,
         "fcma_gram_e80": k1_tcm, "fcma_gram_e80_ffma": k1,
@@ -1958,7 +2097,8 @@ def main():
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],
                     library_ms=row["library_ms"],
-                    **{k: row[k] for k in ("corr_ms", "gram_ms", "sum_ms")
+                    **{k: row[k] for k in ("corr_ms", "gram_ms", "sum_ms",
+                                           "copy_ms", "tile_w")
                        if k in row})
                for name, row in rows.items()]
     print(json.dumps({"kernels": kernels}))

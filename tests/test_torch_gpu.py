@@ -66,6 +66,85 @@ def test_epoch_zscore_kernel(cuda, dtype, shape):
         en.batch_zscore(x.half())
 
 
+def _zscore_routes(x):
+    """K2's tile route and its forced simple route on x, each counted
+    once on its own route."""
+    en.reset_launches()
+    tile = en.batch_zscore(x)
+    simple = en._kernel_zscore(x, "simple")
+    assert en.launches() == 2
+    assert en.launches("tile") == 1 and en.launches("simple") == 1
+    return tile, simple
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 17, 300), (5, 150, 1031),
+                                   (4, 1, 300), (6, 12, 4100), "w+1"])
+def test_epoch_zscore_tile_route(cuda, dtype, shape):
+    """The tile route gives the simple kernel's bits (the same
+    expressions, rows in the same order) and is within 1e-5 of plain;
+    constant, NaN and inf columns come out 0.  "w+1": a V one past the
+    tile width, so the last tile holds one voxel."""
+    if shape == "w+1":
+        shape = (3, 150, en.tile_width(150, dtype) + 1)
+    n, t, v = shape
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(*shape) * 3 + 1).to(cuda, dtype)
+    x[0, :, 0] = 2.0
+    x[n - 1, :, v - 1] = -0.5
+    x[1 % n, t // 2, v // 2] = float("nan")
+    x[2 % n, t - 1, 1] = float("inf")
+    assert en.zscore_route(t, dtype) == "tile"
+    tile, simple = _zscore_routes(x)
+    assert tile.dtype == dtype and torch.equal(tile, simple)
+    torch.testing.assert_close(tile, en.batch_zscore_plain(x), atol=1e-5,
+                               rtol=0)
+    for e, c in ((0, 0), (n - 1, v - 1), (1 % n, v // 2), (2 % n, 1)):
+        assert torch.all(tile[e, :, c] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_epoch_zscore_tile_misaligned(cuda, dtype):
+    """A view one element into its storage (not 16-byte aligned) takes
+    the kernel's element copies and gives the same bits."""
+    n, t, v = 3, 40, 1000
+    flat = torch.from_numpy(np.random.RandomState(2).randn(n * t * v + 1)
+                            ).to(cuda, dtype)
+    x = flat[1:].view(n, t, v)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    tile, simple = _zscore_routes(x)
+    assert torch.equal(tile, simple)
+    torch.testing.assert_close(tile, en.batch_zscore_plain(x), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("t,w", [(1, 1024), (12, 512), (40, 256),
+                                 (80, 128), (150, 64), (600, 32)])
+def test_epoch_zscore_tile_widths(cuda, t, w):
+    """Every tile width the kernel takes, reached through the T that
+    tile_width maps to it, gives the same bits."""
+    assert en.tile_width(t, torch.float32) == w
+    x = torch.from_numpy(np.random.RandomState(w).randn(3, t, 3000)
+                         .astype(np.float32)).to(cuda)
+    tile, simple = _zscore_routes(x)
+    assert torch.equal(tile, simple)
+
+
+def test_epoch_zscore_beyond_the_tile(cuda):
+    """Beyond tile_max_t the route is the simple kernel, and a forced
+    tile route raises."""
+    t = en.tile_max_t(torch.float64) + 1
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, t, 40)).to(cuda)
+    assert en.zscore_route(t, torch.float64) == "simple"
+    en.reset_launches()
+    got = en.batch_zscore(x)
+    assert en.launches("simple") == 1 and en.launches("tile") == 0
+    torch.testing.assert_close(got, en.batch_zscore_plain(x), atol=1e-5,
+                               rtol=0)
+    with pytest.raises(ValueError, match="route 'tile'"):
+        en._kernel_zscore(x, "tile")
+
+
 @pytest.mark.parametrize("e,t,b,v,eps", [
     (8, 40, 13, 37, 4), (16, 150, 40, 1000, 4), (32, 150, 130, 3000, 4),
     (12, 20, 9, 70, 6), (16, 9, 21, 77, 4), (32, 12, 33, 130, 8),

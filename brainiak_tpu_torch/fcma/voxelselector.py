@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import matmul_precision, resolve_device, resolve_precision
+from ..obs import spans as obs_spans
 from ..ops.fcma_kernels import corr_layout, fcma_corr_normalize, fcma_gram
 from ..ops.svm import stratified_kfold, svm_cv_accuracy
 
@@ -159,7 +160,22 @@ class VoxelSelector:
             estimator runs host cross-validation per voxel (SVC with
             ``kernel='precomputed'`` gets the Gram matrices, anything
             else the normalized correlation vectors).
+
+        With :mod:`brainiak_tpu_torch.obs` enabled the selection runs
+        under a ``fcma.voxel_selection`` span with one ``fcma.block``
+        span per voxel block and a ``fcma.svm_cv`` span around the
+        batched SMO solve, as in the JAX package; disabled (default)
+        the spans are no-ops.  No span synchronizes the card: a block's
+        span times its launches, and the SMO's closing fetch to the
+        host charges the compute to ``fcma.svm_cv``.
         """
+        clf_label = clf if isinstance(clf, str) else type(clf).__name__
+        with obs_spans.span("fcma.voxel_selection",
+                            attrs={"clf": clf_label,
+                                   "n_voxels": self.num_voxels}):
+            return self._run(clf)
+
+    def _run(self, clf):
         on_device_svm = isinstance(clf, str) and clf == 'svm'
         data1, data2 = self._stack()
         block = self.voxel_unit
@@ -170,25 +186,30 @@ class VoxelSelector:
         results = []
         grams = []
         for start in range(0, self.num_voxels, block):
-            stop = min(start + block, self.num_voxels)
-            blk = self._slice_block(data1, start, stop)
-            if on_device_svm:
-                grams.append(_shrink(fcma_gram(
-                    blk, data2, self.epochs_per_subj,
-                    precision=self.precision)))
-                continue
-            corr = fcma_corr_normalize(blk, data2, self.epochs_per_subj,
-                                       precision=self.precision)
-            kernels = _gram_and_shrink(corr, self.precision)
-            accs = self._host_cv(clf, kernels, corr)
-            results.extend((start + i, float(a)) for i, a in
-                           enumerate(accs))
+            with obs_spans.span("fcma.block", attrs={"start": start}):
+                stop = min(start + block, self.num_voxels)
+                blk = self._slice_block(data1, start, stop)
+                if on_device_svm:
+                    grams.append(_shrink(fcma_gram(
+                        blk, data2, self.epochs_per_subj,
+                        precision=self.precision)))
+                    continue
+                corr = fcma_corr_normalize(blk, data2,
+                                           self.epochs_per_subj,
+                                           precision=self.precision)
+                kernels = _gram_and_shrink(corr, self.precision)
+                accs = self._host_cv(clf, kernels, corr)
+                results.extend((start + i, float(a)) for i, a in
+                               enumerate(accs))
 
         if on_device_svm:
-            all_accs, gaps = svm_cv_accuracy(
-                torch.cat(grams), self.labels, self.num_folds,
-                C=self.svm_C, n_iters=self.svm_iters, return_gap=True,
-                device=self.device)
+            with obs_spans.span("fcma.svm_cv") as svm_span:
+                all_kernels = torch.cat(grams)
+                all_accs, gaps = svm_cv_accuracy(
+                    all_kernels, self.labels, self.num_folds,
+                    C=self.svm_C, n_iters=self.svm_iters,
+                    return_gap=True, device=self.device)
+                svm_span.set("n_voxels", int(all_kernels.shape[0]))
             self.kkt_gaps_ = gaps
             worst = float(np.max(gaps))
             if worst > 0.05:

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..device import matmul_precision, resolve_device
+from ..obs import spans as obs_spans
 from ..parallel.mesh import Sharded, shard_along
 from .kernels.ring import ring_mma, split
 
@@ -240,7 +241,9 @@ def summa_gram(data, mesh, data_b=None, axis_names=None,
     for a NaN column), so the whole [T, V] array is never normalized in
     one place.  ``normalize=False`` skips the z-score: the result is
     ``data.T @ data_b``.  Returns [V, V] float32 as
-    :func:`summa_matmul`.
+    :func:`summa_matmul`.  With :mod:`brainiak_tpu_torch.obs` enabled
+    it runs under a ``distla.gram`` span (``kind`` ``"summa"``), which
+    times the launches: no span synchronizes the card.
     """
     names, _, n_shards = _ring_axes(mesh, axis_names)
     v = data.shape[1]
@@ -248,11 +251,15 @@ def summa_gram(data, mesh, data_b=None, axis_names=None,
         raise ValueError(f"data_b shape {tuple(data_b.shape)} != data "
                          f"shape {tuple(data.shape)}")
     norm = _zscore_cols if normalize else (lambda z: z)
-    z = _normalized(data, n_shards, mesh, names, norm)
-    z_b = z if data_b is None else _normalized(data_b, n_shards, mesh,
-                                               names, norm)
-    mode = _ring_step_for(ring_step, z.devices)
-    out = _ring(z, z_b, mode, precision)
+    with obs_spans.span("distla.gram",
+                        attrs={"n_voxels": int(v),
+                               "n_shards": int(n_shards),
+                               "kind": "summa"}):
+        z = _normalized(data, n_shards, mesh, names, norm)
+        z_b = z if data_b is None else _normalized(data_b, n_shards,
+                                                   mesh, names, norm)
+        mode = _ring_step_for(ring_step, z.devices)
+        out = _ring(z, z_b, mode, precision)
     return out[:v, :v] if v % n_shards else out
 
 
@@ -275,7 +282,9 @@ def gram(data, mesh=None, data_b=None, axis_names=None, precision=None,
     [V, V] output and, on CUDA, the split operands of K5's kernel
     (8 * T bytes a voxel and operand, T rounded up to 32).
     ``normalize=False`` returns the raw ``data.T @ data_b``.  ``device``
-    defaults to ``"cuda"`` and raises without a card.
+    defaults to ``"cuda"`` and raises without a card.  The replicated
+    product runs under a ``distla.gram`` span (``kind``
+    ``"replicated"``) while :mod:`brainiak_tpu_torch.obs` is enabled.
     """
     dev = resolve_device(device)
     if force not in (None, "replicated", "summa"):
@@ -314,7 +323,10 @@ def gram(data, mesh=None, data_b=None, axis_names=None, precision=None,
             "%d-byte budget and no mesh was given; computing "
             "replicated anyway", need, budget)
     norm = _zscore_cols if normalize else (lambda z: z)
-    z = norm(_f32(data).to(dev))
-    z_b = z if data_b is None else norm(_f32(data_b).to(dev))
-    with matmul_precision(precision) as dtype:
-        return torch.matmul(z.T.to(dtype), z_b.to(dtype)).float()
+    with obs_spans.span("distla.gram",
+                        attrs={"n_voxels": int(v), "n_shards": 1,
+                               "kind": "replicated"}):
+        z = norm(_f32(data).to(dev))
+        z_b = z if data_b is None else norm(_f32(data_b).to(dev))
+        with matmul_precision(precision) as dtype:
+            return torch.matmul(z.T.to(dtype), z_b.to(dtype)).float()

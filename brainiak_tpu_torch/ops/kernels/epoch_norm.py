@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...obs import spans as obs_spans
 from . import _build
 
 __all__ = ["batch_zscore", "batch_zscore_plain", "epoch_zscore",
@@ -184,7 +185,11 @@ def epoch_zscore(mat, device="cuda"):
 def normalize_epochs(mats, device="cuda"):
     """Normalize a list of ``[rows, cols]`` epochs, grouped by shape so
     each distinct shape is one batch (on CUDA: one K2 launch).  Order
-    and dtype are preserved; returns numpy arrays."""
+    and dtype are preserved; returns numpy arrays.
+
+    With :mod:`brainiak_tpu_torch.obs` enabled each batch's K2 and its
+    copy back to the host run under a ``fcma.epoch_norm`` span
+    (``n_epochs``, ``n_trs``, ``n_voxels``), as in the JAX package."""
     mats = list(mats)
     if not mats:
         return []
@@ -197,7 +202,13 @@ def normalize_epochs(mats, device="cuda"):
     for idxs in groups.values():
         batch = torch.from_numpy(
             np.stack([np.asarray(mats[i]) for i in idxs])).to(dev)
-        res = batch_zscore(batch).cpu().numpy()
+        with obs_spans.span("fcma.epoch_norm",
+                            attrs={"n_epochs": len(idxs),
+                                   "n_trs": int(batch.shape[1]),
+                                   "n_voxels": int(batch.shape[2])}):
+            # the copy to the host is the point: ingest hands host
+            # arrays to the estimators
+            res = batch_zscore(batch).cpu().numpy()
         for j, i in enumerate(idxs):
             out[i] = res[j]
     return out

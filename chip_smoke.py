@@ -87,7 +87,14 @@ first one that goes wrong:
    its tile route alone, the long subjects' epochs normalized by
    ``normalize_epochs``).
    A warm run is timed, and one more runs under ``torch.profiler`` for
-   the device time by kernel and the device's busy share.  Then the
+   the device time by kernel and the device's busy share.  The
+   observability check: with a ``MemorySink`` on, ``prepare_fcma_data``
+   must emit ``fcma.epoch_norm`` spans and ``run('svm')`` the spans
+   ``fcma.voxel_selection``, one ``fcma.block`` and ``fcma.svm_cv``
+   inside the first, every record valid under the port's
+   ``validate_record``; warm runs with obs disabled and with the sink
+   are timed in turns, and one profiled run of each must make the same
+   number of kernel launches.  Then the
    host-CV branch, ``run(clf)`` with a precomputed-kernel classifier,
    which goes through K3 per block of voxels (``voxel_unit`` 128 and
    the default 256): every K3 launch must take the tensor-core kernel.
@@ -148,7 +155,8 @@ first one that goes wrong:
    which must take the tensor-core kernel, and one split of its one
    operand); held against the plain product in row slabs; warm
    seconds, K5's device time in a profiled run, peak device memory
-   with the split buffers.
+   with the split buffers.  Its cold run, under a ``MemorySink``, must
+   emit one ``distla.gram`` span (``kind`` "summa").
 10. Ring path B: the same data on a 4-position mesh of the one card
    (16 K5 launches, owners other than 0, all on the tensor-core
    kernel, and 4 splits: each shard once), held against path A.
@@ -157,7 +165,21 @@ first one that goes wrong:
    mesh (8 K5 launches, all on the tensor-core kernel, 16 splits),
    held against ``isfc(data)`` without a mesh; ``isc`` leave-one-out
    and pairwise on the same data.
-12. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
+12. The resilient-fit contract on the card: ``run_resilient_loop``
+   (40 steps, a checkpoint every 5) over ``make_device_carry_chunk``
+   of a power iteration ``v <- G v / |G v|`` on v [8192, 16], G the
+   [8192, 8192] Gram of a [600, 8192] subject by ``distla.gram(mesh=)``
+   (K5), TF32 off.  A preempted run (``faults.inject("preempt",
+   at_step=20)``) resumed from its checkpoint, a NaN at step 15 rolled
+   back, and an Inf caught by the sanitizer lane
+   (``BRAINIAK_TPU_SANITIZE=1``) and rolled back must each end bit for
+   bit on the reference run's iterates; a chunk that is NaN every time
+   must abort with ``DivergenceError``, a ``divergence_abort`` event
+   and a flight dump; ``call_checked`` must trip on an Inf in a CUDA
+   tensor; ``hbm_peak_bytes`` after the first chunk must equal the
+   growth of ``torch.cuda.max_memory_allocated()`` across it.  The
+   reference run's chunk and checkpoint seconds are printed.
+13. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
    not there while the paths above are timed).
@@ -1095,7 +1117,11 @@ def profile_run(torch, vs, label, t_warm, top=6, k1_kernels=K1_KERNELS,
 
 
 def run_path(torch, label, images, conditions, mask1, mask2, n_folds,
-             n_check):
+             n_check, prep_records=None):
+    """One FCMA path: ``prepare_fcma_data`` then ``run('svm')``, cold
+    and warm.  With a ``prep_records`` list, a MemorySink is on while
+    ``prepare_fcma_data`` runs and its records are added to the list."""
+    from brainiak_tpu_torch import obs
     from brainiak_tpu_torch.fcma import prepare_fcma_data
     from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
     from brainiak_tpu_torch.ops import fcma_kernels as fk
@@ -1104,10 +1130,15 @@ def run_path(torch, label, images, conditions, mask1, mask2, n_folds,
     torch.cuda.reset_peak_memory_stats()
     fk.reset_launches()
     en.reset_launches()
+    mem = obs.add_sink(obs.MemorySink()) if prep_records is not None \
+        else None
     t0 = time.perf_counter()
     raw1, raw2, labels = prepare_fcma_data(images, conditions, mask1,
                                            mask2)
     t_prep = time.perf_counter() - t0
+    if mem is not None:
+        obs.remove_sink(mem)
+        prep_records.extend(mem.records)
     vs = VoxelSelector(labels, 4, n_folds, raw1, raw_data2=raw2)
     results = vs.run('svm')
     torch.cuda.synchronize()
@@ -1712,6 +1743,7 @@ def profile_once(torch, fn, kernels):
 def run_ring_paths(torch, rows, n_t=600, n_v=65536):
     """Ring paths A and B on one whole-brain subject (T=600, V=65,536,
     the 64x64x16 volume)."""
+    from brainiak_tpu_torch import obs
     from brainiak_tpu_torch.ops import distla
     from brainiak_tpu_torch.ops.kernels import ring as kr
     from brainiak_tpu_torch.parallel import make_mesh
@@ -1726,10 +1758,15 @@ def run_ring_paths(torch, rows, n_t=600, n_v=65536):
 
     torch.cuda.reset_peak_memory_stats()
     kr.reset_launches()
+    mem = obs.add_sink(obs.MemorySink())
     t0 = time.perf_counter()
     out = distla.gram(data, mesh=mesh1)
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
+    obs.remove_sink(mem)
+    check_spans("ring path A", mem.records, [
+        ("distla.gram", "", {"n_voxels": n_v, "n_shards": 1,
+                             "kind": "summa"})])
     launches = kr.launches()
     rows["ring_mma"]["launches"] = kr.launches("tc")
     rows["ring_split"]["launches"] = kr.launches("split")
@@ -1865,6 +1902,313 @@ def run_isfc_path(torch, rows, n_s=8, n_t=600, n_v=8192):
         fail("isc does not find the planted shared signal")
 
 
+# -- observability and the resilient-fit contract ---------------------
+
+FIT_NAME = "fit_contract"
+
+
+def check_spans(label, records, want):
+    """Every record passes the port's ``validate_record``, and the span
+    records are ``want``: ``[(name, parent path, attrs)]`` in order
+    (attrs None to skip them)."""
+    from brainiak_tpu_torch.obs import validate_record
+
+    for rec in records:
+        errors = validate_record(rec)
+        if errors:
+            fail(f"{label}: a {rec.get('kind')} record {rec.get('name')!r} "
+                 f"fails the record schema: {errors}")
+    got = [(r["name"], r["path"].rpartition("/")[0], r.get("attrs"))
+           for r in records if r["kind"] == "span"]
+    if len(got) != len(want) or any(
+            g[:2] != w[:2] or (w[2] is not None and g[2] != w[2])
+            for g, w in zip(got, want)):
+        fail(f"{label}: spans {got}, want {want}")
+    log(f"  {label}: spans {[(n, p) for n, p, _ in got]}, "
+        f"{len(records)} records, all valid")
+
+
+def launch_counts(torch, prof):
+    """(kernel launches the host made, kernels the device ran) in a
+    finished profile, from its raw events: the host's count is the
+    runtime's launch calls, which the device activity buffers cannot
+    drop."""
+    host = device = 0
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            if not name.startswith(("Memcpy", "Memset", "ProfilerStep")):
+                device += 1
+        elif "LaunchKernel" in name:
+            host += 1
+    return host, device
+
+
+def run_obs_cost(torch, vs, prep_records, smi):
+    """The whole-brain selection with obs disabled and with a
+    MemorySink: the spans (``fcma.epoch_norm`` while preparing, then
+    ``fcma.voxel_selection`` with one ``fcma.block`` and ``fcma.svm_cv``
+    in it), warm seconds in turns (off, on, on, off) and the kernel
+    launches of one profiled run each, which must be equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brainiak_tpu_torch import obs
+
+    epoch_norm = [r for r in prep_records if r["kind"] == "span"]
+    check_spans("prepare_fcma_data (whole brain)", prep_records,
+                [("fcma.epoch_norm", "", None)] * max(len(epoch_norm), 1))
+    n_v = vs.num_voxels
+    want = [("fcma.block", "fcma.voxel_selection", {"start": 0}),
+            ("fcma.svm_cv", "fcma.voxel_selection", {"n_voxels": n_v}),
+            ("fcma.voxel_selection", "", {"clf": "svm", "n_voxels": n_v})]
+    secs = {"off": [], "on": []}
+    for lane in ("off", "on", "on", "off"):
+        mem = obs.add_sink(obs.MemorySink()) if lane == "on" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vs.run('svm')
+        torch.cuda.synchronize()
+        secs[lane].append(time.perf_counter() - t0)
+        if mem is not None:
+            obs.remove_sink(mem)
+            check_spans("whole brain run('svm')", mem.records, want)
+    counts = {}
+    for lane in ("off", "on"):
+        mem = obs.add_sink(obs.MemorySink()) if lane == "on" else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            vs.run('svm')
+            torch.cuda.synchronize()
+        if mem is not None:
+            obs.remove_sink(mem)
+        counts[lane] = launch_counts(torch, prof)
+    log(f"obs cost, whole brain warm run('svm') ({smi}): obs disabled "
+        f"{secs['off'][0]:.4f} s, {secs['off'][1]:.4f} s; MemorySink "
+        f"{secs['on'][0]:.4f} s, {secs['on'][1]:.4f} s; kernel launches "
+        f"in a profiled run (host launch calls, device kernels seen): "
+        f"disabled {counts['off']}, MemorySink {counts['on']}")
+    if counts["off"][0] < 1 or counts["off"][0] != counts["on"][0]:
+        fail("obs changed the kernels that run('svm') launches: "
+             f"{counts}")
+    if counts["off"][1] != counts["on"][1]:
+        log("  the profiler's device activity saw a different number of "
+            "kernels in the two runs (its buffers drop records); the "
+            "host's launch calls are equal")
+
+
+def power_chunk(torch, g, plant=None):
+    """A chunk for ``make_device_carry_chunk``: ``n_steps`` times
+    ``v <- G v`` with each column scaled to unit norm; ``plant(v)``, if
+    given, edits the chunk's output."""
+    def chunk(leaves, n_steps):
+        (v,) = leaves
+        for _ in range(n_steps):
+            v = g @ v
+            v = v / torch.linalg.vector_norm(v, dim=0)
+        return (plant(v) if plant is not None else v,)
+    return chunk
+
+
+def events(records, name):
+    return [r for r in records if r["kind"] == "event" and r["name"] == name]
+
+
+def run_fit_contract(torch, smi, dev="cuda", n_t=600, n_v=8192, n_cols=16,
+                     n_iter=40, every=5):
+    """The resilient-fit contract on the card: ``run_resilient_loop``
+    over ``make_device_carry_chunk`` of a power iteration on the
+    [n_v, n_v] Gram of one subject (``distla.gram(mesh=)``, K5), TF32
+    off.  A reference run; a preempted run resumed from its checkpoint;
+    a NaN rolled back; a chunk that is NaN every time, aborted; an Inf
+    caught by the sanitizer lane; the memory watermark against
+    ``max_memory_allocated``.  Fails on any miss."""
+    import os
+    import tempfile
+
+    from brainiak_tpu_torch import obs
+    from brainiak_tpu_torch.obs import flight, sanitize
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+    from brainiak_tpu_torch.parallel import make_mesh
+    from brainiak_tpu_torch.resilience import faults, guards
+
+    rng = np.random.default_rng(SEED + 6)
+    data = rng.standard_normal((n_t, n_v), dtype=np.float32)
+    v0 = rng.standard_normal((n_v, n_cols), dtype=np.float32)
+    kr.reset_launches()
+    g = distla.gram(data, mesh=make_mesh(("voxel",), (1,), devices=[dev]),
+                    force="summa", device=dev)
+    torch.cuda.synchronize()
+    if kr.launches() < 1 or kr.launches("tc") != kr.launches():
+        fail(f"fit contract: the Gram did not run K5's tensor-core "
+             f"kernel alone ({kr.launches('tc')} of {kr.launches()})")
+    log(f"fit contract: G [{n_v}, {n_v}] of [{n_t}, {n_v}] by "
+        f"distla.gram(mesh=), K5 launches {kr.launches('tc')}; v "
+        f"[{n_v}, {n_cols}], {n_iter} steps, a chunk of {every}")
+
+    with tempfile.TemporaryDirectory(prefix="fit_contract_") as root:
+        os.environ[flight.FLIGHT_DIR_ENV] = os.path.join(root, "incidents")
+
+        def fit(chunk_fn, sub=None, **kw):
+            run_chunk, final = guards.make_device_carry_chunk(
+                chunk_fn, ("v",), device=dev)
+            ckpt = os.path.join(root, sub) if sub else None
+            state, step = guards.run_resilient_loop(
+                run_chunk, {"v": v0}, n_iter, checkpoint_every=every,
+                checkpoint_dir=ckpt, name=FIT_NAME, **kw)
+            return state, step, final
+
+        def same(label, state, ref):
+            diff = np.abs(state["v"].astype(np.float64) - ref)
+            log(f"  {label}: bit-identical to the reference run: "
+                f"{np.array_equal(state['v'], ref)} (max diff "
+                f"{diff.max():.3e}, {int((diff != 0).sum())} entries differ)")
+            if not np.array_equal(state["v"], ref):
+                fail(f"fit contract: {label} does not reproduce the "
+                     "reference run's iterates bit for bit")
+
+        # the reference run, with a MemorySink and a measured first chunk
+        growth = []
+        run_chunk, final = guards.make_device_carry_chunk(
+            power_chunk(torch, g), ("v",), device=dev)
+
+        def measured(state, step, n_steps):
+            before = torch.cuda.max_memory_allocated()
+            out = run_chunk(state, step, n_steps)
+            growth.append(torch.cuda.max_memory_allocated() - before)
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        mem = obs.add_sink(obs.MemorySink())
+        t0 = time.perf_counter()
+        ref, step = guards.run_resilient_loop(
+            measured, {"v": v0}, n_iter, checkpoint_every=every,
+            checkpoint_dir=os.path.join(root, "ref"), name=FIT_NAME)
+        t_ref = time.perf_counter() - t0
+        obs.remove_sink(mem)
+        check_spans("fit contract, reference run", mem.records,
+                    [("fit_chunk", "", None)] * (n_iter // every))
+        if step != n_iter or not np.all(np.isfinite(ref["v"])):
+            fail(f"fit contract: the reference run ended at {step}")
+        if not torch.equal(final(ref, step)[0].cpu(),
+                           torch.from_numpy(ref["v"])):
+            fail("fit contract: the carried device leaves are not the "
+                 "host state")
+        ref = ref["v"].astype(np.float64)
+        peaks = [r["value"] for r in mem.records
+                 if r["kind"] == "metric" and r["name"] == "hbm_peak_bytes"]
+        log(f"  watermark: hbm_peak_bytes{{estimator={FIT_NAME}}} after "
+            f"the first chunk {peaks[0]:.0f} bytes, max_memory_allocated "
+            f"grew {growth[0]} bytes across it")
+        if not peaks[0] > 0 or peaks[0] != growth[0]:
+            fail("fit contract: the watermark is not the growth of "
+                 "max_memory_allocated across the first chunk")
+        chunk_s = [r["chunk_s"] for r in mem.records
+                   if r["kind"] == "progress"]
+        ckpt_s = [r["value"] for r in mem.records
+                  if r["kind"] == "metric"
+                  and r["name"] == "checkpoint_seconds"]
+        log(f"  reference run ({smi}): {t_ref:.4f} s; chunk seconds "
+            f"{', '.join(f'{c:.5f}' for c in chunk_s)}; checkpoint_seconds "
+            f"mean {np.mean(ckpt_s):.5f} max {np.max(ckpt_s):.5f} over "
+            f"{len(ckpt_s)} saves of {n_v * n_cols * 4} bytes")
+
+        # one uninterrupted run of the same steps, outside the loop
+        v = torch.from_numpy(v0).to(dev)
+        v = power_chunk(torch, g)((v,), n_iter)[0]
+        plain = v.cpu().numpy().astype(np.float64)
+        log(f"  {n_iter} steps in one chunk, outside the loop: "
+            f"bit-identical to the reference run "
+            f"{np.array_equal(plain, ref)} (max diff "
+            f"{np.abs(plain - ref).max():.3e})")
+
+        # preemption at step 20, then a resume from the checkpoint
+        mem = obs.add_sink(obs.MemorySink())
+        with faults.inject("preempt", at_step=20) as fault:
+            try:
+                fit(power_chunk(torch, g), "preempt")
+            except faults.PreemptionError as exc:
+                log(f"  preempted: {exc}")
+        if fault.fired != 1:
+            fail("fit contract: the preempt fault did not fire")
+        resumed, step, _ = fit(power_chunk(torch, g), "preempt")
+        obs.remove_sink(mem)
+        resume = events(mem.records, "resume")
+        if len(resume) != 1 or resume[0]["attrs"]["step"] != 20 or \
+                step != n_iter:
+            fail(f"fit contract: the resume is wrong: {resume}, step "
+                 f"{step}")
+        same("resumed at step 20", resumed, ref)
+
+        # a NaN at step 15, rolled back
+        mem = obs.add_sink(obs.MemorySink())
+        with faults.inject("nan", at_step=15) as fault:
+            rolled, step, _ = fit(power_chunk(torch, g))
+        obs.remove_sink(mem)
+        rollback = events(mem.records, "rollback")
+        if fault.fired != 1 or len(rollback) != 1 or \
+                rollback[0]["attrs"]["to_step"] != 10:
+            fail(f"fit contract: the NaN was not rolled back once: "
+                 f"{rollback}")
+        same("NaN at step 15 rolled back", rolled, ref)
+
+        # a chunk that is NaN every time: DivergenceError, a flight dump
+        mem = obs.add_sink(obs.MemorySink())
+        try:
+            fit(power_chunk(torch, g,
+                            lambda v: torch.full_like(v, float("nan"))),
+                max_rollbacks=2)
+        except guards.DivergenceError as exc:
+            log(f"  abort: {exc}")
+        obs.remove_sink(mem)
+        abort = events(mem.records, "divergence_abort")
+        dump = flight.last_dump(fit_id=abort[0]["fit_id"]) if abort \
+            else None
+        if len(abort) != 1 or len(events(mem.records, "rollback")) != 2 \
+                or dump is None or dump["trigger"] != "divergence_abort" \
+                or not os.path.exists(os.path.join(dump["path"],
+                                                   "manifest.json")):
+            fail(f"fit contract: no divergence abort with a flight dump "
+                 f"({abort}, {dump})")
+        log(f"  divergence_abort after 2 rollbacks, flight dump "
+            f"{os.path.basename(dump['path'])}")
+
+        # the sanitizer lane: an Inf in a CUDA output
+        os.environ["BRAINIAK_TPU_SANITIZE"] = "1"
+        try:
+            x = torch.ones(n_cols, device=dev)
+            x[3] = float("inf")
+            err, _ = sanitize.call_checked(lambda t: {"v": t * 2}, (x,),
+                                           site=FIT_NAME, scope="chip_smoke")
+            if err is None:
+                fail("fit contract: call_checked let an Inf through")
+            log(f"  sanitizer on a CUDA output: {err}")
+            calls = []
+
+            def plant_once(v):
+                calls.append(1)
+                if len(calls) == 3:
+                    v = v.clone()
+                    v[0, 0] = float("inf")
+                return v
+
+            mem = obs.add_sink(obs.MemorySink())
+            caught, step, _ = fit(power_chunk(torch, g, plant_once))
+            obs.remove_sink(mem)
+        finally:
+            del os.environ["BRAINIAK_TPU_SANITIZE"]
+        trips = events(mem.records, "sanitizer")
+        rollback = events(mem.records, "rollback")
+        if len(trips) != 1 or len(rollback) != 1 or not \
+                rollback[0]["attrs"]["leaves"][0].startswith("sanitizer:"):
+            fail(f"fit contract: the sanitizer lane did not trip once "
+                 f"and roll back: {trips}, {rollback}")
+        same("Inf caught by the sanitizer lane, rolled back", caught, ref)
+        del os.environ[flight.FLIGHT_DIR_ENV]
+    del g
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -1881,7 +2225,8 @@ def main():
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}")
-    log(nvidia_smi())
+    smi = nvidia_smi()
+    log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -1904,9 +2249,11 @@ def main():
                                           planted_v)
     mask1 = np.zeros(shape, dtype=bool)
     mask1.flat[sel] = True
+    prep_records = []
     vs, accs, launches = run_path(torch, "whole brain", images,
                                   conditions, mask1,
-                                  np.ones(shape, dtype=bool), 4, 256)
+                                  np.ones(shape, dtype=bool), 4, 256,
+                                  prep_records)
     top = set(np.argsort(-accs, kind="stable")[:16].tolist())
     log(f"  planted voxels in the top 16: {len(top & set(range(16)))}"
         f"/16; mean accuracy of the rest {accs[16:].mean():.3f}")
@@ -1917,6 +2264,7 @@ def main():
              f"{launches['fcma_gram_tc']} times, not once")
     rows["fcma_gram"]["launches"] = launches["fcma_gram_tc"]
     rows["epoch_zscore"]["launches"] = launches["epoch_zscore_tile"]
+    run_obs_cost(torch, vs, prep_records, smi)
     # fcma_corr.cu's K1 over the FCMA paths (whole brain, one mask,
     # long subjects; the last takes fcma_gram_tcm.cu alone, or
     # run_long_subjects fails)
@@ -2037,6 +2385,7 @@ def main():
     run_ring_paths(torch, rows)
     run_isfc_path(torch, rows)
     torch.cuda.empty_cache()
+    run_fit_contract(torch, smi)
     run_ingest_split(torch, dev)
 
     csrc = "brainiak_tpu_torch/csrc/"

@@ -17,15 +17,19 @@ import numpy as np
 import pytest
 import torch
 
+from brainiak_tpu.obs import sink as jsink
 from brainiak_tpu.ops import distla as jdistla
 from brainiak_tpu.ops import ring as jring
 from brainiak_tpu.ops.kernels import ring as jkring
 from brainiak_tpu.parallel import compat as jcompat
 from brainiak_tpu.parallel import make_mesh as jmake_mesh
+from brainiak_tpu_torch.obs import sink as tsink
+from brainiak_tpu_torch.obs import spans as tspans
 from brainiak_tpu_torch.ops import distla
 from brainiak_tpu_torch.ops import ring as tring
 from brainiak_tpu_torch.ops.kernels import ring as kring
 from brainiak_tpu_torch.parallel import mesh as tmesh
+from torch_obs_state import clean_obs, span_tree  # noqa: F401
 
 ATOL = 1e-5
 
@@ -398,3 +402,34 @@ def test_shard_along_and_fetch_round_trip():
         tmesh.shard_along(arr[:, :7], mesh, "voxel", 1)
     with pytest.raises(ValueError, match="not in mesh"):
         tmesh.axis_devices(mesh, ("row",))
+
+
+def test_gram_spans_match_jax(clean_obs, jax_ring, monkeypatch):  # noqa: F811
+    """``distla.gram`` emits the JAX package's ``distla.gram`` span on
+    both branches: the replicated product (``kind`` "replicated", one
+    shard) and the ring (``kind`` "summa", the ring's positions), with
+    no synchronize; nothing while obs is disabled."""
+    data = _data(12, 16, 38)
+    syncs = []
+    monkeypatch.setattr(tspans, "_block_until_ready", syncs.append)
+    distla.gram(data, mesh=_cpu_mesh(), force="summa", device="cpu")
+    trees = {}
+    for name, snk in (("jax", jsink), ("torch", tsink)):
+        mem = snk.add_sink(snk.MemorySink())
+        if name == "jax":
+            mesh = jmake_mesh(("voxel",), (4,))
+            jdistla.gram(data, mesh=mesh, force="replicated")
+            jdistla.gram(data, mesh=mesh, force="summa")
+        else:
+            distla.gram(data, mesh=_cpu_mesh(), force="replicated",
+                        device="cpu")
+            distla.gram(data, mesh=_cpu_mesh(), force="summa",
+                        device="cpu")
+        snk.remove_sink(mem)
+        trees[name] = span_tree(mem.records)
+    assert trees["torch"] == trees["jax"] == [
+        ("distla.gram", "", {"n_voxels": 38, "n_shards": 1,
+                             "kind": "replicated"}),
+        ("distla.gram", "", {"n_voxels": 38, "n_shards": 4,
+                             "kind": "summa"})]
+    assert syncs == []

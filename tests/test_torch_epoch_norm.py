@@ -16,9 +16,13 @@ import pytest
 import torch
 
 from brainiak_tpu.fcma import preprocessing as jprep
+from brainiak_tpu.obs import sink as jsink
 from brainiak_tpu.ops.kernels import epoch_norm as jnorm
 from brainiak_tpu_torch.fcma import preprocessing as tprep
+from brainiak_tpu_torch.obs import sink as tsink
+from brainiak_tpu_torch.obs import spans as tspans
 from brainiak_tpu_torch.ops.kernels import epoch_norm as tnorm
+from torch_obs_state import clean_obs, span_tree  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32, F64 = torch.float32, torch.float64
@@ -185,3 +189,34 @@ def test_ptxas_summary_names_the_tile_kernels():
         f"epoch_zscore_tile_kernel<double,0>: 40 registers; {spill}",
         f"epoch_zscore_kernel<float>: 20 registers; {spill}",
         f"fcma_gram_tc_kernel<16,32>: 128 registers; {spill}"]
+
+
+def test_normalize_epochs_spans_match_jax(clean_obs, monkeypatch):  # noqa: F811
+    """One ``fcma.epoch_norm`` span a shape group, with the JAX
+    package's attributes (its device path forced, as on the TPU),
+    the groups in the same order; none while obs is disabled, and no
+    synchronize either way."""
+    monkeypatch.setenv(jnorm.EPOCH_NORM_ENV, "device")
+    rng = np.random.RandomState(3)
+    mats = [rng.randn(12, 40).astype(np.float32) for _ in range(3)] + \
+        [rng.randn(8, 40).astype(np.float32)] + \
+        [rng.randn(12, 40).astype(np.float32)]
+    syncs = []
+    monkeypatch.setattr(tspans, "_block_until_ready", syncs.append)
+    tnorm.normalize_epochs(mats, device="cpu")
+    trees = {}
+    for name, snk, fn in (
+            ("jax", jsink, jnorm.normalize_epochs),
+            ("torch", tsink, lambda m: tnorm.normalize_epochs(
+                m, device="cpu"))):
+        mem = snk.add_sink(snk.MemorySink())
+        out = fn(mats)
+        snk.remove_sink(mem)
+        assert len(out) == 5
+        trees[name] = span_tree(mem.records)
+    assert trees["torch"] == trees["jax"] == [
+        ("fcma.epoch_norm", "", {"n_epochs": 4, "n_trs": 12,
+                                 "n_voxels": 40}),
+        ("fcma.epoch_norm", "", {"n_epochs": 1, "n_trs": 8,
+                                 "n_voxels": 40})]
+    assert syncs == []

@@ -1508,3 +1508,107 @@ def test_isfc_mesh_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     dense = tisc.isfc(data, vectorize_isfcs=False)
     np.testing.assert_allclose(got, dense, atol=1e-5, rtol=0)
+
+
+# -- the resilient-fit contract on the card ---------------------------
+
+def _fit_gram(v=1024, t=60, seed=11):
+    """G [v, v], the Gram of one [t, v] subject by the one-position
+    ring on the card (K5), and v0 [v, 8]: float32, from a numpy seed."""
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.ops.kernels import ring as kring
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    rng = np.random.RandomState(seed)
+    data = rng.randn(t, v).astype(np.float32)
+    kring.reset_launches()
+    g = distla.gram(data, mesh=make_mesh(("voxel",), (-1,),
+                                         devices=["cuda"]), force="summa")
+    assert kring.launches("tc") == 1
+    return g, rng.randn(v, 8).astype(np.float32)
+
+
+def _power(g):
+    def chunk(leaves, n_steps):
+        (v,) = leaves
+        for _ in range(n_steps):
+            v = g @ v
+            v = v / torch.linalg.vector_norm(v, dim=0)
+        return (v,)
+    return chunk
+
+
+def _fit(g, v0, ckpt=None, n_iter=20):
+    from brainiak_tpu_torch.resilience import guards
+
+    run_chunk, final = guards.make_device_carry_chunk(_power(g), ("v",))
+    state, step = guards.run_resilient_loop(
+        run_chunk, {"v": v0}, n_iter, checkpoint_every=5,
+        checkpoint_dir=ckpt, name="gpu.fit")
+    assert step == n_iter
+    assert torch.equal(final(state, step)[0].cpu(),
+                       torch.from_numpy(state["v"]))
+    return state["v"]
+
+
+def test_fit_contract_resume_is_bit_for_bit(cuda, tmp_path):
+    """A fit preempted at step 10 and resumed from its checkpoint ends
+    on the uninterrupted fit's iterates, bit for bit."""
+    from brainiak_tpu_torch.resilience import faults
+
+    g, v0 = _fit_gram()
+    ref = _fit(g, v0, str(tmp_path / "ref"))
+    with faults.inject("preempt", at_step=10) as fault:
+        with pytest.raises(faults.PreemptionError):
+            _fit(g, v0, str(tmp_path / "cut"))
+    assert fault.fired == 1
+    assert np.array_equal(_fit(g, v0, str(tmp_path / "cut")), ref)
+
+
+def test_fit_contract_rollback_is_bit_for_bit(cuda):
+    """A NaN at step 10 is rolled back once, and the fit ends on the
+    uninterrupted fit's iterates, bit for bit."""
+    from brainiak_tpu_torch.obs import sink
+    from brainiak_tpu_torch.resilience import faults
+
+    g, v0 = _fit_gram()
+    ref = _fit(g, v0)
+    mem = sink.add_sink(sink.MemorySink())
+    try:
+        with faults.inject("nan", at_step=10) as fault:
+            got = _fit(g, v0)
+    finally:
+        sink.remove_sink(mem)
+    assert fault.fired == 1
+    assert [r["attrs"]["to_step"] for r in mem.records
+            if r["name"] == "rollback"] == [5]
+    assert np.array_equal(got, ref)
+
+
+def test_fit_contract_watermark_is_the_allocator_growth(cuda):
+    """``hbm_peak_bytes`` after the first chunk is the growth of
+    ``torch.cuda.max_memory_allocated`` across it, and > 0."""
+    from brainiak_tpu_torch.obs import sink
+    from brainiak_tpu_torch.resilience import guards
+
+    g, v0 = _fit_gram()
+    run_chunk, _ = guards.make_device_carry_chunk(_power(g), ("v",))
+    growth = []
+
+    def measured(state, step, n_steps):
+        before = torch.cuda.max_memory_allocated()
+        out = run_chunk(state, step, n_steps)
+        growth.append(torch.cuda.max_memory_allocated() - before)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    mem = sink.add_sink(sink.MemorySink())
+    try:
+        guards.run_resilient_loop(measured, {"v": v0}, 10,
+                                  checkpoint_every=5, name="gpu.fit")
+    finally:
+        sink.remove_sink(mem)
+    peaks = [r["value"] for r in mem.records
+             if r["kind"] == "metric" and r["name"] == "hbm_peak_bytes"]
+    assert len(peaks) == 2
+    assert peaks[0] > 0 and peaks[0] == growth[0]

@@ -26,9 +26,14 @@ from sklearn.linear_model import LogisticRegression
 
 from brainiak_tpu.fcma import preprocessing as jprep
 from brainiak_tpu.fcma.voxelselector import VoxelSelector as JaxSelector
+from brainiak_tpu.obs import sink as jsink
+from brainiak_tpu.ops.kernels import epoch_norm as jnorm
 from brainiak_tpu_torch.convert import voxel_selector_from_jax
 from brainiak_tpu_torch.fcma import preprocessing as tprep
 from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+from brainiak_tpu_torch.obs import sink as tsink
+from brainiak_tpu_torch.obs import spans as tspans
+from torch_obs_state import clean_obs, span_tree  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -367,6 +372,20 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.parallel.mesh\n"
         "import brainiak_tpu_torch.stats.pvalues\n"
         "import brainiak_tpu_torch.utils.utils\n"
+        "import brainiak_tpu_torch.utils.checkpoint\n"
+        "import brainiak_tpu_torch.obs\n"
+        "import brainiak_tpu_torch.obs.flight\n"
+        "import brainiak_tpu_torch.obs.metrics\n"
+        "import brainiak_tpu_torch.obs.profile\n"
+        "import brainiak_tpu_torch.obs.progress\n"
+        "import brainiak_tpu_torch.obs.sanitize\n"
+        "import brainiak_tpu_torch.obs.sink\n"
+        "import brainiak_tpu_torch.obs.sketch\n"
+        "import brainiak_tpu_torch.obs.spans\n"
+        "import brainiak_tpu_torch.resilience\n"
+        "import brainiak_tpu_torch.resilience.faults\n"
+        "import brainiak_tpu_torch.resilience.guards\n"
+        "import brainiak_tpu_torch.resilience.retry\n"
         "bad = [m for m in sys.modules if m in ('jax', 'brainiak_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib', 'brainiak_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -386,12 +405,20 @@ def _imported_modules(path):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+        elif isinstance(node, ast.Call) and \
+                isinstance(node.func, ast.Attribute) and \
+                node.func.attr == "get" and \
+                ast.unparse(node.func.value) == "sys.modules" and \
+                node.args and isinstance(node.args[0], ast.Constant):
+            # sys.modules.get("jax"): reaching for jax without an import
+            yield node.args[0].value
 
 
 def test_no_line_of_the_port_or_chip_smoke_imports_jax():
     """No import statement anywhere in the port's sources or in
     chip_smoke.py names jax or the JAX package, even in a function
-    body that the subprocess test above does not run."""
+    body that the subprocess test above does not run; nor does any
+    look jax up in ``sys.modules``."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "brainiak_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -400,3 +427,81 @@ def test_no_line_of_the_port_or_chip_smoke_imports_jax():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "brainiak_tpu"), (path, mod)
+
+
+def test_the_import_scan_sees_a_sys_modules_lookup(tmp_path):
+    path = tmp_path / "probe.py"
+    path.write_text("import sys\n"
+                    "def f():\n"
+                    "    return sys.modules.get(\"jax\")\n")
+    assert list(_imported_modules(str(path))) == ["sys", "jax"]
+
+
+def _selection_spans(package, clf, monkeypatch):
+    """``prepare_fcma_data`` then ``run(clf)`` in one package under a
+    MemorySink; returns the span tree (names, parents, attributes)."""
+    monkeypatch.setenv(jnorm.EPOCH_NORM_ENV, "device")  # the JAX groups
+    images, conds, mask1, mask2 = _synthetic(1)
+    snk = jsink if package == "jax" else tsink
+    mem = snk.add_sink(snk.MemorySink())
+    try:
+        if package == "jax":
+            raw1, raw2, labels = jprep.prepare_fcma_data(
+                images, conds, mask1, mask2)
+            vs = JaxSelector(labels, 4, 3, raw1, raw_data2=raw2,
+                             voxel_unit=4, use_pallas=False)
+        else:
+            raw1, raw2, labels = tprep.prepare_fcma_data(
+                images, conds, mask1, mask2, device="cpu")
+            vs = VoxelSelector(labels, 4, 3, raw1, raw_data2=raw2,
+                               voxel_unit=4, device="cpu")
+        vs.run(clf)
+    finally:
+        snk.remove_sink(mem)
+    for rec in mem.records:
+        assert tsink.validate_record(rec) == []
+        assert jsink.validate_record(rec) == []
+    return span_tree(mem.records)
+
+
+@pytest.mark.parametrize("clf", ["svm", "precomputed", "logistic"])
+def test_spans_match_jax(clean_obs, monkeypatch, clf):  # noqa: F811
+    """The port's selection emits the JAX package's spans block for
+    block: ``fcma.epoch_norm`` per epoch shape while preparing, then
+    ``fcma.voxel_selection`` with one ``fcma.block`` per voxel block
+    and, for the on-device SVM, ``fcma.svm_cv`` inside it."""
+    make = {"svm": lambda: "svm",
+            "precomputed": lambda: svm.SVC(kernel='precomputed',
+                                           shrinking=False, C=1),
+            "logistic": LogisticRegression}[clf]
+    want = _selection_spans("jax", make(), monkeypatch)
+    got = _selection_spans("torch", make(), monkeypatch)
+    assert got == want
+    names = [name for name, _, _ in got]
+    assert names.count("fcma.block") == 3  # 10 voxels, voxel_unit 4
+    assert names[-1] == "fcma.voxel_selection"
+    assert ("fcma.svm_cv" in names) == (clf == "svm")
+    assert ("fcma.epoch_norm", "", {"n_epochs": 12, "n_trs": 8,
+                                    "n_voxels": 10}) in got
+
+
+def test_selection_adds_no_synchronize(clean_obs, monkeypatch):  # noqa: F811
+    """With obs disabled the selection path calls the spans' sync
+    helper (and ``torch.cuda.synchronize``) no time; with a sink on,
+    no time either: no span of the path has a sync target."""
+    calls = []
+    monkeypatch.setattr(tspans, "_block_until_ready", calls.append)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *args: calls.append(args))
+    images, conds, mask1, mask2 = _synthetic(2)
+    raw1, raw2, labels = tprep.prepare_fcma_data(
+        images, conds, mask1, mask2, device="cpu")
+    vs = VoxelSelector(labels, 4, 3, raw1, raw_data2=raw2, voxel_unit=4,
+                       device="cpu")
+    vs.run('svm')
+    vs.run(LogisticRegression())
+    assert calls == []
+    mem = tsink.add_sink(tsink.MemorySink())
+    vs.run('svm')
+    tsink.remove_sink(mem)
+    assert calls == [] and len(span_tree(mem.records)) == 5

@@ -2,18 +2,28 @@
 
 FCMA has no learned weights of its own: a voxel selector's state is
 its configuration and its epoch data, a classifier's its configuration,
-its host estimator and the arrays its fit left.  The functions here
-read a ``brainiak_tpu`` object by its attributes (duck typing, without
-importing the JAX package) and build the port's counterpart, so that
-both compute the same thing.
+its host estimator and the arrays its fit left.  A fitted SRM's are
+its maps ``w_`` and shared response ``s_`` (with ``sigma_s_``,
+``mu_``, ``rho2_`` and ``logprob_``), a DetSRM's ``w_``, ``s_`` and
+``objective_``.  The functions here read a ``brainiak_tpu`` object by
+its attributes (duck typing, without importing the JAX package) and
+build the port's counterpart, so that both compute the same thing.
 """
 
 import numpy as np
 
 from .fcma.classifier import Classifier
 from .fcma.voxelselector import VoxelSelector
+from .funcalign.srm import SRM, DetSRM
 
-__all__ = ["classifier_from_jax", "voxel_selector_from_jax"]
+__all__ = ["classifier_from_jax", "detsrm_from_jax", "srm_from_jax",
+           "voxel_selector_from_jax"]
+
+#: fitted attributes of the SRM estimators: per-subject lists, arrays,
+#: then floats
+_SRM_LISTS = ("w_", "mu_")
+_SRM_ARRAYS = ("s_", "sigma_s_", "rho2_")
+_SRM_FLOATS = ("logprob_", "objective_")
 
 #: fitted attributes of a Classifier: integers, then arrays (or None)
 _CLASSIFIER_COUNTS = ("num_digits_", "num_voxels_", "num_features_",
@@ -54,3 +64,36 @@ def classifier_from_jax(clf, device="cuda"):
             setattr(out, name, None if value is None else np.asarray(value))
     out.test_raw_data_ = None
     return out
+
+
+def _srm_from_jax(cls, model, device):
+    out = cls(n_iter=model.n_iter, features=model.features,
+              rand_seed=model.rand_seed, device=device)
+    for name in _SRM_LISTS:
+        if hasattr(model, name):
+            setattr(out, name, [np.asarray(a) for a in getattr(model,
+                                                               name)])
+    for name in _SRM_ARRAYS:
+        if hasattr(model, name):
+            setattr(out, name, np.asarray(getattr(model, name)))
+    for name in _SRM_FLOATS:
+        if hasattr(model, name):
+            setattr(out, name, float(getattr(model, name)))
+    return out
+
+
+def srm_from_jax(model, device="cuda"):
+    """The port's :class:`~brainiak_tpu_torch.funcalign.srm.SRM` with
+    the configuration (``n_iter``, ``features``, ``rand_seed``) and
+    the fitted state of the JAX package's ``model`` (host arrays
+    through ``np.asarray``), so that ``transform``,
+    ``transform_subject`` and ``save`` give what ``model``'s give.
+    The JAX model's mesh is not carried: it names JAX devices."""
+    return _srm_from_jax(SRM, model, device)
+
+
+def detsrm_from_jax(model, device="cuda"):
+    """The port's :class:`~brainiak_tpu_torch.funcalign.srm.DetSRM`
+    from the JAX package's fitted ``model``, as
+    :func:`srm_from_jax`."""
+    return _srm_from_jax(DetSRM, model, device)

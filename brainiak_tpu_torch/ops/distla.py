@@ -15,6 +15,13 @@ each step places one [V/n, V/n] block of the position's output rows.
   tensor.
 - :func:`gram`: the replicated product while the working set fits
   :func:`replicated_budget_bytes`, the ring over it.
+- :func:`panel_gram`: the checkpointable variant.  Row panels are
+  driven from the host through
+  :func:`~brainiak_tpu_torch.resilience.guards.run_resilient_loop`,
+  so a preempted Gram resumes at the last completed panel.
+- :func:`shard_vmap`, :func:`batched_eigh` and
+  :func:`batched_cholesky_solve`: per-subject small solves laid out
+  along a mesh's subject axis (SRM's W updates).
 
 The ring is a Python loop over the n steps; at each step every position
 launches one ring step, and then hands its panel to the next position
@@ -33,9 +40,8 @@ plain version on the CPU); ``"unfused"`` is the reference's three-stage
 formulation (per-step products stacked, transposed and scattered) with
 ``torch.matmul`` on either device.
 
-Not ported yet: ``panel_gram`` (with ``resilience/``), ``block_gram``
-(with ``VoxelSelector(mesh=, use_distla=)``), ``shard_vmap``,
-``batched_eigh`` and ``batched_cholesky_solve`` (with SRM).
+Not ported yet: ``block_gram`` (with ``VoxelSelector(mesh=,
+use_distla=)``).
 """
 
 import logging
@@ -47,7 +53,9 @@ import torch
 
 from ..device import matmul_precision, resolve_device
 from ..obs import spans as obs_spans
-from ..parallel.mesh import Sharded, shard_along
+from ..parallel.mesh import (DEFAULT_SUBJECT_AXIS, DEFAULT_VOXEL_AXIS,
+                             Sharded, axis_devices, shard_along)
+from ..resilience.guards import array_digest, run_resilient_loop
 from .kernels.ring import ring_mma, split
 
 logger = logging.getLogger(__name__)
@@ -56,8 +64,12 @@ __all__ = [
     "BUDGET_ENV",
     "DEFAULT_REPLICATED_BUDGET",
     "RING_STEPS",
+    "batched_cholesky_solve",
+    "batched_eigh",
     "gram",
+    "panel_gram",
     "replicated_budget_bytes",
+    "shard_vmap",
     "summa_gram",
     "summa_matmul",
 ]
@@ -330,3 +342,143 @@ def gram(data, mesh=None, data_b=None, axis_names=None, precision=None,
         z_b = z if data_b is None else norm(_f32(data_b).to(dev))
         with matmul_precision(precision) as dtype:
             return torch.matmul(z.T.to(dtype), z_b.to(dtype)).float()
+
+
+# -- checkpointable panel Gram ---------------------------------------
+
+def panel_gram(data, mesh, data_b=None, axis_name=DEFAULT_VOXEL_AXIS,
+               panel_size=None, checkpoint_dir=None,
+               checkpoint_every=1, precision=None,
+               name="distla.panel_gram"):
+    """Pearson Gram computed panel by panel under the resilient loop:
+    the checkpointable SUMMA variant.
+
+    The column-split operand (``data_b``, default ``data``) is
+    z-scored once on its mesh positions and stays there for the whole
+    loop; each step z-scores one host row panel of ``data``,
+    multiplies it against every position's columns (``torch.matmul``,
+    float32, TF32 off under the default precision) and lands the
+    finished [panel, V] rows in host state.  With ``checkpoint_dir``
+    the accumulated rows are saved every ``checkpoint_every`` panels
+    and a preempted run resumes at the last completed panel.  Each
+    panel runs under a ``distla.panel_chunk`` span (attributes
+    ``panel`` and ``rows``).  Returns the [V, V] float32 host array.
+
+    panel_size : rows a step (default: one shard width,
+        ``V_padded / n_shards``).
+    """
+    n_shards = mesh.shape[axis_name]
+    data = np.asarray(data)
+    data_b = data if data_b is None else np.asarray(data_b)
+    if data_b.shape != data.shape:
+        raise ValueError(
+            f"data_b shape {data_b.shape} != data shape {data.shape}")
+    t, v = data.shape
+    z_b = _normalized(data_b, n_shards, mesh, axis_name, _zscore_cols)
+    if panel_size is None:
+        panel_size = max(1, z_b.chunks[0].shape[1])
+    n_panels = -(-v // panel_size)
+
+    fingerprint = None
+    if checkpoint_dir is not None:
+        # data_b participates: a resume against the same data but
+        # another cross-correlation target must restart
+        fingerprint = np.array(
+            [array_digest(data), array_digest(data_b), float(t),
+             float(v), float(panel_size), float(n_shards)])
+
+    def run_chunk(state, step, n_steps):
+        # copy-on-write: the loop keeps the previous state as its
+        # rollback target.  The host reads are the point of this loop
+        # (finished rows land in checkpointable host state); the ring
+        # (summa_gram) is the path without them.
+        out = np.array(state["out"], copy=True)
+        for p in range(step, step + n_steps):
+            start = p * panel_size
+            stop = min(start + panel_size, v)
+            panel = np.zeros((t, panel_size), dtype=np.float32)
+            panel[:, :stop - start] = data[:, start:stop]
+            with obs_spans.span("distla.panel_chunk",
+                                attrs={"panel": p,
+                                       "rows": stop - start}):
+                rows = np.concatenate(
+                    [_panel_rows(panel, zc, precision)
+                     for zc in z_b.chunks], axis=1)
+            out[start:stop, :] = rows[:stop - start, :v]
+        return {"out": out}, False
+
+    # guard_skip: NaN rows are the propagation semantics for NaN
+    # voxels, not divergence; the loop is used for checkpoint and
+    # resume here, not for its non-finite guard
+    state, _ = run_resilient_loop(
+        run_chunk, {"out": np.zeros((v, v), dtype=np.float32)},
+        n_panels, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, fingerprint=fingerprint,
+        name=name, guard_skip=("out",))
+    return state["out"]
+
+
+def _panel_rows(panel, z_local, precision):
+    """The z-scored host ``panel`` [T, P] against one position's
+    z-scored columns: [P, V/n] on the host."""
+    zp = _zscore_cols(torch.from_numpy(panel).to(z_local.device))
+    with matmul_precision(precision) as dtype:
+        rows = torch.matmul(zp.T.to(dtype), z_local.to(dtype)).float()
+    return rows.cpu().numpy()
+
+
+# -- sharded batched small-matrix solves -----------------------------
+
+def shard_vmap(fn, mesh, axis_name, n_batch):
+    """``torch.func.vmap(fn)`` with the leading batch dimension laid
+    out along the mesh's ``axis_name``: each position runs the vmap on
+    its slice of the batch, on its own device (positions may repeat a
+    device), and the slices of each output are concatenated along dim
+    0 on the first position's device, in position order.  Without a
+    mesh, or when the axis is absent or trivial or does not divide
+    ``n_batch``, the plain vmap over the whole batch.  The positions
+    run one after another (one process drives the mesh)."""
+    mapped = torch.func.vmap(fn)
+    if mesh is None or axis_name not in getattr(mesh, "shape", {}) \
+            or mesh.shape[axis_name] <= 1 \
+            or n_batch % mesh.shape[axis_name]:
+        return mapped
+    devices = axis_devices(mesh, axis_name)
+    n = len(devices)
+
+    def run(*args):
+        pieces = [torch.tensor_split(a, n) for a in args]
+        outs = [mapped(*(p[k].to(dev) for p in pieces))
+                for k, dev in enumerate(devices)]
+        first = devices[0]
+        if isinstance(outs[0], torch.Tensor):
+            return torch.cat([o.to(first) for o in outs])
+        return tuple(torch.cat([o[i].to(first) for o in outs])
+                     for i in range(len(outs[0])))
+
+    return run
+
+
+def batched_eigh(mats, mesh=None, axis_name=DEFAULT_SUBJECT_AXIS):
+    """Eigendecomposition of a batch of symmetric matrices [S, K, K],
+    the batch laid out over the mesh's subject axis when it divides
+    it (:func:`shard_vmap`).  Returns ``(eigenvalues [S, K],
+    eigenvectors [S, K, K])``, eigenvalues ascending."""
+    return shard_vmap(torch.linalg.eigh, mesh, axis_name,
+                      mats.shape[0])(mats)
+
+
+def _cholesky_solve(a, b):
+    chol, _ = torch.linalg.cholesky_ex(a)
+    return torch.cholesky_solve(b, chol)
+
+
+def batched_cholesky_solve(mats, rhs, mesh=None,
+                           axis_name=DEFAULT_SUBJECT_AXIS):
+    """Solve ``mats[i] @ x[i] = rhs[i]`` for a batch of SPD matrices
+    [S, K, K] against [S, K, M] right-hand sides by a Cholesky factor
+    each (``torch.linalg.cholesky_ex``, whose error check is left to
+    the caller, so no host read), the batch laid out over the mesh's
+    subject axis when it divides it (:func:`shard_vmap`)."""
+    return shard_vmap(_cholesky_solve, mesh, axis_name,
+                      mats.shape[0])(mats, rhs)

@@ -182,7 +182,10 @@ def corrupt_state(state, step, site="fit"):
                 site, step)
     obs_sink.event("fault", kind="nan", site=site, step=step,
                    leaf=name)
-    poisoned = np.array(np.asarray(state[name]), dtype=float, copy=True)
+    # C order: a transposed tensor's host view is F-ordered, and
+    # reshape(-1) of that is a copy, which would drop the NaN
+    poisoned = np.array(np.asarray(state[name]), dtype=float, copy=True,
+                        order="C")
     poisoned.reshape(-1)[0] = np.nan
     out = dict(state)
     out[name] = poisoned

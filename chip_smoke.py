@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths (FCMA voxel selection and
-classification, the SUMMA ring Gram, ISC/ISFC) on one CUDA card.
+classification, the SUMMA ring Gram, ISC/ISFC, SRM, the FCMA file
+front end) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -179,7 +180,41 @@ first one that goes wrong:
    tensor; ``hbm_peak_bytes`` after the first chunk must equal the
    growth of ``torch.cuda.max_memory_allocated()`` across it.  The
    reference run's chunk and checkpoint seconds are printed.
-13. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
+13. The SRM fit contract on the card: ``SRM(n_iter=20,
+   features=50).fit`` of 8 subjects x 8,192 voxels x 300 TRs, a
+   checkpoint every 5 iterations, against the plain fit (within the
+   float32 bounds of phase 14; bit for bit in practice), a fit
+   preempted at step 10 and resumed, and a NaN at step 5 rolled back,
+   both bit for bit on the uninterrupted checkpointed fit; its chunk
+   and checkpoint seconds.
+14. SRM at the configuration of BASELINE.md:120 (its shape only: 20
+   subjects x 40,000 voxels x 300 TRs, K=50, 10 EM iterations,
+   float32; ``X_i = W_i S + 0.1 noise`` with planted orthonormal
+   W_i): ``SRM(...).fit``, ``DetSRM(...).fit`` and a ragged SRM fit
+   (V_i = 40,000 - 500 i), each once, after phase 13's fits.  Each is
+   held to a float64 fit of the same chunk functions on the card from
+   the same w0 (max|dW| / max|W| <= 1e-3, |dS|_F / |S|_F <= 1e-3,
+   d(logprob) / |logprob| <= 1e-5), to orthonormal maps (|W_i^T W_i -
+   I| <= 1e-4) and to the planted structure (mean pairwise
+   correlation of the shared responses > 0.9; the principal angles
+   to the planted W_i printed).  Each fit's seconds split into host
+   stack and pad, upload, init, EM (CUDA events) and fetch, and its
+   peak device memory; the host syncs of each solve and of an EM
+   iteration (``torch.cuda.set_sync_debug_mode("warn")``); one
+   profiled run of the EM: top device ops, launches an iteration, busy
+   share.
+15. The panel Gram: ``distla.panel_gram`` of one [600, 8192] subject
+   on a 4-position mesh of the card, a checkpoint every panel,
+   preempted after panel 2 and resumed, held against ``distla.gram``
+   to K5_ATOL and against an uninterrupted panel Gram bit for bit.
+16. The FCMA file front end: phase 3's 8 subjects written as
+   uncompressed ``.nii`` with ``io.save_as_nifti_file`` (1.26 GB; gzip
+   of random data would take most of a minute), with both masks and
+   the epoch specs, read back by ``io.load_images_from_dir``,
+   ``load_boolean_mask`` and ``load_labels``, then
+   ``prepare_fcma_data`` and ``run('svm')``, whose results must equal
+   phase 3's exactly; write and read seconds.
+17. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
    not there while the paths above are timed).
@@ -1160,7 +1195,7 @@ def run_path(torch, label, images, conditions, mask1, mask2, n_folds,
         f"launches {launches}")
     profile_run(torch, vs, label, t_warm)
     compare_with_plain(torch, vs, accs, n_check)
-    return vs, accs, launches
+    return vs, accs, launches, results
 
 
 class _KernelNearestMean:
@@ -2209,6 +2244,477 @@ def run_fit_contract(torch, smi, dev="cuda", n_t=600, n_v=8192, n_cols=16,
     torch.cuda.empty_cache()
 
 
+# -- SRM, the panel Gram and the FCMA file front end -------------------
+
+# SRM at the configuration of BASELINE.md:120 (its shape only)
+SRM_SUBJECTS, SRM_VOXELS, SRM_TRS, SRM_FEATURES, SRM_ITERS = \
+    20, 40000, 300, 50, 10
+# each float32 fit against a float64 fit of the same chunk functions on
+# the card from the same w0: max|dW| / max|W|, |dS|_F / |S|_F and
+# d(logprob) / |logprob| (d(objective) for DetSRM)
+SRM_W_RTOL = 1e-3
+SRM_S_RTOL = 1e-3
+SRM_LL_RTOL = 1e-5
+SRM_ORTHO = 1e-4     # max |W_i^T W_i - I|
+SRM_RECOVERY = 0.9   # mean pairwise correlation of the shared responses
+
+
+def srm_data(n_subj, n_vox, n_trs, k, seed):
+    """X_i = W_i S + 0.1 noise, float32, with orthonormal planted W_i
+    [n_vox, k] and S [k, n_trs], from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((k, n_trs), dtype=np.float32)
+    X, W = [], []
+    for _ in range(n_subj):
+        q, _ = np.linalg.qr(rng.standard_normal((n_vox, k),
+                                                dtype=np.float32))
+        x = q @ s
+        x += np.float32(0.1) * rng.standard_normal((n_vox, n_trs),
+                                                   dtype=np.float32)
+        W.append(q)
+        X.append(x)
+    return X, W, s
+
+
+def timed_fit(torch, srm, fit, em_name):
+    """``fit()`` with its steps timed: the host stack and pad, the
+    upload, the init (a CPU draw and a QR on the card), the EM by CUDA
+    events around ``srm.<em_name>`` (then a synchronize, so that what
+    follows is the fetch alone) and the fetch with the host checks.
+    Returns (model, seconds by step, EM device ms, the EM's arguments:
+    the data, traces, voxel counts and w0 on the card)."""
+    real = {n: getattr(srm, n) for n in ("_stack_and_pad", "_init_w",
+                                         em_name)}
+    real_place = srm._SRMBase._device_place
+    marks = {}
+
+    def host_timed(name, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter() - t0
+        return out
+
+    def em(*a, **k):
+        marks["em_args"] = a
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = real[em_name](*a, **k)
+        stop.record()
+        torch.cuda.synchronize()
+        marks["em"] = time.perf_counter() - t0
+        marks["em_ms"] = start.elapsed_time(stop)
+        marks["t_em_end"] = time.perf_counter()
+        return out
+
+    srm._stack_and_pad = lambda *a, **k: host_timed(
+        "stack", real["_stack_and_pad"], *a, **k)
+    srm._init_w = lambda *a, **k: host_timed("init", real["_init_w"],
+                                             *a, **k)
+    srm._SRMBase._device_place = lambda self, *a: host_timed(
+        "upload", real_place, self, *a)
+    setattr(srm, em_name, em)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fit()
+        t_end = time.perf_counter()
+    finally:
+        for name, fn in real.items():
+            setattr(srm, name, fn)
+        srm._SRMBase._device_place = real_place
+    secs = {k: marks[k] for k in ("stack", "upload", "init", "em")}
+    secs["fetch"] = t_end - marks["t_em_end"]
+    secs["total"] = t_end - t0
+    return model, secs, marks["em_ms"], marks["em_args"]
+
+
+def srm_reference(torch, srm, X, kind, w0, n_iter, dev):
+    """The float64 fit of the same chunk functions on the card from
+    ``w0``: (w [S, V, K], shared, logprob or objective), on the host."""
+    stacked, counts, _, trace = srm._stack_and_pad(
+        X, np.float64, demean=kind == "SRM")
+    x = torch.from_numpy(stacked).to(dev)
+    w0 = w0.to(dev, torch.float64)
+    if kind == "SRM":
+        w, _, _, shared, ll = srm._fit_prob_srm(
+            x, torch.from_numpy(trace).to(dev),
+            torch.from_numpy(counts.astype(np.float64)).to(dev), w0,
+            n_iter)
+    else:
+        w, shared, ll = srm._fit_det_srm(x, w0, n_iter)
+    out = (w.cpu().numpy(), shared.cpu().numpy(), float(ll))
+    del x, w0, w, shared
+    return out
+
+
+def srm_errors(model, ref, kind):
+    """(max|dW| / max|W|, |dS|_F / |S|_F, d(objective) / |objective|)
+    of a fitted model against a reference ``(w, shared, objective)``
+    (``w`` padded, or a list)."""
+    w_ref, s_ref, ll_ref = ref
+    dw = max(float(np.abs(w - w_ref[i][:w.shape[0]]).max())
+             for i, w in enumerate(model.w_))
+    wmax = max(float(np.abs(w_ref[i][:w.shape[0]]).max())
+               for i, w in enumerate(model.w_))
+    ds = float(np.linalg.norm(model.s_ - s_ref) / np.linalg.norm(s_ref))
+    ll = model.logprob_ if kind == "SRM" else model.objective_
+    return dw / wmax, ds, abs(ll - ll_ref) / abs(ll_ref)
+
+
+def srm_checks(label, model, X, W, kind, ref, rtols=None):
+    """Hold a fit to its reference (``rtols``: the three bounds), to
+    orthonormal maps and to the planted structure; log the figures."""
+    rw, rs, rl = srm_errors(model, ref, kind)
+    ortho = max(float(np.abs(w.T @ w - np.eye(w.shape[1])).max())
+                for w in model.w_)
+    shared = model.transform(X)
+    corr = [np.corrcoef(shared[i].ravel(), shared[j].ravel())[0, 1]
+            for i in range(len(X)) for j in range(i + 1, len(X))]
+    cos = np.concatenate([np.linalg.svd(w.T @ p[:w.shape[0]],
+                                        compute_uv=False)
+                          for w, p in zip(model.w_, W)])
+    log(f"  {label}: vs float64 on the card max|dW|/max|W| {rw:.3e}, "
+        f"|dS|/|S| {rs:.3e}, d{'logprob' if kind == 'SRM' else 'obj'}"
+        f"/|.| {rl:.3e}; max|W^T W - I| {ortho:.3e}; mean pairwise "
+        f"shared-response correlation {np.mean(corr):.5f}; cosines of "
+        f"the principal angles to the planted W_i: smallest "
+        f"{cos.min():.5f}, median {np.median(cos):.5f}, "
+        f"{int(np.sum(cos < 0.9))} of {cos.size} below 0.9")
+    tw, ts, tl = rtols or (SRM_W_RTOL, SRM_S_RTOL, SRM_LL_RTOL)
+    if not (rw <= tw and rs <= ts and rl <= tl):
+        fail(f"{label}: the float32 fit is off its float64 reference "
+             f"({rw:.3e}, {rs:.3e}, {rl:.3e} against {tw}, {ts}, {tl})")
+    if ortho > SRM_ORTHO:
+        fail(f"{label}: the maps are not orthonormal ({ortho:.3e})")
+    if not np.mean(corr) > SRM_RECOVERY:
+        fail(f"{label}: the shared responses do not agree "
+             f"({np.mean(corr):.4f})")
+
+
+def count_syncs(torch, fn):
+    """(host syncs, {python line: count}) of one ``fn()`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``: one warning for each
+    operation that waits for the card."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(
+        f"{w.filename.rpartition('/')[2]}:{w.lineno}" for w in hits)
+    return len(hits), dict(where)
+
+
+def srm_sync_and_profile(torch, srm, em_args, smi, n_iter):
+    """The syncs of each solve the EM calls, and of one and two EM
+    iterations; then one profiled run of ``n_iter`` EM iterations: the
+    top device ops, the launches an iteration and the busy share.
+    ``em_args``: the data, traces, voxel counts and w0 of a fit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, trace, counts, w0 = em_args[:4]
+    dev = w0.device
+    k = w0.shape[2]
+    n_s = w0.shape[0]
+    state = (w0, torch.ones(n_s, device=dev), torch.eye(k, device=dev),
+             torch.zeros((k, x.shape[2]), device=dev))
+    gram = torch.randn(n_s, k, k, device=dev)
+    gram = gram @ gram.transpose(1, 2) + torch.eye(k, device=dev)
+    solves = {
+        "linalg.eigh [S, K, K]": lambda: torch.linalg.eigh(gram),
+        "linalg.cholesky_ex + cholesky_solve [K, K]":
+            lambda: torch.cholesky_solve(
+                torch.eye(k, device=dev),
+                torch.linalg.cholesky_ex(gram[0])[0]),
+        "linalg.qr [S, V, K] (the init)":
+            lambda: torch.linalg.qr(w0),
+        "linalg.svd [V, K] (transform_subject)":
+            lambda: torch.linalg.svd(w0[0], full_matrices=False),
+    }
+    for name, fn in solves.items():
+        n, where = count_syncs(torch, fn)
+        log(f"  host syncs of {name}: {n}")
+    per = {}
+    for steps in (1, 2):
+        n, where = count_syncs(torch, lambda: srm._em_chunk(
+            x, trace, counts, *state, n_steps=steps))
+        per[steps] = n
+        log(f"  host syncs of {steps} EM iteration(s): {n} at {where}")
+    log(f"  host syncs an EM iteration: {per[2] - per[1]}")
+
+    def em():
+        srm._em_chunk(x, trace, counts, *state, n_steps=n_iter)
+
+    em()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        em()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = sorted(((us, n, name) for name, (us, n)
+                      in device_events(torch, prof)), reverse=True)
+    host, device = launch_counts(torch, prof)
+    busy = sum(us for us, _, _ in kernels) / 1e3
+    log(f"  EM profile ({smi}): {n_iter} iterations in a {wall_ms:.3f} "
+        f"ms window, device busy {busy:.3f} ms ({busy / wall_ms:.3f} of "
+        f"the window); kernel launches {host} host / {device} device, "
+        f"{host / n_iter:.1f} an iteration")
+    for us, n, name in kernels[:8]:
+        log(f"    {us / 1e3:9.3f} ms {n:6d}x {name[:80]}")
+    del x, state, gram
+
+
+def run_srm(torch, smi, dev="cuda", shape=None):
+    """SRM and DetSRM at BASELINE.md:120's shape (20 subjects x 40,000
+    voxels x 300 TRs, 50 features, 10 iterations, float32), and a
+    ragged SRM fit, each once: ``run_srm_contract`` runs first, so
+    cuSOLVER's and cuBLAS's first calls are behind them.  Each is held
+    to a float64 fit of the same chunk functions on the card, to
+    orthonormal maps and to the planted structure; each fit's split
+    and peak memory, and the SRM EM's syncs and profile are printed."""
+    from brainiak_tpu_torch.funcalign import srm
+
+    n_s, n_v, n_t, k, n_iter = shape or (
+        SRM_SUBJECTS, SRM_VOXELS, SRM_TRS, SRM_FEATURES, SRM_ITERS)
+    t0 = time.perf_counter()
+    X, W, _ = srm_data(n_s, n_v, n_t, k, SEED + 7)
+    log(f"SRM: {n_s} subjects x {n_v} voxels x {n_t} TRs, K={k}, "
+        f"{n_iter} iterations, float32 ({n_s * n_v * n_t * 4 / 1e9:.2f} "
+        f"GB stack; data made in {time.perf_counter() - t0:.2f} s)")
+    ragged = [x[:n_v - 500 * i] for i, x in enumerate(X)]
+    for label, kind, data in (("SRM", "SRM", X), ("DetSRM", "DetSRM", X),
+                              (f"SRM ragged, V_i = {n_v} - 500 i", "SRM",
+                               ragged)):
+        em_name = "_fit_prob_srm" if kind == "SRM" else "_fit_det_srm"
+        cls = getattr(srm, kind)
+        torch.cuda.reset_peak_memory_stats()
+        model, secs, em_ms, em_args = timed_fit(
+            torch, srm,
+            lambda: cls(n_iter=n_iter, features=k, device=dev).fit(data),
+            em_name)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {label}: fit ({smi}) {secs['total']:.3f} s = stack and "
+            f"pad {secs['stack']:.3f} + upload {secs['upload']:.3f} + "
+            f"init {secs['init']:.3f} + EM {secs['em']:.3f} (device "
+            f"{em_ms:.3f} ms by CUDA events) + fetch "
+            f"{secs['fetch']:.3f} + the rest; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        w0 = em_args[3] if kind == "SRM" else em_args[1]
+        srm_checks(label, model, data, W, kind,
+                   srm_reference(torch, srm, data, kind, w0, n_iter, dev))
+        if label == "SRM":
+            srm_sync_and_profile(torch, srm, em_args, smi, n_iter)
+        del model, em_args, w0
+        torch.cuda.empty_cache()
+    del X, W, ragged
+
+
+def run_srm_contract(torch, smi, dev="cuda", n_s=8, n_v=8192, n_t=300,
+                     k=50, n_iter=20, every=5):
+    """The SRM fit contract on the card: the checkpointed fit against
+    the plain fit, a fit preempted at step 10 and resumed, and a NaN at
+    step 5 rolled back, each held to the uninterrupted checkpointed fit
+    bit for bit; its chunk and checkpoint seconds."""
+    import os
+    import tempfile
+
+    from brainiak_tpu_torch import obs
+    from brainiak_tpu_torch.funcalign import srm
+    from brainiak_tpu_torch.resilience import faults
+
+    X, _, _ = srm_data(n_s, n_v, n_t, k, SEED + 8)
+
+    def same(label, got, ref):
+        equal = all(np.array_equal(a, b) for a, b in zip(got.w_, ref.w_)) \
+            and np.array_equal(got.s_, ref.s_) \
+            and np.array_equal(got.rho2_, ref.rho2_) \
+            and got.logprob_ == ref.logprob_
+        log(f"  {label}: bit-identical to the uninterrupted "
+            f"checkpointed fit: {equal}")
+        if not equal:
+            fail(f"SRM fit contract: {label} is not the uninterrupted "
+                 "checkpointed fit bit for bit")
+
+    with tempfile.TemporaryDirectory(prefix="srm_contract_") as root:
+        def fit(sub=None):
+            kw = {} if sub is None else dict(
+                checkpoint_dir=os.path.join(root, sub),
+                checkpoint_every=every)
+            return srm.SRM(n_iter=n_iter, features=k, device=dev).fit(
+                X, **kw)
+
+        plain = fit()
+        mem = obs.add_sink(obs.MemorySink())
+        t0 = time.perf_counter()
+        ref = fit("ref")
+        t_ref = time.perf_counter() - t0
+        obs.remove_sink(mem)
+        chunk_s = [r["chunk_s"] for r in mem.records
+                   if r["kind"] == "progress"]
+        ckpt_s = [r["value"] for r in mem.records
+                  if r["kind"] == "metric"
+                  and r["name"] == "checkpoint_seconds"]
+        spans = [r for r in mem.records if r["kind"] == "span"]
+        log(f"SRM fit contract ({smi}): {n_s} subjects x {n_v} voxels x "
+            f"{n_t} TRs, K={k}, {n_iter} iterations, a checkpoint every "
+            f"{every}: {t_ref:.4f} s; chunk seconds "
+            f"{', '.join(f'{c:.5f}' for c in chunk_s)}; "
+            f"checkpoint_seconds mean {np.mean(ckpt_s):.5f} max "
+            f"{np.max(ckpt_s):.5f} over {len(ckpt_s)} saves of "
+            f"{n_s * n_v * k * 4} bytes of W; {len(spans)} fit_chunk "
+            f"spans")
+        if len(spans) != n_iter // every or \
+                any(s["name"] != "fit_chunk" for s in spans):
+            fail(f"SRM fit contract: spans {spans}")
+        rw, rs, rl = srm_errors(plain, ([w for w in ref.w_], ref.s_,
+                                        ref.logprob_), "SRM")
+        log(f"  checkpointed vs plain fit: max|dW|/max|W| {rw:.3e}, "
+            f"|dS|/|S| {rs:.3e}, dlogprob/|.| {rl:.3e}")
+        if not (rw <= SRM_W_RTOL and rs <= SRM_S_RTOL and
+                rl <= SRM_LL_RTOL):
+            fail("SRM fit contract: the checkpointed fit is off the "
+                 "plain fit")
+        with faults.inject("preempt", at_step=10) as fault:
+            try:
+                fit("preempt")
+            except faults.PreemptionError as exc:
+                log(f"  preempted: {exc}")
+        if fault.fired != 1:
+            fail("SRM fit contract: the preempt fault did not fire")
+        mem = obs.add_sink(obs.MemorySink())
+        resumed = fit("preempt")
+        obs.remove_sink(mem)
+        resume = events(mem.records, "resume")
+        if len(resume) != 1 or resume[0]["attrs"]["step"] != 10:
+            fail(f"SRM fit contract: the resume is wrong: {resume}")
+        same("resumed at step 10", resumed, ref)
+        mem = obs.add_sink(obs.MemorySink())
+        with faults.inject("nan", at_step=5) as fault:
+            rolled = fit("nan")
+        obs.remove_sink(mem)
+        rollback = events(mem.records, "rollback")
+        if fault.fired != 1 or len(rollback) != 1 or \
+                rollback[0]["attrs"]["to_step"] != 0:
+            fail(f"SRM fit contract: the NaN was not rolled back once: "
+                 f"{rollback}")
+        same("NaN at step 5 rolled back", rolled, ref)
+    torch.cuda.empty_cache()
+
+
+def run_panel_gram(torch, smi, dev="cuda", n_t=600, n_v=8192):
+    """``distla.panel_gram`` of one [n_t, n_v] subject on a 4-position
+    mesh of the card, a checkpoint every panel, preempted after panel 2
+    and resumed; held against ``distla.gram`` to K5_ATOL and against an
+    uninterrupted panel Gram bit for bit."""
+    import tempfile
+
+    from brainiak_tpu_torch import obs
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.parallel import make_mesh
+    from brainiak_tpu_torch.resilience import faults
+
+    rng = np.random.default_rng(SEED + 9)
+    data = rng.standard_normal((n_t, n_v), dtype=np.float32)
+    mesh = make_mesh(("voxel",), (4,), devices=[dev] * 4)
+    with tempfile.TemporaryDirectory(prefix="panel_gram_") as root:
+        with faults.inject("preempt", at_step=2) as fault:
+            try:
+                distla.panel_gram(data, mesh, checkpoint_dir=root)
+            except faults.PreemptionError as exc:
+                log(f"panel Gram: preempted: {exc}")
+        if fault.fired != 1:
+            fail("panel Gram: the preempt fault did not fire")
+        mem = obs.add_sink(obs.MemorySink())
+        t0 = time.perf_counter()
+        got = distla.panel_gram(data, mesh, checkpoint_dir=root)
+        t_resume = time.perf_counter() - t0
+        obs.remove_sink(mem)
+    panels = [r["attrs"]["panel"] for r in mem.records
+              if r["kind"] == "span" and r["name"] == "distla.panel_chunk"]
+    resume = events(mem.records, "resume")
+    t0 = time.perf_counter()
+    whole = distla.panel_gram(data, mesh)
+    t_whole = time.perf_counter() - t0
+    want = distla.gram(data, device=dev).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    log(f"  panel Gram [{n_t}, {n_v}] on 4 positions of the card ({smi}):"
+        f" resumed at panel {resume[0]['attrs']['step'] if resume else None}"
+        f" (panels run {panels}) in {t_resume:.3f} s; uninterrupted, no "
+        f"checkpoint {t_whole:.3f} s; bit-identical "
+        f"{np.array_equal(got, whole)}; max |panel - distla.gram| "
+        f"{err:.3e}")
+    if len(resume) != 1 or panels != [2, 3] or \
+            not np.array_equal(got, whole) or not err <= K5_ATOL:
+        fail("panel Gram: the resumed Gram is wrong")
+    torch.cuda.empty_cache()
+
+
+def run_file_front_end(torch, images, conditions, mask1, results, smi):
+    """The whole-brain path from files: the subjects written as
+    uncompressed ``.nii`` by ``io.save_as_nifti_file`` with both masks
+    and the epoch specs, read back by ``io.load_images_from_dir``,
+    ``load_boolean_mask`` and ``load_labels``, then
+    ``prepare_fcma_data`` and ``run('svm')``: its results must be the
+    in-memory run's ``results`` exactly."""
+    import os
+    import tempfile
+
+    from brainiak_tpu_torch import io
+    from brainiak_tpu_torch.fcma import prepare_fcma_data
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+
+    affine = np.diag([3.0, 3.0, 3.0, 1.0])
+    shape = mask1.shape
+    with tempfile.TemporaryDirectory(prefix="fcma_files_") as root:
+        t0 = time.perf_counter()
+        for i, img in enumerate(images):
+            io.save_as_nifti_file(img, affine,
+                                  os.path.join(root, f"sub{i:02d}_bet.nii"))
+        io.save_as_nifti_file(mask1.astype(np.uint8), affine,
+                              os.path.join(root, "mask1.nii"))
+        io.save_as_nifti_file(np.ones(shape, np.uint8), affine,
+                              os.path.join(root, "mask2.nii"))
+        np.save(os.path.join(root, "labels.npy"), np.stack(conditions))
+        t_write = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(root, f))
+                      for f in os.listdir(root))
+        t0 = time.perf_counter()
+        loaded = list(io.load_images_from_dir(root, "bet.nii"))
+        m1 = io.load_boolean_mask(os.path.join(root, "mask1.nii"))
+        m2 = io.load_boolean_mask(os.path.join(root, "mask2.nii"))
+        specs = io.load_labels(os.path.join(root, "labels.npy"))
+        t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw1, raw2, labels = prepare_fcma_data(loaded, specs, m1, m2)
+    t_prep = time.perf_counter() - t0
+    del loaded
+    got = VoxelSelector(labels, 4, 4, raw1, raw_data2=raw2).run('svm')
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0 - t_prep
+    log(f"FCMA file front end ({smi}): {len(images)} subjects written as "
+        f".nii ({n_bytes / 1e9:.3f} GB) in {t_write:.2f} s, read back "
+        f"(images, both masks, epoch specs) in {t_read:.2f} s; prepare "
+        f"{t_prep:.2f} s, run('svm') {t_run:.2f} s; results equal to the "
+        f"in-memory run's: {got == results}")
+    if not np.array_equal(m1, mask1) or got != results:
+        fail("the file front end does not reproduce the in-memory run")
+
+
 def main():
     import torch
 
@@ -2222,6 +2728,7 @@ def main():
     from brainiak_tpu_torch.ops.kernels import _build
 
     set_fp32_defaults()
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}")
@@ -2250,10 +2757,11 @@ def main():
     mask1 = np.zeros(shape, dtype=bool)
     mask1.flat[sel] = True
     prep_records = []
-    vs, accs, launches = run_path(torch, "whole brain", images,
-                                  conditions, mask1,
-                                  np.ones(shape, dtype=bool), 4, 256,
-                                  prep_records)
+    vs, accs, launches, wb_results = run_path(
+        torch, "whole brain", images, conditions, mask1,
+        np.ones(shape, dtype=bool), 4, 256, prep_records)
+    # kept for the file front end, which reads them back from files
+    wb_inputs = (images, conditions, mask1)
     top = set(np.argsort(-accs, kind="stable")[:16].tolist())
     log(f"  planted voxels in the top 16: {len(top & set(range(16)))}"
         f"/16; mean accuracy of the rest {accs[16:].mean():.3f}")
@@ -2344,8 +2852,8 @@ def main():
     order = rng.permutation(n_vox)
     images, conditions = synthetic_images(rng, 4, shape, 600, order[:16],
                                           order[16:1040])
-    _, _, launches = run_path(torch, "one mask", images, conditions,
-                              np.ones(shape, dtype=bool), None, 4, 256)
+    _, _, launches, _ = run_path(torch, "one mask", images, conditions,
+                                 np.ones(shape, dtype=bool), None, 4, 256)
     if launches["fcma_gram_tc"] != 1:
         fail(f"one mask: run('svm') launched the tensor-core K1 "
              f"{launches['fcma_gram_tc']} times, not once")
@@ -2386,6 +2894,11 @@ def main():
     run_isfc_path(torch, rows)
     torch.cuda.empty_cache()
     run_fit_contract(torch, smi)
+    run_srm_contract(torch, smi)
+    run_srm(torch, smi)
+    run_panel_gram(torch, smi)
+    run_file_front_end(torch, *wb_inputs, wb_results, smi)
+    del wb_inputs
     run_ingest_split(torch, dev)
 
     csrc = "brainiak_tpu_torch/csrc/"
@@ -2450,6 +2963,8 @@ def main():
                                            "copy_ms", "tile_w")
                        if k in row})
                for name, row in rows.items()]
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, "
+        f"the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

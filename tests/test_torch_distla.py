@@ -433,3 +433,186 @@ def test_gram_spans_match_jax(clean_obs, jax_ring, monkeypatch):  # noqa: F811
         ("distla.gram", "", {"n_voxels": 38, "n_shards": 4,
                              "kind": "summa"})]
     assert syncs == []
+
+
+# -- the sharded batched solves ---------------------------------------
+
+def _spd(seed, s=8, k=5, m=3):
+    rng = np.random.RandomState(seed)
+    a = rng.randn(s, k, k)
+    return a @ a.transpose(0, 2, 1) + np.eye(k), rng.randn(s, k, m)
+
+
+def _meshes(use_mesh, n=4):
+    if not use_mesh:
+        return None, None
+    return (jmake_mesh(("subject",), (n,)),
+            tmesh.make_mesh(("subject",), (n,), devices=["cpu"] * n))
+
+
+def _signed(vecs):
+    """Eigenvectors with each column's largest entry made positive."""
+    idx = np.abs(vecs).argmax(axis=-2)[..., None, :]
+    return vecs * np.sign(np.take_along_axis(vecs, idx, axis=-2))
+
+
+@pytest.mark.parametrize("use_mesh", [False, True])
+def test_batched_eigh_matches_jax(use_mesh):
+    """Float64, 1e-12: eigenvalues, and eigenvectors up to sign."""
+    a, _ = _spd(0)
+    jm, tm = _meshes(use_mesh)
+    jl, jv = jdistla.batched_eigh(jnp.asarray(a), mesh=jm)
+    tl, tv = distla.batched_eigh(torch.from_numpy(a), mesh=tm)
+    assert tl.dtype == torch.float64 and tv.shape == (8, 5, 5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-12)
+    np.testing.assert_allclose(_signed(tv.numpy()),
+                               _signed(np.asarray(jv)), atol=1e-12)
+
+
+@pytest.mark.parametrize("use_mesh", [False, True])
+def test_batched_cholesky_solve_matches_jax(use_mesh):
+    a, b = _spd(1)
+    jm, tm = _meshes(use_mesh)
+    want = np.asarray(jdistla.batched_cholesky_solve(
+        jnp.asarray(a), jnp.asarray(b), mesh=jm))
+    got = distla.batched_cholesky_solve(torch.from_numpy(a),
+                                        torch.from_numpy(b), mesh=tm)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-12, rtol=0)
+    np.testing.assert_allclose(np.einsum('skl,slm->skm', a, got.numpy()),
+                               b, atol=1e-10)
+
+
+def test_shard_vmap_runs_each_position_on_its_slice(monkeypatch):
+    """With a mesh each position maps its own slice, in position order,
+    and the slices of each output are concatenated; without one, or
+    when the axis is absent or does not divide the batch, one vmap of
+    the whole batch."""
+    def fn(x):
+        return x * 2, x.sum()
+
+    x = torch.arange(24.0).reshape(8, 3)
+    mesh = tmesh.make_mesh(("subject",), (4,), devices=["cpu"] * 4)
+    doubled, sums = distla.shard_vmap(fn, mesh, "subject", 8)(x)
+    assert torch.equal(doubled, 2 * x) and torch.equal(sums, x.sum(1))
+    seen, real = [], torch.func.vmap
+
+    def spy_vmap(f):
+        mapped = real(f)
+
+        def run(*args):
+            seen.append(args[0][:, 0].tolist())
+            return mapped(*args)
+        return run
+
+    monkeypatch.setattr(torch.func, "vmap", spy_vmap)
+    distla.shard_vmap(fn, mesh, "subject", 8)(x)
+    assert seen == [[0.0, 3.0], [6.0, 9.0], [12.0, 15.0], [18.0, 21.0]]
+    for m, axis, n in ((None, "subject", 8), (mesh, "subject", 6),
+                       (mesh, "voxel", 8)):
+        seen.clear()
+        distla.shard_vmap(fn, m, axis, n)(x[:n])
+        assert len(seen) == 1 and len(seen[0]) == n
+
+
+# -- the checkpointable panel Gram ------------------------------------
+
+@pytest.mark.parametrize("v,panel,cross", [(50, None, False),
+                                           (37, 5, False),
+                                           (40, 16, True)])
+def test_panel_gram_matches_jax_and_gram(v, panel, cross):
+    """Against the JAX package's panel Gram on its 8-device CPU mesh,
+    and the port's ``distla.gram``: 1e-5 (Pearson r in float32)."""
+    data = _data(20, 30, v)
+    data_b = _data(21, 30, v) if cross else None
+    want = jdistla.panel_gram(data, jmake_mesh(("voxel",), (8,)),
+                              data_b=data_b, panel_size=panel)
+    got = distla.panel_gram(data, _cpu_mesh(), data_b=data_b,
+                            panel_size=panel)
+    assert got.dtype == np.float32 and got.shape == (v, v)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(
+        got, distla.gram(data, data_b=data_b, device="cpu").numpy(),
+        atol=ATOL, rtol=0)
+
+
+def test_panel_gram_nan_and_constant_columns():
+    data = _data(22, 16, 24)
+    data[:, 3] = 1.5
+    data[4, 7] = np.nan
+    got = distla.panel_gram(data, _cpu_mesh(), panel_size=5)
+    want = jdistla.panel_gram(data, jmake_mesh(("voxel",), (8,)),
+                              panel_size=5)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.all(np.isnan(got[7])) and np.all(got[3][~np.isnan(got[3])]
+                                               == 0)
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], atol=ATOL, rtol=0)
+
+
+def test_panel_gram_refuses_mismatched_operands():
+    with pytest.raises(ValueError, match="data_b shape"):
+        distla.panel_gram(_data(1, 8, 12), _cpu_mesh(),
+                          data_b=_data(2, 8, 13))
+
+
+def test_panel_gram_resumes_after_a_preempt(tmp_path):
+    """Preempted after panel 2 of 5 with a checkpoint every panel, the
+    rerun resumes at panel 2 and ends on the uninterrupted Gram bit for
+    bit; another data_b is refused."""
+    from brainiak_tpu_torch.resilience import faults
+
+    data = _data(23, 20, 40)
+    mesh = _cpu_mesh()
+    full = distla.panel_gram(data, mesh, panel_size=8)
+    d = str(tmp_path / "ck")
+    calls = []
+    real = distla._panel_rows
+
+    def counted(*a):
+        calls.append(1)
+        return real(*a)
+
+    with faults.inject("preempt", at_step=2) as fault:
+        with pytest.raises(faults.PreemptionError):
+            distla.panel_gram(data, mesh, panel_size=8, checkpoint_dir=d)
+    assert fault.fired == 1
+    import unittest.mock
+    with unittest.mock.patch.object(distla, "_panel_rows", counted):
+        resumed = distla.panel_gram(data, mesh, panel_size=8,
+                                    checkpoint_dir=d)
+    assert len(calls) == 3 * 4   # panels 2-4, each on 4 positions
+    assert np.array_equal(resumed, full)
+    with pytest.raises(ValueError, match="different data"):
+        distla.panel_gram(data, mesh, data_b=_data(24, 20, 40),
+                          panel_size=8, checkpoint_dir=d)
+
+
+def test_panel_gram_spans_match_jax(clean_obs, tmp_path,  # noqa: F811
+                                    monkeypatch):
+    """The ``distla.panel_chunk`` spans (``panel``, ``rows``) under the
+    loop's ``fit_chunk`` spans, as the JAX package's, with no sync."""
+    from brainiak_tpu.utils.checkpoint import FORCE_NPZ_ENV_VAR
+
+    monkeypatch.setenv(FORCE_NPZ_ENV_VAR, "1")
+    syncs = []
+    monkeypatch.setattr(tspans, "_block_until_ready", syncs.append)
+    data = _data(25, 12, 19)
+    trees = {}
+    for name, snk in (("jax", jsink), ("torch", tsink)):
+        mem = snk.add_sink(snk.MemorySink())
+        if name == "jax":
+            jdistla.panel_gram(data, jmake_mesh(("voxel",), (4,)),
+                               panel_size=8, checkpoint_every=2,
+                               checkpoint_dir=str(tmp_path / name))
+        else:
+            distla.panel_gram(data, _cpu_mesh(), panel_size=8,
+                              checkpoint_every=2,
+                              checkpoint_dir=str(tmp_path / name))
+        snk.remove_sink(mem)
+        trees[name] = span_tree(mem.records)
+    assert trees["torch"] == trees["jax"]
+    chunks = [(n, a) for n, _, a in trees["torch"]
+              if n == "distla.panel_chunk"]
+    assert chunks == [("distla.panel_chunk", {"panel": p, "rows": r})
+                      for p, r in ((0, 8), (1, 8), (2, 3))]
+    assert syncs == []

@@ -1612,3 +1612,104 @@ def test_fit_contract_watermark_is_the_allocator_growth(cuda):
              if r["kind"] == "metric" and r["name"] == "hbm_peak_bytes"]
     assert len(peaks) == 2
     assert peaks[0] > 0 and peaks[0] == growth[0]
+
+
+# -- SRM, the panel Gram and the file front end on the card ------------
+
+def _srm_data(n_subjects=6, voxels=400, samples=60, features=5, seed=3,
+              ragged=False):
+    rng = np.random.RandomState(seed)
+    shared = rng.randn(features, samples)
+    X = []
+    for i in range(n_subjects):
+        v = voxels - (7 * i if ragged else 0)
+        q, _ = np.linalg.qr(rng.randn(v, features))
+        X.append(q @ shared + 0.1 * rng.randn(v, samples))
+    return X
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("name", ["SRM", "DetSRM"])
+def test_srm_cuda_matches_cpu(cuda, name, ragged):
+    """The same float32 fit on the card and on the CPU, held to each
+    other by the bounds ``chip_smoke.py`` holds a float32 fit to its
+    float64 one: max|dW| / max|W| and |dS|_F / |S|_F to 1e-3, the
+    objective to 1e-5 relative.  (SRM's shared response loses digits in
+    float32 to the cancellation in ``I - rho0 (inv(Sigma) + rho0 I)^-1``:
+    the card and the CPU sum in other orders, 1e-4 apart.)"""
+    from brainiak_tpu_torch.funcalign import srm
+
+    X = _srm_data(ragged=ragged)
+    got = getattr(srm, name)(n_iter=8, features=5).fit(X)
+    want = getattr(srm, name)(n_iter=8, features=5, device="cpu").fit(X)
+    dw = max(np.abs(g - w).max() for g, w in zip(got.w_, want.w_))
+    assert dw <= 1e-3 * max(np.abs(w).max() for w in want.w_)
+    for g, w in zip(got.w_, want.w_):
+        assert g.shape == w.shape
+        assert np.abs(g.T @ g - np.eye(5)).max() <= 1e-4
+    assert np.linalg.norm(got.s_ - want.s_) <= \
+        1e-3 * np.linalg.norm(want.s_)
+    obj = "logprob_" if name == "SRM" else "objective_"
+    assert abs(getattr(got, obj) - getattr(want, obj)) <= \
+        1e-5 * abs(getattr(want, obj))
+    w_sub = got.transform_subject(X[0])
+    assert np.abs(w_sub.T @ w_sub - np.eye(5)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["SRM", "DetSRM"])
+def test_srm_resume_on_the_card_is_bit_for_bit(cuda, tmp_path, name):
+    """Preempted at step 4 and resumed, a NaN at step 4 rolled back:
+    both end on the uninterrupted checkpointed fit bit for bit, which
+    is the plain fit bit for bit."""
+    from brainiak_tpu_torch.funcalign import srm
+    from brainiak_tpu_torch.resilience import faults
+
+    X = _srm_data()
+
+    def fit(d=None):
+        kw = {} if d is None else dict(checkpoint_dir=str(tmp_path / d),
+                                       checkpoint_every=2)
+        return getattr(srm, name)(n_iter=8, features=5).fit(X, **kw)
+
+    def same(a, b):
+        assert all(np.array_equal(x, y) for x, y in zip(a.w_, b.w_))
+        assert np.array_equal(a.s_, b.s_)
+
+    ref = fit("ref")
+    same(ref, fit())
+    with faults.inject("preempt", at_step=4) as fault:
+        with pytest.raises(faults.PreemptionError):
+            fit("cut")
+    assert fault.fired == 1
+    same(fit("cut"), ref)
+    with faults.inject("nan", at_step=4) as fault:
+        rolled = fit("nan")
+    assert fault.fired == 1
+    same(rolled, ref)
+
+
+def test_panel_gram_cuda_matches_gram(cuda, tmp_path):
+    """The panel Gram on a 4-position mesh of the card, a checkpoint a
+    panel, against ``distla.gram`` on the card: 1e-5 (Pearson r)."""
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    data = np.random.RandomState(4).randn(60, 1001).astype(np.float32)
+    mesh = make_mesh(("voxel",), (4,), devices=["cuda"] * 4)
+    got = distla.panel_gram(data, mesh, checkpoint_dir=str(tmp_path))
+    want = distla.gram(data).cpu().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_nifti_round_trip_of_a_cuda_tensor(cuda, tmp_path):
+    """A tensor on the card saved through ``io.save_as_nifti_file``
+    reads back equal, both uncompressed and gzipped."""
+    from brainiak_tpu_torch import io, nifti
+
+    x = torch.randn(9, 8, 7, 5, device=cuda)
+    affine = np.diag([3.0, 3.0, 3.0, 1.0])
+    for name in ("x.nii", "x.nii.gz"):
+        io.save_as_nifti_file(x, affine, tmp_path / name)
+        img = nifti.load(tmp_path / name)
+        assert np.array_equal(img.dataobj, x.cpu().numpy())
+        assert np.array_equal(img.affine, affine)

@@ -797,3 +797,128 @@ def test_device_carry_chunk_reuses_carried_tensors():
     run_chunk({"x": np.full(2, 7.0)}, 1, 2)  # a rollback's step
     assert torch.equal(seen[2], torch.full((2,), 7.0,
                                            dtype=torch.float64))
+
+
+# -- SRM and DetSRM under the resilient loop -------------------------
+# The cases of tests/resilience/test_resume_parity.py and of the
+# checkpoint tests of tests/funcalign/test_srm.py, on the port's
+# estimators (float32 on the CPU).  One device and the same shapes give
+# the same products, so a resumed or rolled-back fit is held to the
+# uninterrupted one bit for bit.
+
+def _srm_data(n_subjects=3, voxels=14, samples=20, features=3, seed=0):
+    rng = np.random.RandomState(seed)
+    shared = rng.randn(features, samples)
+    X = []
+    for _ in range(n_subjects):
+        q, _ = np.linalg.qr(rng.randn(voxels, features))
+        X.append(q @ shared + 0.1 * rng.randn(voxels, samples))
+    return X
+
+
+def _estimator(name, n_iter):
+    from brainiak_tpu_torch.funcalign import srm
+    return getattr(srm, name)(n_iter=n_iter, features=3, device="cpu")
+
+
+def _assert_same_fit(a, b):
+    for w0, w1 in zip(a.w_, b.w_):
+        assert np.array_equal(w0, w1)
+    assert np.array_equal(a.s_, b.s_)
+    for name in ("rho2_", "sigma_s_", "logprob_", "objective_"):
+        if hasattr(a, name):
+            assert np.array_equal(getattr(a, name), getattr(b, name))
+
+
+@pytest.mark.parametrize("name", ["SRM", "DetSRM"])
+def test_srm_preempt_resume_is_bit_for_bit(tmp_path, name):
+    X = _srm_data()
+
+    def fit(d):
+        return _estimator(name, 8).fit(X, checkpoint_dir=d,
+                                       checkpoint_every=2)
+
+    plain = _estimator(name, 8).fit(X)
+    full = fit(str(tmp_path / "full"))
+    d = str(tmp_path / "ck")
+    with inject("preempt", at_step=4) as fault:
+        with pytest.raises(PreemptionError):
+            fit(d)
+    assert fault.fired == 1
+    assert any(f.endswith(".npz") for f in os.listdir(d))
+    resumed = fit(d)
+    _assert_same_fit(resumed, full)
+    _assert_same_fit(resumed, plain)
+
+
+@pytest.mark.parametrize("name", ["SRM", "DetSRM"])
+def test_srm_nan_rollback_recovers(tmp_path, name):
+    X = _srm_data()
+    plain = _estimator(name, 8).fit(X)
+    mem = obs_sink.add_sink(obs_sink.MemorySink())
+    with inject("nan", at_step=4) as fault:
+        recovered = _estimator(name, 8).fit(
+            X, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
+    obs_sink.remove_sink(mem)
+    assert fault.fired == 1
+    rollbacks = [r for r in mem.records if r["name"] == "rollback"]
+    assert len(rollbacks) == 1
+    assert rollbacks[0]["attrs"]["to_step"] == 2
+    _assert_same_fit(recovered, plain)
+
+
+@pytest.mark.parametrize("name,leaf", [("SRM", "sigma_s"),
+                                       ("DetSRM", "shared")])
+def test_srm_persistent_nan_aborts_naming_leaf(tmp_path, name, leaf):
+    X = _srm_data()
+    with inject("nan", at_step=2, times=10, leaf=leaf):
+        with pytest.raises(DivergenceError) as exc:
+            _estimator(name, 8).fit(
+                X, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=2)
+    assert leaf in exc.value.leaves
+    assert exc.value.where == name + ".fit"
+
+
+@pytest.mark.parametrize("name", ["SRM", "DetSRM"])
+def test_srm_checkpoint_resume(tmp_path, name):
+    """The checkpointed fit is the plain fit, and a fit of 4 of 9
+    iterations resumes to 9 rather than starting over."""
+    X = _srm_data(n_subjects=4, voxels=20, samples=30)
+    plain = _estimator(name, 9).fit(X)
+    ckpt = _estimator(name, 9).fit(
+        X, checkpoint_dir=str(tmp_path / "full"), checkpoint_every=4)
+    _assert_same_fit(ckpt, plain)
+    d = str(tmp_path / "partial")
+    _estimator(name, 4).fit(X, checkpoint_dir=d, checkpoint_every=4)
+    mem = obs_sink.add_sink(obs_sink.MemorySink())
+    resumed = _estimator(name, 9).fit(X, checkpoint_dir=d,
+                                      checkpoint_every=4)
+    obs_sink.remove_sink(mem)
+    resume = [r for r in mem.records if r["name"] == "resume"]
+    assert len(resume) == 1 and resume[0]["attrs"]["step"] == 4
+    _assert_same_fit(resumed, plain)
+
+
+@pytest.mark.parametrize("name", ["SRM", "DetSRM"])
+def test_srm_checkpoint_rejects_mismatched_data(tmp_path, name):
+    X = _srm_data(n_subjects=4, voxels=20, samples=30)
+    d = str(tmp_path / "ck")
+    _estimator(name, 4).fit(X, checkpoint_dir=d)
+    # different data of the same shape must be refused
+    X2 = [x + 1.0 for x in X]
+    with pytest.raises(ValueError, match="different data"):
+        _estimator(name, 8).fit(X2, checkpoint_dir=d)
+    # a lower n_iter than the checkpoint's step must be refused
+    with pytest.raises(ValueError, match="iteration"):
+        _estimator(name, 2).fit(X, checkpoint_dir=d)
+
+
+def test_nan_reaches_a_transposed_leaf():
+    """A leaf fetched from a transposed tensor (an F-ordered host view,
+    as SRM's sigma_s is) is poisoned too."""
+    leaf = torch.arange(9.0).reshape(3, 3).T.numpy()
+    assert not leaf.flags["C_CONTIGUOUS"]
+    with inject("nan", leaf="s"):
+        out = faults.corrupt_state({"s": leaf}, 1)
+    assert np.isnan(out["s"]).sum() == 1 and np.isnan(out["s"][0, 0])
+    assert not np.isnan(leaf).any()

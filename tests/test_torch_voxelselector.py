@@ -365,6 +365,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.ops.svm\n"
         "import brainiak_tpu_torch.ops.kernels.epoch_norm\n"
         "import brainiak_tpu_torch.image\n"
+        "import brainiak_tpu_torch.io\n"
+        "import brainiak_tpu_torch.nifti\n"
+        "import brainiak_tpu_torch.funcalign\n"
+        "import brainiak_tpu_torch.funcalign.srm\n"
         "import brainiak_tpu_torch.isc\n"
         "import brainiak_tpu_torch.ops.distla\n"
         "import brainiak_tpu_torch.ops.ring\n"

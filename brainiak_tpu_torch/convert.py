@@ -5,7 +5,9 @@ its configuration and its epoch data, a classifier's its configuration,
 its host estimator and the arrays its fit left.  A fitted SRM's are
 its maps ``w_`` and shared response ``s_`` (with ``sigma_s_``,
 ``mu_``, ``rho2_`` and ``logprob_``), a DetSRM's ``w_``, ``s_`` and
-``objective_``.  The functions here read a ``brainiak_tpu`` object by
+``objective_``; an RSRM's ``w_``, ``s_``, ``r_`` and ``objective_``,
+an SS-SRM's ``w_``, ``s_``, ``theta_``, ``bias_`` and ``classes_``, a
+FastSRM's ``basis_list``.  The functions here read a ``brainiak_tpu`` object by
 its attributes (duck typing, without importing the JAX package) and
 build the port's counterpart, so that both compute the same thing.
 """
@@ -14,9 +16,13 @@ import numpy as np
 
 from .fcma.classifier import Classifier
 from .fcma.voxelselector import VoxelSelector
+from .funcalign.fastsrm import FastSRM
+from .funcalign.rsrm import RSRM
 from .funcalign.srm import SRM, DetSRM
+from .funcalign.sssrm import SSSRM
 
-__all__ = ["classifier_from_jax", "detsrm_from_jax", "srm_from_jax",
+__all__ = ["classifier_from_jax", "detsrm_from_jax", "fastsrm_from_jax",
+           "rsrm_from_jax", "srm_from_jax", "sssrm_from_jax",
            "voxel_selector_from_jax"]
 
 #: fitted attributes of the SRM estimators: per-subject lists, arrays,
@@ -97,3 +103,54 @@ def detsrm_from_jax(model, device="cuda"):
     from the JAX package's fitted ``model``, as
     :func:`srm_from_jax`."""
     return _srm_from_jax(DetSRM, model, device)
+
+
+def rsrm_from_jax(model, device="cuda"):
+    """The port's :class:`~brainiak_tpu_torch.funcalign.rsrm.RSRM`
+    with the configuration (``n_iter``, ``features``, ``gamma``,
+    ``rand_seed``) and the fitted ``w_``, ``s_``, ``r_`` and
+    ``objective_`` of the JAX package's ``model``, so that
+    ``transform`` and ``transform_subject`` give what ``model``'s
+    give."""
+    out = RSRM(n_iter=model.n_iter, features=model.features,
+               gamma=model.gamma, rand_seed=model.rand_seed, device=device)
+    if hasattr(model, "w_"):
+        out.w_ = [np.asarray(a) for a in model.w_]
+        out.s_ = [np.asarray(a) for a in model.s_]
+        out.r_ = np.asarray(model.r_)
+        out.objective_ = float(model.objective_)
+    return out
+
+
+def sssrm_from_jax(model, device="cuda"):
+    """The port's :class:`~brainiak_tpu_torch.funcalign.sssrm.SSSRM`
+    with the configuration and the fitted ``w_``, ``s_``, ``theta_``,
+    ``bias_`` and ``classes_`` of the JAX package's ``model``, so that
+    ``transform`` and ``predict`` give what ``model``'s give."""
+    out = SSSRM(n_iter=model.n_iter, features=model.features,
+                gamma=model.gamma, alpha=model.alpha,
+                rand_seed=model.rand_seed, device=device)
+    if hasattr(model, "w_"):
+        out.w_ = [np.asarray(a) for a in model.w_]
+        for name in ("s_", "theta_", "bias_", "classes_"):
+            setattr(out, name, np.asarray(getattr(model, name)))
+    return out
+
+
+def fastsrm_from_jax(model, device="cuda"):
+    """The port's :class:`~brainiak_tpu_torch.funcalign.fastsrm.FastSRM`
+    with the configuration of the JAX package's ``model`` (its atlas,
+    ``n_components``, ``aggregate``, its spill directory and
+    ``low_ram``) and its ``basis_list``, arrays or ``.npy`` paths kept
+    as they are, so that ``transform``, ``inverse_transform`` and
+    ``add_subjects`` give what ``model``'s give."""
+    out = FastSRM(atlas=model.atlas, n_components=model.n_components,
+                  n_iter=model.n_iter, seed=model.seed,
+                  n_jobs=model.n_jobs, verbose=model.verbose,
+                  aggregate=model.aggregate, device=device)
+    out.temp_dir = model.temp_dir
+    out.low_ram = model.low_ram
+    if model.basis_list is not None:
+        out.basis_list = [b if isinstance(b, str) else np.asarray(b)
+                          for b in model.basis_list]
+    return out

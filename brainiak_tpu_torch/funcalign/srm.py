@@ -352,7 +352,34 @@ def _host(t):
     return t.detach().cpu().numpy()
 
 
-class _SRMBase:
+def _tensor(a, dtype, dev):
+    """``a`` as a tensor on ``dev`` in the numpy ``dtype`` (at least
+    float32), converted on the host before the copy."""
+    dtype = np.result_type(dtype, np.float32)
+    return torch.as_tensor(np.asarray(a, dtype=dtype), device=dev)
+
+
+class _Estimator:
+    """``get_params`` / ``set_params`` over the constructor parameters
+    named in ``_param_names`` (the port imports no sklearn)."""
+
+    _param_names = ()
+
+    def get_params(self, deep=True):
+        del deep
+        return {k: getattr(self, k) for k in self._param_names}
+
+    def set_params(self, **params):
+        for k, v in params.items():
+            if k not in self._param_names:
+                raise ValueError(f"invalid parameter {k!r}")
+            setattr(self, k, v)
+        return self
+
+
+class _SRMBase(_Estimator):
+
+    _param_names = ("n_iter", "features", "rand_seed", "mesh", "device")
 
     def __init__(self, n_iter=10, features=50, rand_seed=0, mesh=None,
                  device="cuda"):
@@ -363,18 +390,6 @@ class _SRMBase:
         self.device = device
 
     # -- the estimator interface -----------------------------------------
-    def get_params(self, deep=True):
-        del deep
-        return {k: getattr(self, k) for k in
-                ("n_iter", "features", "rand_seed", "mesh", "device")}
-
-    def set_params(self, **params):
-        for k, v in params.items():
-            if k not in self.get_params():
-                raise ValueError(f"invalid parameter {k!r}")
-            setattr(self, k, v)
-        return self
-
     def fit_transform(self, X, y=None, **fit_params):
         return self.fit(X, y, **fit_params).transform(X)
 

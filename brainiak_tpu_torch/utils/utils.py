@@ -1,15 +1,17 @@
-"""Time-series input checks and array correlation (NumPy, host).
+"""Time-series input checks, array correlation and concatenation
+(NumPy, host).
 
 Copies of ``brainiak_tpu/utils/utils.py``'s ``_check_timeseries_input``
-and ``array_correlation``, which :mod:`brainiak_tpu_torch.isc` needs;
-the port imports nothing of the JAX package.
+and ``array_correlation``, which :mod:`brainiak_tpu_torch.isc` needs,
+and of its ``concatenate_not_none``, which SS-SRM needs; the port
+imports nothing of the JAX package.
 """
 
 import logging
 
 import numpy as np
 
-__all__ = ["array_correlation"]
+__all__ = ["array_correlation", "concatenate_not_none"]
 
 logger = logging.getLogger(__name__)
 
@@ -60,3 +62,8 @@ def array_correlation(x, y, axis=0):
     num = np.sum(xd * yd, axis=0)
     den = np.sqrt(np.sum(xd ** 2, axis=0) * np.sum(yd ** 2, axis=0))
     return num / den
+
+
+def concatenate_not_none(data, axis=0):
+    """Concatenate the non-None entries of a list of arrays."""
+    return np.concatenate([d for d in data if d is not None], axis=axis)

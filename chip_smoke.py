@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths (FCMA voxel selection and
 classification, the SUMMA ring Gram, ISC/ISFC, SRM, the FCMA file
-front end) on one CUDA card.
+front end, RSRM, SS-SRM, FastSRM) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -214,7 +214,42 @@ first one that goes wrong:
    ``load_boolean_mask`` and ``load_labels``, then
    ``prepare_fcma_data`` and ``run('svm')``, whose results must equal
    phase 3's exactly; write and read seconds.
-17. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
+17. RSRM.  First its fit contract on the card: ``RSRM(n_iter=20,
+   features=50, gamma=1).fit`` of 8 subjects x 8,192 voxels x 300 TRs
+   with a planted sparse term, a checkpoint every 5 iterations; a fit
+   preempted at step 10 and resumed, and a NaN at step 5 rolled back,
+   both bit for bit on the uninterrupted checkpointed fit; its chunk
+   and checkpoint seconds.  Then RSRM at phase 14's shape (20 x 40,000
+   x 300, K=50, 10 iterations, gamma 1, float32) on phase 14's kind of
+   data plus a planted sparse term (1% of each subject's entries moved
+   by +-5): held to a float64 fit of the same chunk functions on the
+   card from the same w0 (max|dW| / max|W| and |dR|_F / |R|_F <= 1e-3,
+   d(objective) / |objective| <= 1e-5, the supports of ``s_`` equal on
+   >= 99.9% of the entries), to orthonormal maps and to the planted
+   term (mean |s_| on it over 5 times that elsewhere, a nonzero share
+   of ``s_`` below 0.2); seconds split into host stack, upload, init,
+   BCD (CUDA events) and fetch, peak memory, syncs an iteration and
+   one profiled BCD run.
+18. SS-SRM at the layout of the raider data that the reference's
+   image-prediction example loads (synthetic here, planted as
+   ``examples/funcalign_variants.py`` plants it): 10 subjects x 1,000
+   voxels x 2,203 alignment TRs, 56 labelled samples of 7 classes a
+   subject and 56 held out, K=50, alpha 0.5, gamma 1, 10 iterations,
+   float32: held-out accuracy >= 0.8, |W_i^T W_i - I| <= 1e-4,
+   held-out predictions equal on >= 95% to a float64 fit of the port
+   on the card from the same initial W; seconds of the W and MLR
+   updates an iteration, the syncs and launches of each.
+19. FastSRM on phase 14's data in two sessions of 150 TRs, a
+   deterministic atlas of 1,000 parcels, K=50, 100 iterations,
+   aggregate "mean": the smallest principal cosine to the planted
+   shared response > 0.8, orthonormal bases to 1e-4, the bases within
+   1e-3 of max|basis| of a float64 fit of the port on the card from
+   the same w0; seconds of the host reduction, the reduced DetSRM, the
+   bases (products and the wide SVD apart) and the transform; then a
+   fit of the first 4 subjects from ``.npy`` paths with ``temp_dir``
+   and ``low_ram`` within 1e-4 of the in-memory fit of the same
+   subjects, its spills removed by ``clean()``.
+20. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
    not there while the paths above are timed).
@@ -2276,15 +2311,17 @@ def srm_data(n_subj, n_vox, n_trs, k, seed):
     return X, W, s
 
 
-def timed_fit(torch, srm, fit, em_name):
+def timed_fit(torch, srm, fit, em_name, module=None):
     """``fit()`` with its steps timed: the host stack and pad, the
     upload, the init (a CPU draw and a QR on the card), the EM by CUDA
-    events around ``srm.<em_name>`` (then a synchronize, so that what
-    follows is the fetch alone) and the fetch with the host checks.
-    Returns (model, seconds by step, EM device ms, the EM's arguments:
-    the data, traces, voxel counts and w0 on the card)."""
-    real = {n: getattr(srm, n) for n in ("_stack_and_pad", "_init_w",
-                                         em_name)}
+    events around ``<module>.<em_name>`` (``module`` by default
+    ``srm``; then a synchronize, so that what follows is the fetch
+    alone) and the fetch with the host checks.  Returns (model,
+    seconds by step, EM device ms, the EM's arguments: the data,
+    traces, voxel counts and w0 on the card, or the data and w0)."""
+    module = module or srm
+    real = {n: getattr(srm, n) for n in ("_stack_and_pad", "_init_w")}
+    real_em = getattr(module, em_name)
     real_place = srm._SRMBase._device_place
     marks = {}
 
@@ -2303,7 +2340,7 @@ def timed_fit(torch, srm, fit, em_name):
         stop = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = real[em_name](*a, **k)
+        out = real_em(*a, **k)
         stop.record()
         torch.cuda.synchronize()
         marks["em"] = time.perf_counter() - t0
@@ -2317,7 +2354,7 @@ def timed_fit(torch, srm, fit, em_name):
                                              *a, **k)
     srm._SRMBase._device_place = lambda self, *a: host_timed(
         "upload", real_place, self, *a)
-    setattr(srm, em_name, em)
+    setattr(module, em_name, em)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2326,6 +2363,7 @@ def timed_fit(torch, srm, fit, em_name):
     finally:
         for name, fn in real.items():
             setattr(srm, name, fn)
+        setattr(module, em_name, real_em)
         srm._SRMBase._device_place = real_place
     secs = {k: marks[k] for k in ("stack", "upload", "init", "em")}
     secs["fetch"] = t_end - marks["t_em_end"]
@@ -2423,8 +2461,6 @@ def srm_sync_and_profile(torch, srm, em_args, smi, n_iter):
     iterations; then one profiled run of ``n_iter`` EM iterations: the
     top device ops, the launches an iteration and the busy share.
     ``em_args``: the data, traces, voxel counts and w0 of a fit."""
-    from torch.profiler import ProfilerActivity, profile
-
     x, trace, counts, w0 = em_args[:4]
     dev = w0.device
     k = w0.shape[2]
@@ -2447,52 +2483,28 @@ def srm_sync_and_profile(torch, srm, em_args, smi, n_iter):
     for name, fn in solves.items():
         n, where = count_syncs(torch, fn)
         log(f"  host syncs of {name}: {n}")
-    per = {}
-    for steps in (1, 2):
-        n, where = count_syncs(torch, lambda: srm._em_chunk(
-            x, trace, counts, *state, n_steps=steps))
-        per[steps] = n
-        log(f"  host syncs of {steps} EM iteration(s): {n} at {where}")
-    log(f"  host syncs an EM iteration: {per[2] - per[1]}")
-
-    def em():
-        srm._em_chunk(x, trace, counts, *state, n_steps=n_iter)
-
-    em()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        em()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = sorted(((us, n, name) for name, (us, n)
-                      in device_events(torch, prof)), reverse=True)
-    host, device = launch_counts(torch, prof)
-    busy = sum(us for us, _, _ in kernels) / 1e3
-    log(f"  EM profile ({smi}): {n_iter} iterations in a {wall_ms:.3f} "
-        f"ms window, device busy {busy:.3f} ms ({busy / wall_ms:.3f} of "
-        f"the window); kernel launches {host} host / {device} device, "
-        f"{host / n_iter:.1f} an iteration")
-    for us, n, name in kernels[:8]:
-        log(f"    {us / 1e3:9.3f} ms {n:6d}x {name[:80]}")
+    bcd_profile(torch, "SRM EM",
+                lambda n: srm._em_chunk(x, trace, counts, *state,
+                                        n_steps=n), n_iter, smi, top=8)
     del x, state, gram
 
 
-def run_srm(torch, smi, dev="cuda", shape=None):
+def run_srm(torch, smi, dev="cuda", shape=None, data=None):
     """SRM and DetSRM at BASELINE.md:120's shape (20 subjects x 40,000
     voxels x 300 TRs, 50 features, 10 iterations, float32), and a
     ragged SRM fit, each once: ``run_srm_contract`` runs first, so
     cuSOLVER's and cuBLAS's first calls are behind them.  Each is held
     to a float64 fit of the same chunk functions on the card, to
     orthonormal maps and to the planted structure; each fit's split
-    and peak memory, and the SRM EM's syncs and profile are printed."""
+    and peak memory, and the SRM EM's syncs and profile are printed.
+    ``data``: ``srm_data``'s output at that shape (made here if
+    None)."""
     from brainiak_tpu_torch.funcalign import srm
 
     n_s, n_v, n_t, k, n_iter = shape or (
         SRM_SUBJECTS, SRM_VOXELS, SRM_TRS, SRM_FEATURES, SRM_ITERS)
     t0 = time.perf_counter()
-    X, W, _ = srm_data(n_s, n_v, n_t, k, SEED + 7)
+    X, W, _ = data or srm_data(n_s, n_v, n_t, k, SEED + 7)
     log(f"SRM: {n_s} subjects x {n_v} voxels x {n_t} TRs, K={k}, "
         f"{n_iter} iterations, float32 ({n_s * n_v * n_t * 4 / 1e9:.2f} "
         f"GB stack; data made in {time.perf_counter() - t0:.2f} s)")
@@ -2521,7 +2533,39 @@ def run_srm(torch, smi, dev="cuda", shape=None):
             srm_sync_and_profile(torch, srm, em_args, smi, n_iter)
         del model, em_args, w0
         torch.cuda.empty_cache()
-    del X, W, ragged
+
+
+def resume_and_rollback(label, fit, same, ref):
+    """A fit preempted at step 10 and resumed, and a NaN at step 5
+    rolled back to step 0, each held to ``ref`` by ``same(what, got,
+    ref)``; ``fit(sub)`` fits with a checkpoint directory named
+    ``sub``, a checkpoint every 5 steps."""
+    from brainiak_tpu_torch import obs
+    from brainiak_tpu_torch.resilience import faults
+
+    with faults.inject("preempt", at_step=10) as fault:
+        try:
+            fit("preempt")
+        except faults.PreemptionError as exc:
+            log(f"  preempted: {exc}")
+    if fault.fired != 1:
+        fail(f"{label}: the preempt fault did not fire")
+    mem = obs.add_sink(obs.MemorySink())
+    resumed = fit("preempt")
+    obs.remove_sink(mem)
+    resume = events(mem.records, "resume")
+    if len(resume) != 1 or resume[0]["attrs"]["step"] != 10:
+        fail(f"{label}: the resume is wrong: {resume}")
+    same("resumed at step 10", resumed, ref)
+    mem = obs.add_sink(obs.MemorySink())
+    with faults.inject("nan", at_step=5) as fault:
+        rolled = fit("nan")
+    obs.remove_sink(mem)
+    rollback = events(mem.records, "rollback")
+    if fault.fired != 1 or len(rollback) != 1 or \
+            rollback[0]["attrs"]["to_step"] != 0:
+        fail(f"{label}: the NaN was not rolled back once: {rollback}")
+    same("NaN at step 5 rolled back", rolled, ref)
 
 
 def run_srm_contract(torch, smi, dev="cuda", n_s=8, n_v=8192, n_t=300,
@@ -2535,7 +2579,6 @@ def run_srm_contract(torch, smi, dev="cuda", n_s=8, n_v=8192, n_t=300,
 
     from brainiak_tpu_torch import obs
     from brainiak_tpu_torch.funcalign import srm
-    from brainiak_tpu_torch.resilience import faults
 
     X, _, _ = srm_data(n_s, n_v, n_t, k, SEED + 8)
 
@@ -2589,30 +2632,7 @@ def run_srm_contract(torch, smi, dev="cuda", n_s=8, n_v=8192, n_t=300,
                 rl <= SRM_LL_RTOL):
             fail("SRM fit contract: the checkpointed fit is off the "
                  "plain fit")
-        with faults.inject("preempt", at_step=10) as fault:
-            try:
-                fit("preempt")
-            except faults.PreemptionError as exc:
-                log(f"  preempted: {exc}")
-        if fault.fired != 1:
-            fail("SRM fit contract: the preempt fault did not fire")
-        mem = obs.add_sink(obs.MemorySink())
-        resumed = fit("preempt")
-        obs.remove_sink(mem)
-        resume = events(mem.records, "resume")
-        if len(resume) != 1 or resume[0]["attrs"]["step"] != 10:
-            fail(f"SRM fit contract: the resume is wrong: {resume}")
-        same("resumed at step 10", resumed, ref)
-        mem = obs.add_sink(obs.MemorySink())
-        with faults.inject("nan", at_step=5) as fault:
-            rolled = fit("nan")
-        obs.remove_sink(mem)
-        rollback = events(mem.records, "rollback")
-        if fault.fired != 1 or len(rollback) != 1 or \
-                rollback[0]["attrs"]["to_step"] != 0:
-            fail(f"SRM fit contract: the NaN was not rolled back once: "
-                 f"{rollback}")
-        same("NaN at step 5 rolled back", rolled, ref)
+        resume_and_rollback("SRM fit contract", fit, same, ref)
     torch.cuda.empty_cache()
 
 
@@ -2713,6 +2733,507 @@ def run_file_front_end(torch, images, conditions, mask1, results, smi):
         f"in-memory run's: {got == results}")
     if not np.array_equal(m1, mask1) or got != results:
         fail("the file front end does not reproduce the in-memory run")
+
+
+# -- the SRM family beyond SRM: RSRM, SS-SRM, FastSRM ------------------
+
+# RSRM: phase 14's data plus a planted sparse term, 1% of each
+# subject's entries at +-5; the float32 fit against a float64 fit of
+# the same chunk functions on the card from the same w0
+RSRM_GAMMA = 1.0
+RSRM_PLANT_SHARE, RSRM_PLANT_AMP = 0.01, 5.0
+RSRM_W_RTOL = 1e-3     # max|dW| / max|W|
+RSRM_R_RTOL = 1e-3     # |dR|_F / |R|_F
+RSRM_OBJ_RTOL = 1e-5   # d(objective) / |objective|
+RSRM_SUPPORT = 0.999   # share of the entries of s_ whose support agrees
+RSRM_PLANT_RATIO = 5.0  # mean |s_| on the planted entries over the rest
+RSRM_NONZERO = 0.2     # most share of nonzero entries of s_
+# SS-SRM at the layout of the raider data the reference's image
+# prediction example loads: subjects, ventral-temporal voxels,
+# alignment TRs, labelled samples a subject (and as many held out),
+# classes, K, BCD iterations
+SSSRM_SHAPE = (10, 1000, 2203, 56, 7, 50, 10)
+SSSRM_ALPHA, SSSRM_GAMMA = 0.5, 1.0
+SSSRM_ACCURACY = 0.8   # held-out accuracy (the example's gate)
+SSSRM_AGREE = 0.95     # held-out predictions equal to the float64 fit's
+# FastSRM on phase 14's data in two sessions of 150 TRs
+FASTSRM_PARCELS, FASTSRM_ITERS = 1000, 100
+FASTSRM_COSINE = 0.8   # smallest principal cosine to the planted S
+FASTSRM_BASIS_RTOL = 1e-3  # max|dB| / max|B| against the float64 fit
+FASTSRM_PATH_ATOL = 1e-4   # the .npy fit against the in-memory fit
+FASTSRM_PATH_SUBJECTS = 4
+
+
+def plant_sparse(X, seed):
+    """Copies of ``X`` with a sparse term: about a share
+    RSRM_PLANT_SHARE of each subject's entries (flat indices drawn from
+    the seed, repeats dropped) moved by +-RSRM_PLANT_AMP.  Returns
+    (planted copies, each subject's flat indices)."""
+    rng = np.random.default_rng(seed)
+    out, where = [], []
+    for x in X:
+        idx = np.unique(rng.integers(0, x.size,
+                                     size=int(RSRM_PLANT_SHARE * x.size)))
+        y = x.copy()
+        y.ravel()[idx] += np.where(rng.random(idx.size) < 0.5, -1.0,
+                                   1.0).astype(np.float32) * \
+            np.float32(RSRM_PLANT_AMP)
+        out.append(y)
+        where.append(idx)
+    return out, where
+
+
+def bcd_profile(torch, label, step, n_iter, smi, top=6):
+    """The host syncs of 1 and 2 iterations of ``step(n)``, then one
+    profiled run of ``n_iter``: top device ops, launches an iteration,
+    busy share.  Returns (syncs an iteration, launches an iteration,
+    busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per = {}
+    for n in (1, 2):
+        per[n], where = count_syncs(torch, lambda: step(n))
+        log(f"  {label}: host syncs of {n} iteration(s): {per[n]} at "
+            f"{where}")
+    step(n_iter)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(n_iter)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = sorted(((us, n, name) for name, (us, n)
+                      in device_events(torch, prof)), reverse=True)
+    host, _ = launch_counts(torch, prof)
+    busy = sum(us for us, _, _ in kernels) / 1e3
+    log(f"  {label} profile ({smi}): {n_iter} iterations in a "
+        f"{wall_ms:.3f} ms window, device busy {busy:.3f} ms "
+        f"({busy / max(wall_ms, 1e-9):.3f}); {host} host launches, "
+        f"{host / n_iter:.1f} an iteration; host syncs an iteration "
+        f"{per[2] - per[1]}")
+    for us, n, name in kernels[:top]:
+        log(f"    {us / 1e3:9.3f} ms {n:6d}x {name[:80]}")
+    return per[2] - per[1], host / n_iter, busy / max(wall_ms, 1e-9)
+
+
+def run_rsrm(torch, smi, dev="cuda", shape=None, data=None):
+    """RSRM at phase 14's shape (20 subjects x 40,000 voxels x 300
+    TRs, K=50, 10 iterations, gamma 1, float32) on phase 14's data
+    (``data``, made here if None) with a planted sparse term: held to
+    a float64 fit of the same chunk functions on the card from the
+    same w0, to orthonormal maps and to the planted structure; its
+    seconds split, peak memory, syncs and profile."""
+    from brainiak_tpu_torch.funcalign import rsrm, srm
+
+    n_s, n_v, n_t, k, n_iter = shape or (
+        SRM_SUBJECTS, SRM_VOXELS, SRM_TRS, SRM_FEATURES, SRM_ITERS)
+    t0 = time.perf_counter()
+    X, _, _ = data or srm_data(n_s, n_v, n_t, k, SEED + 7)
+    X, planted = plant_sparse(X, SEED + 10)
+    log(f"RSRM: {n_s} subjects x {n_v} voxels x {n_t} TRs, K={k}, "
+        f"{n_iter} iterations, gamma {RSRM_GAMMA}, float32, "
+        f"{RSRM_PLANT_SHARE:.0%} of the entries planted at "
+        f"+-{RSRM_PLANT_AMP} (data made in "
+        f"{time.perf_counter() - t0:.2f} s)")
+    torch.cuda.reset_peak_memory_stats()
+    model, secs, bcd_ms, args = timed_fit(
+        torch, srm, lambda: rsrm.RSRM(n_iter=n_iter, features=k,
+                                      gamma=RSRM_GAMMA,
+                                      device=dev).fit(X),
+        "_fit_rsrm", module=rsrm)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  RSRM fit ({smi}): {secs['total']:.3f} s = stack and pad "
+        f"{secs['stack']:.3f} + upload {secs['upload']:.3f} + init "
+        f"{secs['init']:.3f} + BCD {secs['em']:.3f} (device "
+        f"{bcd_ms:.3f} ms by CUDA events) + fetch {secs['fetch']:.3f} + "
+        f"the rest; peak device memory {peak / 2**30:.2f} GiB")
+    # the float64 fit from the same w0 on the same (float32) stack,
+    # the supports compared on the card
+    x, w0 = args[0], args[1]
+    w, s, r, obj = rsrm._fit_rsrm(x.to(torch.float64),
+                                  w0.to(torch.float64), RSRM_GAMMA, n_iter)
+    w_ref, r_ref, obj_ref = w.cpu().numpy(), r.cpu().numpy(), float(obj)
+    agree = sum(int(torch.sum((torch.from_numpy(g).to(dev) != 0) ==
+                              (s[i, :g.shape[0]] != 0)))
+                for i, g in enumerate(model.s_)) / \
+        sum(g.size for g in model.s_)
+    del w, s, r, obj
+    torch.cuda.empty_cache()
+    rw = max(float(np.abs(g - w_ref[i][:g.shape[0]]).max())
+             for i, g in enumerate(model.w_)) / float(np.abs(w_ref).max())
+    rr = float(np.linalg.norm(model.r_ - r_ref) / np.linalg.norm(r_ref))
+    ro = abs(model.objective_ - obj_ref) / abs(obj_ref)
+    ortho = max(float(np.abs(g.T @ g - np.eye(k)).max())
+                for g in model.w_)
+    on_sum = sum(float(np.abs(g.ravel()[i]).sum(dtype=np.float64))
+                 for g, i in zip(model.s_, planted))
+    n_on = sum(i.size for i in planted)
+    all_sum = sum(float(np.abs(g).sum(dtype=np.float64))
+                  for g in model.s_)
+    n_all = sum(g.size for g in model.s_)
+    on = on_sum / n_on
+    off = max(all_sum - on_sum, 0.0) / (n_all - n_on)
+    nonzero = sum(int(np.count_nonzero(g)) for g in model.s_) / n_all
+    log(f"  RSRM vs float64 on the card: max|dW|/max|W| {rw:.3e}, "
+        f"|dR|/|R| {rr:.3e}, dobj/|obj| {ro:.3e}, supports of s_ equal "
+        f"on {agree:.6f} of the entries; max|W^T W - I| {ortho:.3e}; "
+        f"mean |s_| on the planted entries {on:.4f}, elsewhere "
+        f"{off:.6f} (ratio {on / off if off else np.inf:.1f}); nonzero "
+        f"share {nonzero:.5f} (planted {RSRM_PLANT_SHARE})")
+    if not (rw <= RSRM_W_RTOL and rr <= RSRM_R_RTOL and
+            ro <= RSRM_OBJ_RTOL and agree >= RSRM_SUPPORT):
+        fail(f"RSRM: the float32 fit is off its float64 reference ({rw:.3e}"
+             f", {rr:.3e}, {ro:.3e}, support {agree:.6f})")
+    if ortho > SRM_ORTHO:
+        fail(f"RSRM: the maps are not orthonormal ({ortho:.3e})")
+    if not (on > RSRM_PLANT_RATIO * off and 0 < nonzero < RSRM_NONZERO):
+        fail("RSRM: the sparse term does not find the planted entries")
+    del model, w_ref
+    s0 = torch.zeros_like(x)
+    r0 = rsrm._shared_response(x, s0, w0, n_s)
+    bcd_profile(torch, "RSRM BCD",
+                lambda n: rsrm._rsrm_chunk(x, w0, s0, r0, RSRM_GAMMA, n),
+                n_iter, smi)
+    del x, w0, s0, r0, args
+    torch.cuda.empty_cache()
+
+
+def run_rsrm_contract(torch, smi, dev="cuda", n_s=8, n_v=8192, n_t=300,
+                      k=50, n_iter=20, every=5):
+    """The RSRM fit contract on the card: the checkpointed fit, a fit
+    preempted at step 10 and resumed, and a NaN at step 5 rolled back,
+    the last two held to the first bit for bit; chunk and checkpoint
+    seconds."""
+    import os
+    import tempfile
+
+    from brainiak_tpu_torch import obs
+    from brainiak_tpu_torch.funcalign import rsrm
+
+    X, _ = plant_sparse(srm_data(n_s, n_v, n_t, k, SEED + 11)[0],
+                        SEED + 14)
+
+    def same(label, got, ref):
+        equal = all(np.array_equal(a, b) for a, b in zip(got.w_, ref.w_)) \
+            and all(np.array_equal(a, b) for a, b in zip(got.s_, ref.s_)) \
+            and np.array_equal(got.r_, ref.r_) \
+            and got.objective_ == ref.objective_
+        log(f"  {label}: bit-identical to the uninterrupted "
+            f"checkpointed fit: {equal}")
+        if not equal:
+            fail(f"RSRM fit contract: {label} is not the uninterrupted "
+                 "checkpointed fit bit for bit")
+
+    with tempfile.TemporaryDirectory(prefix="rsrm_contract_") as root:
+        def fit(sub):
+            return rsrm.RSRM(n_iter=n_iter, features=k, gamma=RSRM_GAMMA,
+                             device=dev).fit(
+                X, checkpoint_dir=os.path.join(root, sub),
+                checkpoint_every=every)
+
+        mem = obs.add_sink(obs.MemorySink())
+        t0 = time.perf_counter()
+        ref = fit("ref")
+        t_ref = time.perf_counter() - t0
+        obs.remove_sink(mem)
+        chunk_s = [r["chunk_s"] for r in mem.records
+                   if r["kind"] == "progress"]
+        ckpt_s = [r["value"] for r in mem.records
+                  if r["kind"] == "metric"
+                  and r["name"] == "checkpoint_seconds"]
+        log(f"RSRM fit contract ({smi}): {n_s} subjects x {n_v} voxels x "
+            f"{n_t} TRs, K={k}, {n_iter} iterations, a checkpoint every "
+            f"{every}: {t_ref:.4f} s; chunk seconds "
+            f"{', '.join(f'{c:.5f}' for c in chunk_s)}; "
+            f"checkpoint_seconds mean {np.mean(ckpt_s):.5f} max "
+            f"{np.max(ckpt_s):.5f} over {len(ckpt_s)} saves of "
+            f"{n_s * n_v * (k + n_t) * 4} bytes of W and S")
+        resume_and_rollback("RSRM fit contract", fit, same, ref)
+    torch.cuda.empty_cache()
+
+
+def sssrm_data(shape, seed):
+    """The raider-like layout, planted as the JAX package's
+    ``examples/funcalign_variants.py`` plants it: a shared response,
+    orthonormal W_i, labelled and held-out samples around class
+    prototypes in shared space; float32.  Returns (X, y, Z, Z_test,
+    y_test)."""
+    n_s, n_v, n_t, n_lab, n_cls, k, _ = shape
+    rng = np.random.default_rng(seed)
+    shared = rng.standard_normal((k, n_t))
+    prototypes = rng.standard_normal((n_cls, k)) * 2.0
+    labels = np.arange(n_lab) % n_cls
+    X, Z, Zt = [], [], []
+    for _ in range(n_s):
+        w, _ = np.linalg.qr(rng.standard_normal((n_v, k)))
+        X.append((w @ shared + 0.1 * rng.standard_normal((n_v, n_t)))
+                 .astype(np.float32))
+        for out in (Z, Zt):
+            z = prototypes[labels].T + 0.3 * rng.standard_normal(
+                (k, n_lab))
+            out.append((w @ z + 0.1 * rng.standard_normal((n_v, n_lab)))
+                       .astype(np.float32))
+    return X, [labels] * n_s, Z, Zt, [labels] * n_s
+
+
+def run_sssrm(torch, smi, dev="cuda", shape=None):
+    """SS-SRM at the raider-like layout (10 subjects x 1,000 voxels x
+    2,203 alignment TRs, 56 labelled samples of 7 classes and 56 held
+    out a subject, K=50, 10 iterations, float32): held-out accuracy,
+    orthonormal maps, predictions against a float64 fit of the port on
+    the card from the same initial W; seconds of the W and MLR updates
+    an iteration, their syncs and launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brainiak_tpu_torch.funcalign import sssrm
+
+    shape = shape or SSSRM_SHAPE
+    n_s, n_v, n_t, n_lab, n_cls, k, n_iter = shape
+    X, y, Z, Zt, yt = sssrm_data(shape, SEED + 12)
+    log(f"SS-SRM: {n_s} subjects x {n_v} voxels x {n_t} alignment TRs, "
+        f"{n_lab} labelled samples of {n_cls} classes a subject and "
+        f"{n_lab} held out, K={k}, alpha {SSSRM_ALPHA}, gamma "
+        f"{SSSRM_GAMMA}, {n_iter} iterations, float32")
+    real = {n: getattr(sssrm, n) for n in
+            ("_fit_w_subject", "_fit_w_subject_unsup", "_fit_mlr")}
+    calls = {n: [] for n in real}
+
+    def timed(name):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            calls[name].append((time.perf_counter() - t0, a))
+            return out
+        return call
+
+    for name in real:
+        setattr(sssrm, name, timed(name))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        model = sssrm.SSSRM(n_iter=n_iter, features=k, gamma=SSSRM_GAMMA,
+                            alpha=SSSRM_ALPHA, device=dev).fit(X, y, Z)
+        t_fit = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(sssrm, name, fn)
+    peak = torch.cuda.max_memory_allocated()
+    w_s = [t for t, _ in calls["_fit_w_subject"]]
+    mlr_s = [t for t, _ in calls["_fit_mlr"]]
+    per_it_w = [sum(w_s[i * n_s:(i + 1) * n_s]) for i in range(n_iter)]
+    log(f"  SS-SRM fit ({smi}): {t_fit:.3f} s; W updates an iteration "
+        f"({n_s} subjects) {', '.join(f'{t:.3f}' for t in per_it_w)} s; "
+        f"MLR updates (the first before the loop) "
+        f"{', '.join(f'{t:.3f}' for t in mlr_s)} s; the rest "
+        f"{t_fit - sum(w_s) - sum(mlr_s):.3f} s; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    preds = model.predict(Zt)
+    acc = float(np.mean([np.mean(p == t) for p, t in zip(preds, yt)]))
+    ortho = max(float(np.abs(w.T @ w - np.eye(k)).max()) for w in model.w_)
+    t0 = time.perf_counter()
+    ref = sssrm.SSSRM(n_iter=n_iter, features=k, gamma=SSSRM_GAMMA,
+                      alpha=SSSRM_ALPHA, device=dev)._fit(X, y, Z,
+                                                          torch.float64)
+    t_ref = time.perf_counter() - t0
+    agree = float(np.mean(np.concatenate(preds) ==
+                          np.concatenate(ref.predict(Zt))))
+    dw = max(float(np.abs(a - b).max()) for a, b in zip(model.w_, ref.w_))
+    log(f"  SS-SRM: held-out accuracy {acc:.4f}; max|W^T W - I| "
+        f"{ortho:.3e}; the float64 fit ({t_ref:.3f} s) predicts the same "
+        f"on {agree:.4f} of the held-out samples, max|dW| {dw:.3e}")
+    if acc < SSSRM_ACCURACY:
+        fail(f"SS-SRM: held-out accuracy {acc:.4f} < {SSSRM_ACCURACY}")
+    if ortho > SRM_ORTHO:
+        fail(f"SS-SRM: the maps are not orthonormal ({ortho:.3e})")
+    if agree < SSSRM_AGREE:
+        fail(f"SS-SRM: predictions agree with the float64 fit on only "
+             f"{agree:.4f}")
+    # the first calls: the W update of the first iteration takes the
+    # Stiefel loop's 30 steps, later ones stop when no step improves
+    w_args = calls["_fit_w_subject"][0][1]
+    mlr_args = calls["_fit_mlr"][0][1]
+    for label, fn in (("W update (subject 0, iteration 1)",
+                       lambda: real["_fit_w_subject"](*w_args)),
+                      ("MLR update (the first)",
+                       lambda: real["_fit_mlr"](*mlr_args))):
+        n_sync, where = count_syncs(torch, fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        host, _ = launch_counts(torch, prof)
+        log(f"  SS-SRM {label}: {n_sync} host syncs at {where}; {host} "
+            f"host launches")
+    del model, ref, calls, w_args, mlr_args
+    torch.cuda.empty_cache()
+
+
+def principal_cosines(a, b):
+    """Cosines of the principal angles between the row spaces of two
+    [K, T] arrays."""
+    qa, _ = np.linalg.qr(np.asarray(a, dtype=np.float64).T)
+    qb, _ = np.linalg.qr(np.asarray(b, dtype=np.float64).T)
+    return np.linalg.svd(qa.T @ qb, compute_uv=False)
+
+
+def run_fastsrm(torch, smi, dev="cuda", shape=None, data=None,
+                n_parcels=FASTSRM_PARCELS, n_iter=FASTSRM_ITERS,
+                n_path=FASTSRM_PATH_SUBJECTS):
+    """FastSRM on phase 14's data (``data``, made here if None), each
+    subject's TRs in two sessions,
+    a deterministic atlas of ``n_parcels`` parcels, K=50, ``n_iter``
+    reduced-space iterations, aggregate "mean": held to the planted
+    shared response, to orthonormal bases and to a float64 fit of the
+    port on the card from the same w0; its seconds split.  Then a fit
+    of the first ``n_path`` subjects from ``.npy`` paths with
+    ``temp_dir`` and ``low_ram``, held to the in-memory fit of the same
+    subjects, its spills removed by ``clean()``."""
+    import os
+    import tempfile
+
+    from brainiak_tpu_torch.funcalign import fastsrm, srm
+
+    n_s, n_v, n_t, k = shape or (SRM_SUBJECTS, SRM_VOXELS, SRM_TRS,
+                                 SRM_FEATURES)
+    X, _, s_true = data or srm_data(n_s, n_v, n_t, k, SEED + 7)
+    half = n_t // 2
+    imgs = [[np.ascontiguousarray(x[:, :half]),
+             np.ascontiguousarray(x[:, half:])] for x in X]
+    atlas = np.random.default_rng(SEED + 13).permutation(
+        np.arange(n_v) % n_parcels + 1)
+    log(f"FastSRM: {n_s} subjects x {n_v} voxels x 2 sessions of {half} "
+        f"TRs (phase 14's data), a deterministic atlas of {n_parcels} "
+        f"parcels, K={k}, {n_iter} iterations, aggregate mean")
+    marks = {"reduce": 0.0, "svd": 0.0, "basis": 0.0}
+    real_reduce, real_polar = fastsrm._reduce_one, fastsrm._procrustes
+    real_basis = fastsrm.FastSRM._compute_basis
+    real_reduced, real_det = fastsrm.FastSRM._fit_reduced, srm._fit_det_srm
+
+    def add(name, fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        marks[name] = marks.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def det(*a, **kw):
+        marks["w0"] = a[1]
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_det(*a, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        marks["det_ms"] = start.elapsed_time(stop)
+        return out
+
+    fastsrm._reduce_one = lambda *a, **kw: add("reduce", real_reduce, *a,
+                                               **kw)
+    fastsrm._procrustes = lambda *a, **kw: add("svd", real_polar, *a,
+                                               **kw)
+    fastsrm.FastSRM._compute_basis = lambda self, *a: add(
+        "basis", real_basis, self, *a)
+    fastsrm.FastSRM._fit_reduced = lambda self, *a: add(
+        "reduced", real_reduced, self, *a)
+    srm._fit_det_srm = det
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        model = fastsrm.FastSRM(atlas=atlas, n_components=k, n_iter=n_iter,
+                                device=dev).fit(imgs)
+        t_fit = time.perf_counter() - t0
+    finally:
+        fastsrm._reduce_one, fastsrm._procrustes = real_reduce, real_polar
+        fastsrm.FastSRM._compute_basis = real_basis
+        fastsrm.FastSRM._fit_reduced = real_reduced
+        srm._fit_det_srm = real_det
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    shared = model.transform(imgs)
+    t_tr = time.perf_counter() - t0
+    log(f"  FastSRM fit ({smi}): {t_fit:.3f} s = host reduction "
+        f"{marks['reduce']:.3f} + reduced DetSRM {marks['reduced']:.3f} "
+        f"(its BCD {marks['det_ms']:.3f} ms by CUDA events) + bases "
+        f"{marks['basis']:.3f} (products and upload "
+        f"{marks['basis'] - marks['svd']:.3f}, wide SVD "
+        f"{marks['svd']:.3f}) + the rest; transform {t_tr:.3f} s; peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    cos = principal_cosines(np.concatenate(shared, axis=1), s_true)
+    ortho = max(float(np.abs(b @ b.T - np.eye(k)).max())
+                for b in model.basis_list)
+    # the float64 fit from the same w0: the parcel means in float64
+    # (one one-hot product a subject on the card), then the port's
+    # reduced DetSRM and bases in float64
+    values = np.unique(atlas)
+    values = values[values != 0]
+    onehot = torch.from_numpy(atlas[:, None] == values[None, :]).to(
+        dev, torch.float64)
+    onehot /= onehot.sum(dim=0)
+    x64 = torch.stack([(torch.from_numpy(x).to(dev, torch.float64).T
+                        @ onehot).T for x in X])
+    del onehot
+    w, shared64, _ = srm._fit_det_srm(
+        x64, marks["w0"].to(torch.float64), n_iter)
+    s64 = shared64.T.cpu().numpy()
+    ref = [real_basis(model, subj, [s64[:half], s64[half:]])
+           for subj in imgs]
+    del x64, w, shared64
+    rb = max(float(np.abs(b - r).max()) for b, r in
+             zip(model.basis_list, ref)) / \
+        max(float(np.abs(r).max()) for r in ref)
+    log(f"  FastSRM: principal cosines to the planted shared response: "
+        f"smallest {cos.min():.5f}, median {np.median(cos):.5f}; max|B "
+        f"B^T - I| {ortho:.3e}; vs the float64 fit max|dB|/max|B| "
+        f"{rb:.3e}")
+    if cos.min() <= FASTSRM_COSINE:
+        fail(f"FastSRM: smallest principal cosine {cos.min():.4f}")
+    if ortho > SRM_ORTHO:
+        fail(f"FastSRM: the bases are not orthonormal ({ortho:.3e})")
+    if rb > FASTSRM_BASIS_RTOL:
+        fail(f"FastSRM: the float32 bases are off the float64 ones "
+             f"({rb:.3e})")
+    del model, ref
+    with tempfile.TemporaryDirectory(prefix="fastsrm_npy_") as root:
+        paths = np.empty((n_path, 2), dtype=object)
+        for i in range(n_path):
+            for j in range(2):
+                paths[i, j] = os.path.join(root, f"s{i}_{j}.npy")
+                np.save(paths[i, j], imgs[i][j])
+        t0 = time.perf_counter()
+        spilled = fastsrm.FastSRM(atlas=atlas, n_components=k,
+                                  n_iter=n_iter, temp_dir=root,
+                                  low_ram=True, device=dev).fit(paths)
+        t_path = time.perf_counter() - t0
+        memory = {}
+
+        def in_memory():
+            memory["fit"] = fastsrm.FastSRM(
+                atlas=atlas, n_components=k, n_iter=n_iter,
+                device=dev).fit(imgs[:n_path])
+
+        t0 = time.perf_counter()
+        n_sync, where = count_syncs(torch, in_memory)
+        t_mem = time.perf_counter() - t0
+        d = max(float(np.abs(np.load(p) - b).max())
+                for p, b in zip(spilled.basis_list,
+                                memory["fit"].basis_list))
+        spill_dir = spilled.temp_dir
+        n_files = len(os.listdir(spill_dir))
+        spilled.clean()
+        log(f"  FastSRM from .npy paths, {n_path} subjects, temp_dir and "
+            f"low_ram: {t_path:.3f} s ({n_files} files spilled); in "
+            f"memory {t_mem:.3f} s with {n_sync} host syncs at {where}; "
+            f"max|dB| {d:.3e}; spills removed by clean(): "
+            f"{not os.path.exists(spill_dir)}")
+        if d > FASTSRM_PATH_ATOL or os.path.exists(spill_dir) or \
+                n_files != 3 * n_path:
+            fail("FastSRM: the .npy-path fit is off the in-memory fit, "
+                 "or its spills were not removed")
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -2895,10 +3416,24 @@ def main():
     torch.cuda.empty_cache()
     run_fit_contract(torch, smi)
     run_srm_contract(torch, smi)
-    run_srm(torch, smi)
+    # phase 14's data, kept for RSRM and FastSRM (phases 17 and 19)
+    srm_phase_data = srm_data(SRM_SUBJECTS, SRM_VOXELS, SRM_TRS,
+                              SRM_FEATURES, SEED + 7)
+    run_srm(torch, smi, data=srm_phase_data)
     run_panel_gram(torch, smi)
     run_file_front_end(torch, *wb_inputs, wb_results, smi)
     del wb_inputs
+    for label, phase in (
+            ("17, RSRM", lambda: (run_rsrm_contract(torch, smi),
+                                  run_rsrm(torch, smi,
+                                           data=srm_phase_data))),
+            ("18, SS-SRM", lambda: run_sssrm(torch, smi)),
+            ("19, FastSRM", lambda: run_fastsrm(torch, smi,
+                                                data=srm_phase_data))):
+        t0 = time.perf_counter()
+        phase()
+        log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")
+    del srm_phase_data
     run_ingest_split(torch, dev)
 
     csrc = "brainiak_tpu_torch/csrc/"

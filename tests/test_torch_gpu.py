@@ -1688,6 +1688,83 @@ def test_srm_resume_on_the_card_is_bit_for_bit(cuda, tmp_path, name):
     same(rolled, ref)
 
 
+def _rsrm_data(n_subjects=6, voxels=400, samples=60, features=5, seed=5):
+    rng = np.random.RandomState(seed)
+    shared = rng.randn(features, samples)
+    X = []
+    for _ in range(n_subjects):
+        q, _ = np.linalg.qr(rng.randn(voxels, features))
+        s = np.where(rng.rand(voxels, samples) < 0.01,
+                     5 * rng.randn(voxels, samples), 0.0)
+        X.append(q @ shared + s + 0.1 * rng.randn(voxels, samples))
+    return X
+
+
+def test_rsrm_cuda_matches_cpu(cuda):
+    """The same float32 RSRM fit on the card and on the CPU: max|dW| /
+    max|W| and |dR|_F / |R|_F to 1e-3, the objective to 1e-5
+    relative, the supports of s_ equal but within 1e-4 of the
+    threshold; transform_subject orthonormal."""
+    from brainiak_tpu_torch.funcalign.rsrm import RSRM
+
+    X = _rsrm_data()
+    got = RSRM(n_iter=6, features=5).fit(X)
+    want = RSRM(n_iter=6, features=5, device="cpu").fit(X)
+    dw = max(np.abs(g - w).max() for g, w in zip(got.w_, want.w_))
+    assert dw <= 1e-3 * max(np.abs(w).max() for w in want.w_)
+    assert np.linalg.norm(got.r_ - want.r_) <= \
+        1e-3 * np.linalg.norm(want.r_)
+    assert abs(got.objective_ - want.objective_) <= \
+        1e-5 * abs(want.objective_)
+    for g, w in zip(got.s_, want.s_):
+        flip = (g != 0) != (w != 0)
+        assert np.all(np.maximum(np.abs(g), np.abs(w))[flip] <= 1e-4)
+    w_sub, _ = got.transform_subject(X[0])
+    assert np.abs(w_sub.T @ w_sub - np.eye(5)).max() <= 1e-4
+
+
+def test_sssrm_cuda_matches_cpu(cuda):
+    """SS-SRM on the card against the CPU, both float32: maps within
+    1e-3, equal predictions on at least 95% of the samples."""
+    from brainiak_tpu_torch.funcalign.sssrm import SSSRM
+
+    rng = np.random.RandomState(6)
+    shared = rng.randn(3, 60)
+    means = rng.randn(3, 2) * 3
+    X, y, Z = [], [], []
+    for _ in range(3):
+        q, _ = np.linalg.qr(rng.randn(50, 3))
+        X.append(q @ shared + 0.1 * rng.randn(50, 60))
+        labels = rng.randint(0, 2, 20)
+        Z.append(q @ (means[:, labels] + 0.3 * rng.randn(3, 20))
+                 + 0.1 * rng.randn(50, 20))
+        y.append(labels)
+    got = SSSRM(n_iter=2, features=3).fit(X, y, Z)
+    want = SSSRM(n_iter=2, features=3, device="cpu").fit(X, y, Z)
+    for g, w in zip(got.w_, want.w_):
+        assert np.abs(g - w).max() <= 1e-3
+    same = np.mean(np.concatenate(got.predict(Z)) ==
+                   np.concatenate(want.predict(Z)))
+    assert same >= 0.95
+
+
+def test_fastsrm_cuda_matches_cpu(cuda):
+    """FastSRM with a deterministic atlas on the card against the CPU,
+    both float32: bases within 1e-3 of max|basis|, orthonormal rows."""
+    from brainiak_tpu_torch.funcalign.fastsrm import FastSRM
+
+    X = _srm_data(voxels=600)
+    atlas = np.repeat(np.arange(1, 61), 10)
+    got = FastSRM(atlas=atlas, n_components=5, n_iter=20).fit(X)
+    want = FastSRM(atlas=atlas, n_components=5, n_iter=20,
+                   device="cpu").fit(X)
+    for g, w in zip(got.basis_list, want.basis_list):
+        assert np.abs(g - w).max() <= 1e-3 * np.abs(w).max()
+        assert np.abs(g @ g.T - np.eye(5)).max() <= 1e-4
+    np.testing.assert_allclose(got.transform(X), want.transform(X),
+                               atol=1e-3)
+
+
 def test_panel_gram_cuda_matches_gram(cuda, tmp_path):
     """The panel Gram on a 4-position mesh of the card, a checkpoint a
     panel, against ``distla.gram`` on the card: 1e-5 (Pearson r)."""

@@ -922,3 +922,90 @@ def test_nan_reaches_a_transposed_leaf():
         out = faults.corrupt_state({"s": leaf}, 1)
     assert np.isnan(out["s"]).sum() == 1 and np.isnan(out["s"][0, 0])
     assert not np.isnan(leaf).any()
+
+
+# -- RSRM and FastSRM under the resilient loop ------------------------
+# The RSRM and FastSRM cases of tests/resilience/test_resume_parity.py
+# on the port's estimators (float32 on the CPU), bit for bit.
+
+def _rsrm(n_iter=8):
+    from brainiak_tpu_torch.funcalign.rsrm import RSRM
+    return RSRM(n_iter=n_iter, features=3, gamma=1.0, device="cpu")
+
+
+def _assert_same_rsrm(a, b):
+    for w0, w1 in zip(a.w_, b.w_):
+        assert np.array_equal(w0, w1)
+    for s0, s1 in zip(a.s_, b.s_):
+        assert np.array_equal(s0, s1)
+    assert np.array_equal(a.r_, b.r_)
+    assert a.objective_ == b.objective_
+
+
+def test_rsrm_preempt_resume_is_bit_for_bit(tmp_path):
+    X = _srm_data()
+
+    def fit(d):
+        return _rsrm().fit(X, checkpoint_dir=d, checkpoint_every=2)
+
+    plain = _rsrm().fit(X)
+    _assert_same_rsrm(fit(str(tmp_path / "full")), plain)
+    d = str(tmp_path / "ck")
+    with inject("preempt", at_step=4) as fault:
+        with pytest.raises(PreemptionError):
+            fit(d)
+    assert fault.fired == 1
+    _assert_same_rsrm(fit(d), plain)
+
+
+def test_rsrm_nan_rollback_recovers(tmp_path):
+    X = _srm_data()
+    plain = _rsrm().fit(X)
+    mem = obs_sink.add_sink(obs_sink.MemorySink())
+    with inject("nan", at_step=4, leaf="s") as fault:
+        recovered = _rsrm().fit(X, checkpoint_dir=str(tmp_path / "ck"),
+                                checkpoint_every=2)
+    obs_sink.remove_sink(mem)
+    assert fault.fired == 1
+    rollbacks = [r for r in mem.records if r["name"] == "rollback"]
+    assert len(rollbacks) == 1 and rollbacks[0]["attrs"]["to_step"] == 2
+    _assert_same_rsrm(recovered, plain)
+
+
+def test_rsrm_fingerprint_holds_gamma(tmp_path):
+    """A checkpoint of one gamma is not resumed by a fit of another."""
+    from brainiak_tpu_torch.funcalign.rsrm import RSRM
+
+    X = _srm_data()
+    d = str(tmp_path / "ck")
+    _rsrm(4).fit(X, checkpoint_dir=d, checkpoint_every=2)
+    with pytest.raises(ValueError):
+        RSRM(n_iter=8, features=3, gamma=0.5, device="cpu").fit(
+            X, checkpoint_dir=d, checkpoint_every=2)
+
+
+def test_fastsrm_preempt_resume_is_bit_for_bit(tmp_path):
+    from brainiak_tpu_torch.funcalign.fastsrm import FastSRM
+
+    rng = np.random.RandomState(1)
+    shared = rng.randn(4, 30)
+    imgs = [np.linalg.qr(rng.randn(25, 4))[0] @ shared
+            + 0.05 * rng.randn(25, 30) for _ in range(3)]
+
+    def make():
+        return FastSRM(n_components=3, n_iter=10, aggregate=None,
+                       device="cpu")
+
+    def fit(d):
+        return make().fit(imgs, checkpoint_dir=d, checkpoint_every=3)
+
+    plain = make().fit(imgs)
+    d = str(tmp_path / "ck")
+    with inject("preempt", at_step=6) as fault:
+        with pytest.raises(PreemptionError):
+            fit(d)
+    assert fault.fired == 1
+    assert os.listdir(os.path.join(d, "reduced_srm"))
+    resumed = fit(d)
+    for b0, b1 in zip(plain.basis_list, resumed.basis_list):
+        assert np.array_equal(b0, b1)

@@ -369,6 +369,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.nifti\n"
         "import brainiak_tpu_torch.funcalign\n"
         "import brainiak_tpu_torch.funcalign.srm\n"
+        "import brainiak_tpu_torch.funcalign.rsrm\n"
+        "import brainiak_tpu_torch.funcalign.sssrm\n"
+        "import brainiak_tpu_torch.funcalign.fastsrm\n"
+        "import brainiak_tpu_torch.ops.optimize\n"
         "import brainiak_tpu_torch.isc\n"
         "import brainiak_tpu_torch.ops.distla\n"
         "import brainiak_tpu_torch.ops.ring\n"
@@ -394,6 +398,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "       or m.startswith(('jax.', 'jaxlib', 'brainiak_tpu.'))]\n"
         "assert not bad, bad\n"
         "assert 'sklearn' not in sys.modules\n"
+        "assert 'optax' not in sys.modules\n"
+        "assert 'joblib' not in sys.modules\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -412,7 +412,15 @@ class _SRMBase(_Estimator):
     def _fit_device(self):
         """The device of the fit's state: the mesh's first position
         along the subject axis, else ``device`` (raises without a
-        card unless it is the CPU)."""
+        card unless it is the CPU).  A mesh that spans more than one
+        process raises ``NotImplementedError``: the EM's sums over
+        subjects would need all-reduces (ROADMAP item 11b), and a
+        rank's own subjects alone would give a partial fit."""
+        if getattr(self.mesh, "ranks", None) is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__} on a mesh that spans more than "
+                "one process is not ported yet (ROADMAP item 11b: the "
+                "subject-axis estimators across processes)")
         if self.mesh is not None:
             return axis_devices(self.mesh, DEFAULT_SUBJECT_AXIS)[0]
         return resolve_device(self.device)

@@ -18,7 +18,11 @@ leave-one-out [V, V] matrix by the SUMMA ring
 (:func:`brainiak_tpu_torch.ops.distla.summa_gram`, kernel K5 on CUDA).
 The two ISFC paths keep the reference's treatment of constant voxels:
 the ring's z-score gives them correlation 0, the dense
-:func:`_pearson_rows` NaN (0/0).
+:func:`_pearson_rows` NaN (0/0).  On a mesh across processes each rank
+computes its own positions' pieces; :func:`isc` gathers them with
+:func:`~brainiak_tpu_torch.parallel.mesh.fetch_replicated`, and the
+ring's [V, V] matrices reach the host of every rank one row slab at a
+time (:func:`_fetch_ring_matrix`), so no device holds the whole.
 
 The resampling tests (``bootstrap_isc``, ``permutation_isc``,
 ``timeshift_isc``, ``phaseshift_isc``) come with the port of
@@ -30,9 +34,10 @@ import torch
 from scipy.spatial.distance import squareform
 
 from .device import matmul_precision, resolve_device
+from .obs import spans as obs_spans
 from .ops.distla import summa_gram
-from .parallel.mesh import (DEFAULT_VOXEL_AXIS, Sharded, fetch_replicated,
-                            shard_along)
+from .parallel.mesh import (DEFAULT_VOXEL_AXIS, Sharded, comm_device,
+                            fetch_replicated, shard_along)
 from .stats.pvalues import compute_summary_statistic
 from .utils.utils import _check_timeseries_input, array_correlation
 
@@ -119,15 +124,36 @@ def _voxelwise(core, data, mesh, device, out_dim):
     placed = _shard_voxels(data, mesh, 1, device)
     if mesh is None:
         return fetch_replicated(core(placed))
-    return fetch_replicated(Sharded([core(c) for c in placed.chunks],
-                                    placed.devices, out_dim, placed.axes))
+    return fetch_replicated(placed.map(core, dim=out_dim))
 
 
 def _fetch_ring_matrix(m, mesh):
-    """Host array of the ring's [V, V] matrix.  One process holds all of
-    it, so this is the reference's single-process branch (the
-    multi-process slab broadcast is not ported)."""
-    return fetch_replicated(m, mesh)
+    """Host array of the ring's [V, V] matrix on every process.  One
+    process holds all of it (a tensor), so that is one copy.  Across
+    processes (a :class:`~brainiak_tpu_torch.parallel.mesh.Sharded` of
+    row slabs) one position's slab is broadcast from its owner at a
+    time, under an ``isc.ring_slab`` span, and the host assembles the
+    slabs: no device ever holds [V, V], which is why the ring runs."""
+    if not isinstance(m, Sharded):
+        return fetch_replicated(m, mesh)
+    dist = torch.distributed
+    me = dist.get_rank()
+    dev = comm_device()
+    template = m.local()[0][1]
+    chunk = template.shape[0]
+    rows = np.empty((len(m.chunks) * chunk, template.shape[1]),
+                    dtype=np.float32)
+    for i, (piece, owner) in enumerate(zip(m.chunks, m.ranks)):
+        with obs_spans.span("isc.ring_slab",
+                            attrs={"shard": i, "rows": chunk}):
+            buf = piece.to(dev).contiguous() if owner == me else \
+                torch.empty(template.shape, dtype=template.dtype,
+                            device=dev)
+            dist.broadcast(buf, src=owner)
+            rows[i * chunk:(i + 1) * chunk] = buf.cpu().numpy()
+    if m.shape is not None:
+        rows = rows[:m.shape[0], :m.shape[1]]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -206,15 +232,20 @@ def _isfc_ring(data, targets, mesh, tolerate_nans, symmetric):
     """The leave-one-out ISFC matrices by the SUMMA ring, one ring per
     subject (its series against the mean of the others' targets), each
     fetched to the host: a float32 [V, V, S] host array."""
-    dev = mesh.devices.flat[0]
+    dev = mesh.local_devices()[0]
     target_means = _loo_means_core(_f32(targets, dev), bool(tolerate_nans))
     data_t = _f32(data, dev)
     per_subj = []
     for s in range(data.shape[2]):
         m = summa_gram(data_t[..., s], mesh, data_b=target_means[..., s],
                        axis_names=(DEFAULT_VOXEL_AXIS,))
-        per_subj.append(_fetch_ring_matrix(
-            _symmetrize(m) if symmetric else m, mesh))
+        if isinstance(m, Sharded):
+            # row slabs on their ranks: symmetrized on the host
+            m = _fetch_ring_matrix(m, mesh)
+            per_subj.append((m + m.T) / 2 if symmetric else m)
+        else:
+            per_subj.append(_fetch_ring_matrix(
+                _symmetrize(m) if symmetric else m, mesh))
     return np.stack(per_subj, axis=2)
 
 

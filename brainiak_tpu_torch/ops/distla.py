@@ -19,6 +19,10 @@ each step places one [V/n, V/n] block of the position's output rows.
   driven from the host through
   :func:`~brainiak_tpu_torch.resilience.guards.run_resilient_loop`,
   so a preempted Gram resumes at the last completed panel.
+- :func:`block_gram`: FCMA's per-voxel Gram of a voxel block against
+  epoch data split over the mesh's voxel axis (kernel K1 a position,
+  the partial Grams summed), the path of
+  ``VoxelSelector(use_distla=)``.
 - :func:`shard_vmap`, :func:`batched_eigh` and
   :func:`batched_cholesky_solve`: per-subject small solves laid out
   along a mesh's subject axis (SRM's W updates).
@@ -33,6 +37,15 @@ own [V/n, V] slab, and the slabs are gathered on the first device at
 the end: one more [V, V] buffer there, and each slab copied once over
 the link between the cards.
 
+Across processes (a mesh of :func:`~brainiak_tpu_torch.parallel.mesh
+.initialize_distributed`), each rank runs the steps of its own
+positions; a panel that crosses to a position of another rank goes by
+``torch.distributed.batch_isend_irecv`` (for K5 the hi / lo pair of its
+split), within a rank it is handed on as above.  Each rank keeps its
+own row slabs: :func:`summa_gram` then returns a
+:class:`~brainiak_tpu_torch.parallel.mesh.Sharded` of them, which
+:func:`~brainiak_tpu_torch.parallel.mesh.fetch_replicated` gathers.
+
 ``ring_step`` takes the JAX package's names: ``None`` is K5 on CUDA and
 ``"fused"`` on the CPU; ``"pallas"`` names K5 (a CPU tensor raises);
 ``"fused"`` is the in-place step of :func:`ring_mma` (K5 on CUDA, its
@@ -40,8 +53,9 @@ plain version on the CPU); ``"unfused"`` is the reference's three-stage
 formulation (per-step products stacked, transposed and scattered) with
 ``torch.matmul`` on either device.
 
-Not ported yet: ``block_gram`` (with ``VoxelSelector(mesh=,
-use_distla=)``).
+Not across processes yet (ROADMAP item 11b): :func:`shard_vmap`,
+:func:`batched_eigh` and :func:`batched_cholesky_solve` raise
+``NotImplementedError`` on a mesh that spans more than one process.
 """
 
 import logging
@@ -54,9 +68,11 @@ import torch
 from ..device import matmul_precision, resolve_device
 from ..obs import spans as obs_spans
 from ..parallel.mesh import (DEFAULT_SUBJECT_AXIS, DEFAULT_VOXEL_AXIS,
-                             Sharded, axis_devices, shard_along)
+                             Sharded, axis_devices, comm_device,
+                             fetch_replicated, process_index, shard_along)
 from ..resilience.guards import array_digest, run_resilient_loop
-from .kernels.ring import ring_mma, split
+from .fcma_kernels import fcma_gram
+from .kernels.ring import Split, ring_mma, split
 
 logger = logging.getLogger(__name__)
 
@@ -66,6 +82,7 @@ __all__ = [
     "RING_STEPS",
     "batched_cholesky_solve",
     "batched_eigh",
+    "block_gram",
     "gram",
     "panel_gram",
     "replicated_budget_bytes",
@@ -157,33 +174,82 @@ def _pad_cols(arr, multiple):
     return torch.nn.functional.pad(arr, (0, pad)), pad
 
 
+def _panels(x):
+    """The tensors that carry a ring panel: a split's hi and lo, or
+    the tensor."""
+    return (x.hi, x.lo) if isinstance(x, Split) else (x,)
+
+
+def _hand_on(rotating, devices, ranks):
+    """Each position's panel after one ring step: position i takes
+    position i - 1's.  On one rank a panel is handed on as
+    ``.to(device)`` (itself on the same device); a panel that crosses
+    ranks goes by one ``batch_isend_irecv`` of every crossing, ordered
+    by the receiving position on both sides (NCCL matches the messages
+    of a pair of ranks in order, gloo by their tags)."""
+    n = len(rotating)
+    if ranks is None:
+        return [rotating[(i - 1) % n].to(devices[i]) for i in range(n)]
+    dist = torch.distributed
+    me = process_index()
+    dev = comm_device()
+    template = next(p for p in rotating if p is not None)
+    out, ops, received = [None] * n, [], []
+    for i in range(n):
+        src = (i - 1) % n
+        if ranks[i] == me and ranks[src] == me:
+            out[i] = rotating[src].to(devices[i])
+        elif ranks[i] == me:
+            bufs = [torch.empty_like(t, device=dev)
+                    for t in _panels(template)]
+            ops += [dist.P2POp(dist.irecv, b, ranks[src], tag=2 * i + j)
+                    for j, b in enumerate(bufs)]
+            received.append((i, bufs))
+        elif ranks[src] == me:
+            ops += [dist.P2POp(dist.isend, t.to(dev).contiguous(),
+                               ranks[i], tag=2 * i + j)
+                    for j, t in enumerate(_panels(rotating[src]))]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for i, bufs in received:
+        bufs = [b.to(devices[i]) for b in bufs]
+        out[i] = Split(*bufs, template.n_trs) \
+            if isinstance(template, Split) else bufs[0]
+    return out
+
+
 def _ring(z, z_b, ring_step, precision):
     """The ring program on two :class:`Sharded` operands ([T, B] on
     each of n positions): the [n B, n B] product ``z.T @ z_b`` on the
-    first position's device.  On CUDA it holds, beside the output, each
-    operand's shards split for K5's kernel: 8 * t_pad bytes a column
-    (``kernels.ring.Split``; one split when ``z_b`` is ``z``)."""
+    first position's device, or, across processes, a
+    :class:`Sharded` of its row slabs, each on its position.  On CUDA
+    it holds, beside the output, each operand's shards split for K5's
+    kernel: 8 * t_pad bytes a column (``kernels.ring.Split``; one split
+    when ``z_b`` is ``z``)."""
     n = len(z.chunks)
-    devices = z.devices
-    block = z_b.chunks[0].shape[1]
+    devices, ranks = z.devices, z.ranks
+    block = next(c for c in z_b.chunks if c is not None).shape[1]
     width = n * block
-    if len(set(devices)) == 1:
+    if ranks is None and len(set(devices)) == 1:
         full = torch.empty((width, width), dtype=torch.float32,
                            device=devices[0])
         outs = [full[i * block:(i + 1) * block] for i in range(n)]
     else:
         full = None
-        outs = [torch.empty((block, width), dtype=torch.float32, device=d)
-                for d in devices]
+        outs = [None if c is None else
+                torch.empty((block, width), dtype=torch.float32, device=d)
+                for c, d in zip(z.chunks, devices)]
     resident, rotating = list(z.chunks), list(z_b.chunks)
     if ring_step != "unfused" and all(d.type == "cuda" for d in devices):
         # K5's kernel reads its operands split: split each shard once
-        resident = [split(c) for c in resident]
+        resident = [None if c is None else split(c) for c in resident]
         rotating = list(resident) if z_b is z else \
-            [split(c) for c in rotating]
+            [None if c is None else split(c) for c in rotating]
+    local = [i for i in range(n) if outs[i] is not None]
     products = [[] for _ in range(n)]
     for s in range(n):
-        for i in range(n):
+        for i in local:
             if ring_step == "unfused":
                 with matmul_precision(precision) as dtype:
                     products[i].append(torch.matmul(
@@ -194,18 +260,27 @@ def _ring(z, z_b, ring_step, precision):
                 ring_mma(outs[i], resident[i], rotating[i], (i - s) % n,
                          n_shards=n, precision=precision)
         if s + 1 < n:
-            # on the same device .to() returns the panel itself
-            rotating = [rotating[(i - 1) % n].to(devices[i])
-                        for i in range(n)]
+            rotating = _hand_on(rotating, devices, ranks)
     if ring_step == "unfused":
-        for i in range(n):
+        for i in local:
             owners = [(i - s) % n for s in range(n)]
             stacked = torch.stack(products[i])
             outs[i].view(block, n, block)[:, owners, :] = \
                 stacked.transpose(0, 1)
     if full is not None:
         return full
+    if ranks is not None:
+        return Sharded(outs, devices, 0, z.axes, ranks, (width, width))
     return torch.cat([o.to(devices[0]) for o in outs])
+
+
+def _cut(out, v):
+    """The [v, v] leading block of the ring's padded product (a view),
+    or, across processes, the row slabs marked to be cut so."""
+    if isinstance(out, Sharded):
+        out.shape = (v, v)
+        return out
+    return out[:v, :v]
 
 
 def summa_matmul(a, mesh, b=None, axis_names=None, precision=None,
@@ -234,13 +309,12 @@ def summa_matmul(a, mesh, b=None, axis_names=None, precision=None,
         _pad_cols(_f32(b), n_shards)[0], mesh, names, 1)
     mode = _ring_step_for(ring_step, za.devices)
     out = _ring(za, zb, mode, precision)
-    return out[:v, :v] if pad else out
+    return _cut(out, v) if pad else out
 
 
 def _normalized(x, n_shards, mesh, names, norm):
-    placed = shard_along(_pad_cols(_f32(x), n_shards)[0], mesh, names, 1)
-    return Sharded([norm(c) for c in placed.chunks], placed.devices,
-                   placed.dim, placed.axes)
+    return shard_along(_pad_cols(_f32(x), n_shards)[0], mesh, names,
+                       1).map(norm)
 
 
 def summa_gram(data, mesh, data_b=None, axis_names=None,
@@ -272,7 +346,7 @@ def summa_gram(data, mesh, data_b=None, axis_names=None,
                                                    mesh, names, norm)
         mode = _ring_step_for(ring_step, z.devices)
         out = _ring(z, z_b, mode, precision)
-    return out[:v, :v] if v % n_shards else out
+    return _cut(out, v) if v % n_shards else out
 
 
 def _itemsize(x):
@@ -363,6 +437,9 @@ def panel_gram(data, mesh, data_b=None, axis_name=DEFAULT_VOXEL_AXIS,
     and a preempted run resumes at the last completed panel.  Each
     panel runs under a ``distla.panel_chunk`` span (attributes
     ``panel`` and ``rows``).  Returns the [V, V] float32 host array.
+    Across processes each rank multiplies a panel against its own
+    positions' columns and one ``all_gather`` a panel brings every rank
+    the whole rows (give each rank its own ``checkpoint_dir``).
 
     panel_size : rows a step (default: one shard width,
         ``V_padded / n_shards``).
@@ -376,7 +453,7 @@ def panel_gram(data, mesh, data_b=None, axis_name=DEFAULT_VOXEL_AXIS,
     t, v = data.shape
     z_b = _normalized(data_b, n_shards, mesh, axis_name, _zscore_cols)
     if panel_size is None:
-        panel_size = max(1, z_b.chunks[0].shape[1])
+        panel_size = max(1, z_b.local()[0][1].shape[1])
     n_panels = -(-v // panel_size)
 
     fingerprint = None
@@ -401,9 +478,8 @@ def panel_gram(data, mesh, data_b=None, axis_name=DEFAULT_VOXEL_AXIS,
             with obs_spans.span("distla.panel_chunk",
                                 attrs={"panel": p,
                                        "rows": stop - start}):
-                rows = np.concatenate(
-                    [_panel_rows(panel, zc, precision)
-                     for zc in z_b.chunks], axis=1)
+                rows = fetch_replicated(z_b.map(
+                    lambda zc: _panel_rows(panel, zc, precision)))
             out[start:stop, :] = rows[:stop - start, :v]
         return {"out": out}, False
 
@@ -420,14 +496,75 @@ def panel_gram(data, mesh, data_b=None, axis_name=DEFAULT_VOXEL_AXIS,
 
 def _panel_rows(panel, z_local, precision):
     """The z-scored host ``panel`` [T, P] against one position's
-    z-scored columns: [P, V/n] on the host."""
+    z-scored columns: [P, V/n] on its device."""
     zp = _zscore_cols(torch.from_numpy(panel).to(z_local.device))
     with matmul_precision(precision) as dtype:
-        rows = torch.matmul(zp.T.to(dtype), z_local.to(dtype)).float()
-    return rows.cpu().numpy()
+        return torch.matmul(zp.T.to(dtype), z_local.to(dtype)).float()
+
+
+# -- FCMA block x all-voxel contraction ------------------------------
+
+def block_gram(blk, data2, mesh, epochs_per_subj,
+               axis_name=DEFAULT_VOXEL_AXIS, precision=None):
+    """Per-voxel SVM Gram of a voxel block against epoch data split
+    over the mesh's ``axis_name``: the path of FCMA's
+    ``VoxelSelector(use_distla=)`` when replicating ``data2`` would
+    exceed the device budget.
+
+    Each position runs kernel K1 (:func:`~brainiak_tpu_torch.ops
+    .fcma_kernels.fcma_gram`; its plain version on the CPU) on the
+    block and its own voxels of ``data2``.  The within-subject
+    normalization of a correlation is local to its voxel, so the Gram
+    is a sum over ``data2``'s voxels and the positions' partial Grams
+    add up to it: they are summed in position order on this process's
+    first position's device (the JAX package's ``psum``), and across
+    processes by one ``all_reduce`` of each rank's sum.
+
+    blk : [E, T, B] (numpy, tensor, or a replicated
+        :class:`~brainiak_tpu_torch.parallel.mesh.Sharded` with a copy
+        on each device of the axis).
+    data2 : [E, T, V] numpy or tensor, zero-padded here along V up to a
+        multiple of the axis size and split over it (a zero pad column
+        normalizes to zero and adds nothing to the Gram), or a
+        :class:`~brainiak_tpu_torch.parallel.mesh.Sharded` already
+        split along dim 2 over ``axis_name``.
+    Returns the unshrunk kernels [B, E, E] float32 (the caller applies
+    FCMA's magnitude shrink), whole on every process.
+    """
+    if not isinstance(data2, Sharded):
+        data2 = shard_along(_pad_cols(_f32(data2),
+                                      mesh.shape[axis_name])[0],
+                            mesh, axis_name, 2)
+    copies = {}
+
+    def on(dev):
+        if dev not in copies:
+            copies[dev] = blk.on(dev) if isinstance(blk, Sharded) \
+                else _f32(blk).to(dev)
+        return copies[dev]
+
+    total = None
+    for _, shard, dev in data2.local():
+        part = fcma_gram(on(dev), shard, epochs_per_subj,
+                         precision=precision)
+        total = part if total is None else total + part.to(total.device)
+    if data2.ranks is not None:
+        dist = torch.distributed
+        summed = total.to(comm_device())
+        dist.all_reduce(summed)
+        total = summed.to(total.device)
+    return total
 
 
 # -- sharded batched small-matrix solves -----------------------------
+
+def _refuse_processes(mesh, what):
+    if getattr(mesh, "ranks", None) is not None:
+        raise NotImplementedError(
+            f"{what} on a mesh that spans more than one process is not "
+            "ported yet (ROADMAP item 11b: the subject-axis solves and "
+            "estimators across processes)")
+
 
 def shard_vmap(fn, mesh, axis_name, n_batch):
     """``torch.func.vmap(fn)`` with the leading batch dimension laid
@@ -437,7 +574,9 @@ def shard_vmap(fn, mesh, axis_name, n_batch):
     0 on the first position's device, in position order.  Without a
     mesh, or when the axis is absent or trivial or does not divide
     ``n_batch``, the plain vmap over the whole batch.  The positions
-    run one after another (one process drives the mesh)."""
+    run one after another (one process drives the mesh); a mesh across
+    processes raises ``NotImplementedError`` (ROADMAP item 11b)."""
+    _refuse_processes(mesh, "shard_vmap")
     mapped = torch.func.vmap(fn)
     if mesh is None or axis_name not in getattr(mesh, "shape", {}) \
             or mesh.shape[axis_name] <= 1 \

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths (FCMA voxel selection and
 classification, the SUMMA ring Gram, ISC/ISFC, SRM, the FCMA file
-front end, RSRM, SS-SRM, FastSRM) on one CUDA card.
+front end, RSRM, SS-SRM, FastSRM, FCMA on a mesh) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -68,7 +68,11 @@ first one that goes wrong:
         2), beside fcma_sample_gram.cu's FMA kernel forced (timed over
         one run); N=128 in groups of 4, T=150, 512 x 4096, beside the
         FMA kernel; and N=128 raw there; each with its three stages'
-        device times from one call (CUDA events).
+        device times from one call (CUDA events);
+     K1 at the mesh paths' shapes (inputs of their own seed): B=256
+        against V=65536 (a position of phase 20) and B=1024 against
+        V=16384 (a data2 shard of phase 21), each beside fcma_corr.cu's
+        FMA kernel forced.
    Kernel times are CUDA-event means over repeated launches after a
    warm-up; ``bound_ms`` is the larger of bytes / 3.35 TB/s and the
    operations over the peak rate of their type: fp32 FMA at 67
@@ -249,7 +253,26 @@ first one that goes wrong:
    fit of the first 4 subjects from ``.npy`` paths with ``temp_dir``
    and ``low_ram`` within 1e-4 of the in-memory fit of the same
    subjects, its spills removed by ``clean()``.
-20. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
+20. ``VoxelSelector(mesh=)`` on phase 3's inputs (run right after
+   phase 3's host-CV branch), a 4-position voxel mesh of the one card
+   (``devices=["cuda"] * 4``): 4 K1 launches (256 block voxels each
+   against the 65,536) and one SMO; the Grams its SMO solves against
+   the meshless run's (bit for bit expected, else within
+   ``MESH_GRAM_RTOL`` of K[0, 0]), the accuracies against phase 3's;
+   warm seconds, launches, peak memory.
+21. ``use_distla=True`` on the same inputs: data2 (1.26 GB) split into
+   4 shards of 16,384 voxels, one block of the 1,024 mask1 voxels, one
+   K1 launch a shard and the partial Grams summed; the Gram within
+   ``MESH_GRAM_RTOL`` of K[0, 0] of the meshless K1's, accuracies held
+   by ``ACC_AGREE``; warm seconds, launches, peak memory.  Then
+   ``use_distla='auto'`` at a 1 GiB budget must engage, and a host-CV
+   ``run(clf)`` on 256 voxels degrade with the warning (K3 a
+   position), held to phase 3's host-CV branch.
+22. Two ranks over NCCL, one card each (``parallel.testing
+   .run_distributed(..., device="cuda")``): ``VoxelSelector(mesh=)``
+   and ring path C's ``isfc(mesh=)`` on both ranks, against phases 20
+   and C.  It needs two cards: on one it prints a line saying so.
+23. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
    not there while the paths above are timed).
@@ -1062,6 +1085,20 @@ def synthetic_images(rng, n_subj, shape, n_trs, planted_b, planted_v,
         images.append(data.reshape(shape + (n_trs,)))
         conditions.append(cond)
     return images, conditions
+
+
+def whole_brain_inputs(rng):
+    """Phase 3's images, condition specs and mask1 from ``rng``: 8
+    subjects x 600 TRs on a 64x64x16 volume, mask1 1,024 voxels, the
+    first 16 of them coupled in condition 1 to 2,048 others."""
+    shape = (64, 64, 16)
+    order = rng.permutation(int(np.prod(shape)))
+    sel, planted_v = np.sort(order[:1024]), order[1024:3072]
+    images, conditions = synthetic_images(rng, 8, shape, 600, sel[:16],
+                                          planted_v)
+    mask1 = np.zeros(shape, dtype=bool)
+    mask1.flat[sel] = True
+    return images, conditions, mask1
 
 
 def check_accuracies(results, n_voxels):
@@ -1904,6 +1941,16 @@ def run_ring_paths(torch, rows, n_t=600, n_v=65536):
     torch.cuda.empty_cache()
 
 
+def isfc_data(n_s, n_t, n_v):
+    """[T, V, S] float32: one shared signal plus noise a subject, from
+    the seed of ring path C."""
+    rng = np.random.default_rng(SEED + 5)
+    signal = rng.standard_normal((n_t, n_v), dtype=np.float32)
+    return np.stack([signal + rng.standard_normal((n_t, n_v),
+                                                  dtype=np.float32)
+                     for _ in range(n_s)], axis=2)
+
+
 def run_isfc_path(torch, rows, n_s=8, n_t=600, n_v=8192):
     """Ring path C: leave-one-out ISFC of 8 subjects x 600 TRs on the
     one-mask volume (32x32x8, 8,192 voxels) on the one-card mesh,
@@ -1912,11 +1959,7 @@ def run_isfc_path(torch, rows, n_s=8, n_t=600, n_v=8192):
     from brainiak_tpu_torch.ops.kernels import ring as kr
     from brainiak_tpu_torch.parallel import make_mesh
 
-    rng = np.random.default_rng(SEED + 5)
-    signal = rng.standard_normal((n_t, n_v), dtype=np.float32)
-    data = np.stack([signal + rng.standard_normal((n_t, n_v),
-                                                  dtype=np.float32)
-                     for _ in range(n_s)], axis=2)
+    data = isfc_data(n_s, n_t, n_v)
     mesh1 = make_mesh(("voxel",), (-1,))
     tisc.isfc(data, mesh=mesh1)
     kr.reset_launches()
@@ -3236,6 +3279,291 @@ def run_fastsrm(torch, smi, dev="cuda", shape=None, data=None,
     torch.cuda.empty_cache()
 
 
+# -- FCMA on a mesh (phases 20-22) ------------------------------------
+
+MESH_GRAM_RTOL = 1e-5  # of K[0, 0]: the mesh and distla Grams vs meshless
+#: the voxel positions of phases 20 and 21, all on the one card
+MESH_POSITIONS = 4
+
+
+def phase_mesh_kernels(torch, dev):
+    """K1 at the shapes the mesh paths give it, whole-brain widths: a
+    mesh position's slice of the 1,024 block voxels (B=256) against
+    the 65,536 voxels (phase 20), and the 1,024 block voxels against
+    one data2 shard of 16,384 voxels (phase 21); inputs of their own
+    seed."""
+    rng = np.random.default_rng(SEED + 15)
+    rows = {}
+    for name, n_b, n_v in (("fcma_gram_mesh", 256, 65536),
+                           ("fcma_gram_distla", 1024, 16384)):
+        data = normalized_epochs(torch, rng, 32, 150, n_v, dev)
+        blk = normalized_epochs(torch, rng, 32, 150, n_b, dev)
+        rows[name] = check_k1(torch, blk, data, 4, 5)["tc"]
+        del blk, data
+        torch.cuda.empty_cache()
+    return rows
+
+
+def captured_grams(torch, vs):
+    """``vs.run('svm')`` and the shrunk Grams its SMO solved: a copy of
+    each batch handed to ``svm_cv_accuracy``, concatenated (voxel
+    order where one device solves them all)."""
+    from brainiak_tpu_torch.fcma import voxelselector as vmod
+
+    seen, real = [], vmod.svm_cv_accuracy
+
+    def spy(kernels, *args, **kw):
+        seen.append(kernels.clone())
+        return real(kernels, *args, **kw)
+
+    vmod.svm_cv_accuracy = spy
+    try:
+        results = vs.run('svm')
+    finally:
+        vmod.svm_cv_accuracy = real
+    return results, torch.cat(seen)
+
+
+def gram_rel_err(got, want):
+    """Largest |got - want| over each voxel's K[0, 0]."""
+    return float(((got - want).abs() / want[:, :1, :1].abs()).max())
+
+
+def check_agree(label, got, want, n_folds, n_epochs):
+    """Accuracies equal on at least ``ACC_AGREE`` of the voxels and
+    never more than one test sample a fold apart."""
+    same = float(np.mean(np.isclose(got, want, rtol=0, atol=1e-6)))
+    worst = float(np.max(np.abs(got - want)))
+    one_sample = n_folds / n_epochs
+    log(f"  {label}: accuracies equal on {same:.4f} of {len(got)} voxels,"
+        f" max diff {worst:.4f} (one test sample a fold = "
+        f"{one_sample:.4f})")
+    if same < ACC_AGREE or worst > one_sample + 1e-6:
+        fail(f"{label}: accuracies disagree")
+
+
+def timed_run(torch, vs):
+    """One warm ``run('svm')``: its results, host-clock seconds (ending
+    in a synchronize), K1's launches in it and the peak device memory
+    over it."""
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    results = vs.run('svm')
+    torch.cuda.synchronize()
+    return (results, time.perf_counter() - t0, fk.launches(),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def run_mesh_selection(torch, vs, accs):
+    """Phase 20: ``VoxelSelector(mesh=)`` on phase 3's inputs, a
+    4-position voxel mesh of the one card: K1 once a position (256
+    block voxels each against the 65,536), one SMO on the one device.
+    Its Grams against the meshless run's (bit for bit expected: K1's
+    arithmetic a voxel does not depend on the block's width), its
+    accuracies against phase 3's."""
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(("voxel",), (MESH_POSITIONS,),
+                     devices=["cuda"] * MESH_POSITIONS)
+    _, ref_grams = captured_grams(torch, vs)
+    mvs = VoxelSelector(vs.labels, 4, vs.num_folds, vs.raw_data,
+                        raw_data2=vs.raw_data2, mesh=mesh)
+    mvs.run('svm')   # cold: places the stacks on the card once
+    results, t_warm, launches, peak = timed_run(torch, mvs)
+    got = check_accuracies(results, mvs.num_voxels)
+    _, grams = captured_grams(torch, mvs)
+    equal = bool(torch.equal(grams, ref_grams))
+    rel = gram_rel_err(grams, ref_grams)
+    log(f"phase 20, VoxelSelector(mesh=) on {MESH_POSITIONS} positions of "
+        f"the card: warm run('svm') {t_warm:.3f} s = "
+        f"{mvs.num_voxels / t_warm:.1f} voxels/s, K1 launches "
+        f"{launches['fcma_gram']} ({launches['fcma_gram_tc']} tensor-core),"
+        f" peak device memory {peak:.2f} GiB; Grams vs the meshless "
+        f"run's: " + ("equal bit for bit" if equal else
+                      f"max err/K[0,0] {rel:.3e} (rtol {MESH_GRAM_RTOL})"))
+    if launches["fcma_gram"] != MESH_POSITIONS or \
+            launches["fcma_gram_tc"] != MESH_POSITIONS:
+        fail(f"phase 20: {launches['fcma_gram']} K1 launches, not one a "
+             f"position ({MESH_POSITIONS}) on the tensor-core kernel")
+    if not equal and not rel <= MESH_GRAM_RTOL:
+        fail("phase 20: the mesh Grams disagree with the meshless ones")
+    if np.array_equal(got, accs):
+        log("  accuracies equal phase 3's on every voxel")
+    else:
+        check_agree("phase 20 vs phase 3", got, accs, vs.num_folds,
+                    len(vs.labels))
+    del mvs
+    torch.cuda.empty_cache()
+    return launches["fcma_gram_tc"], ref_grams, got
+
+
+class _Warnings:
+    """The warning messages a logger emits while in a ``with``."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger = logging.getLogger(name)
+        self.messages = []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda rec: self.messages.append(
+            rec.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def run_distla_selection(torch, vs, accs, ref_grams, host_accs,
+                         budget=1 << 30):
+    """Phase 21: ``use_distla=True`` on phase 3's inputs: data2 (1.26 GB)
+    split into 4 shards of 16,384 voxels on the card, one block of all
+    1,024 mask1 voxels (``voxel_unit`` 1,024), K1 once a shard and the
+    partial Grams summed.  The Gram against the meshless K1's, the
+    accuracies against phase 3's.  Then ``use_distla='auto'`` with a
+    budget below data2's bytes must engage, and a host-CV ``run(clf)``
+    on 256 voxels degrade to the replicated layout with the warning,
+    its accuracies held to phase 3's host-CV branch (``budget``: 1
+    GiB, below the 1.26 GB)."""
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+    from brainiak_tpu_torch.ops import fcma_kernels as fk
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(("voxel",), (MESH_POSITIONS,),
+                     devices=["cuda"] * MESH_POSITIONS)
+    dvs = VoxelSelector(vs.labels, 4, vs.num_folds, vs.raw_data,
+                        raw_data2=vs.raw_data2, voxel_unit=vs.num_voxels,
+                        mesh=mesh, use_distla=True)
+    dvs.run('svm')   # cold: splits data2 over the positions once
+    results, t_warm, launches, peak = timed_run(torch, dvs)
+    got = check_accuracies(results, dvs.num_voxels)
+    _, grams = captured_grams(torch, dvs)
+    rel = gram_rel_err(grams, ref_grams)
+    data2_bytes = 4 * len(vs.raw_data2) * vs.raw_data2[0].size
+    log(f"phase 21, use_distla=True: data2 {data2_bytes / 1e9:.2f} GB in "
+        f"{MESH_POSITIONS} shards of {vs.num_voxels2 // MESH_POSITIONS} "
+        f"voxels; warm run('svm') {t_warm:.3f} s = "
+        f"{dvs.num_voxels / t_warm:.1f} voxels/s, K1 launches "
+        f"{launches['fcma_gram']} ({launches['fcma_gram_tc']} tensor-core),"
+        f" peak device memory {peak:.2f} GiB; Gram vs the meshless K1's "
+        f"max err/K[0,0] {rel:.3e} (rtol {MESH_GRAM_RTOL})")
+    if launches["fcma_gram"] != MESH_POSITIONS or \
+            launches["fcma_gram_tc"] != MESH_POSITIONS:
+        fail(f"phase 21: {launches['fcma_gram']} K1 launches, not one a "
+             f"data2 shard ({MESH_POSITIONS}) on the tensor-core kernel")
+    if not rel <= MESH_GRAM_RTOL:
+        fail("phase 21: the summed partial Grams disagree with K1's")
+    check_agree("phase 21 vs phase 3", got, accs, vs.num_folds,
+                len(vs.labels))
+    del dvs, grams
+    torch.cuda.empty_cache()
+
+    avs = VoxelSelector(vs.labels, 4, vs.num_folds,
+                        [m[:, :256] for m in vs.raw_data],
+                        raw_data2=vs.raw_data2, mesh=mesh,
+                        replicated_budget_bytes=budget)
+    if not (avs.use_distla and avs._distla_auto):
+        fail(f"phase 21: use_distla='auto' did not engage at a budget of "
+             f"{budget} bytes for {data2_bytes} bytes of data2")
+    fk.reset_launches()
+    with _Warnings("brainiak_tpu_torch.fcma.voxelselector") as warned:
+        host = check_accuracies(avs.run(_KernelNearestMean()), 256)
+    k3 = fk.launches()
+    degraded = any("falling back" in m for m in warned)
+    log(f"  use_distla='auto' at a budget of {budget} bytes: engaged; "
+        f"host-CV run(clf) on 256 voxels degraded with the warning: "
+        f"{degraded}, layout restored after: {avs.use_distla}; K3 "
+        f"launches {k3['fcma_corr_normalize']} "
+        f"({k3['fcma_corr_normalize_tc']} tensor-core)")
+    if not degraded or not avs.use_distla:
+        fail("phase 21: the auto-engaged host-CV run did not degrade, "
+             "warn and restore")
+    check_agree("phase 21 host CV vs phase 3's", host, host_accs,
+                vs.num_folds, len(vs.labels))
+    del avs
+    torch.cuda.empty_cache()
+    return launches["fcma_gram_tc"]
+
+
+def nccl_worker(process_id, num_processes):
+    """Phase 22 on one rank of two, its own card: phase 3's inputs made
+    anew from their seed, ``VoxelSelector(mesh=)`` on the two ranks'
+    voxel mesh, and ring path C's ``isfc(mesh=)`` against its dense
+    ``isfc`` on this rank."""
+    import torch
+
+    from brainiak_tpu_torch import isc as tisc
+    from brainiak_tpu_torch import set_fp32_defaults
+    from brainiak_tpu_torch.fcma import prepare_fcma_data
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    set_fp32_defaults()
+    images, conditions, mask1 = whole_brain_inputs(
+        np.random.default_rng(SEED + 1))
+    raw1, raw2, labels = prepare_fcma_data(
+        images, conditions, mask1, np.ones(mask1.shape, dtype=bool))
+    del images
+    mesh = make_mesh(("voxel",), (-1,))
+    vs = VoxelSelector(labels, 4, 4, raw1, raw_data2=raw2, mesh=mesh)
+    vs.run('svm')
+    results, t_fcma, launches, _ = timed_run(torch, vs)
+    out = {"accs": np.array([a for _, a in sorted(results)]),
+           "fcma_s": t_fcma, "k1": launches["fcma_gram_tc"],
+           "card": torch.cuda.current_device()}
+    del vs, raw1, raw2
+    data = isfc_data(8, 600, 8192)
+    kr.reset_launches()
+    t0 = time.perf_counter()
+    ring = tisc.isfc(data, mesh=mesh)
+    out["isfc_s"] = time.perf_counter() - t0
+    out["k5"] = kr.launches("tc")
+    dense = tisc.isfc(data)
+    out["isfc_err"] = max(float(np.max(np.abs(r - d)))
+                          for r, d in zip(ring, dense))
+    return out
+
+
+def run_two_ranks(torch, mesh_accs):
+    """Phase 22: ``VoxelSelector(mesh=)`` and ``isfc(mesh=)`` on two
+    ranks over NCCL, one card each, against phases 20 and C.  It needs
+    two cards; on one it says so and returns."""
+    import os
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"phase 22, two ranks over NCCL: needs two cards, this "
+            f"machine has {n_cards}; not run")
+        return
+    from brainiak_tpu_torch.parallel.testing import run_distributed
+
+    t0 = time.perf_counter()
+    ranks = run_distributed(
+        "chip_smoke", "nccl_worker", n_procs=2, device="cuda",
+        timeout=900, extra_path=os.path.dirname(os.path.abspath(__file__)))
+    log(f"phase 22, two ranks over NCCL: {time.perf_counter() - t0:.1f} s"
+        " with the processes' start")
+    for pid, r in enumerate(ranks):
+        log(f"  rank {pid} (cuda:{r['card']}): warm run('svm') "
+            f"{r['fcma_s']:.3f} s, K1 launches {r['k1']}; isfc(mesh=) "
+            f"{r['isfc_s']:.3f} s, K5 launches {r['k5']}, max diff vs "
+            f"dense {r['isfc_err']:.3e} (atol {ISFC_ATOL})")
+        if not np.array_equal(r["accs"], ranks[0]["accs"]):
+            fail("phase 22: the ranks return different accuracies")
+        if not r["isfc_err"] <= ISFC_ATOL:
+            fail("phase 22: the two-rank ring disagrees with the dense isfc")
+    check_agree("phase 22 vs phase 20", ranks[0]["accs"], mesh_accs, 4, 32)
+
+
 def main():
     import torch
 
@@ -3265,18 +3593,13 @@ def main():
             log(f"  {row}")
 
     rows = phase_kernels(torch, dev)
+    rows.update(phase_mesh_kernels(torch, dev))
     torch.cuda.empty_cache()
 
     # main path, whole brain (two masks)
     rng = np.random.default_rng(SEED + 1)
-    shape = (64, 64, 16)
-    n_vox = int(np.prod(shape))
-    order = rng.permutation(n_vox)
-    sel, planted_v = np.sort(order[:1024]), order[1024:3072]
-    images, conditions = synthetic_images(rng, 8, shape, 600, sel[:16],
-                                          planted_v)
-    mask1 = np.zeros(shape, dtype=bool)
-    mask1.flat[sel] = True
+    images, conditions, mask1 = whole_brain_inputs(rng)
+    shape = mask1.shape
     prep_records = []
     vs, accs, launches, wb_results = run_path(
         torch, "whole brain", images, conditions, mask1,
@@ -3332,6 +3655,16 @@ def main():
     if same < ACC_AGREE or \
             np.max(np.abs(a128 - a256)) > 4 / len(vs.labels) + 1e-6:
         fail("the host-CV accuracies depend on voxel_unit")
+
+    # phases 20-22, FCMA on a mesh, on the whole-brain inputs
+    t0 = time.perf_counter()
+    rows["fcma_gram_mesh"]["launches"], ref_grams, mesh_accs = \
+        run_mesh_selection(torch, vs, accs)
+    rows["fcma_gram_distla"]["launches"] = run_distla_selection(
+        torch, vs, accs, ref_grams, a256)
+    del ref_grams
+    run_two_ranks(torch, mesh_accs)
+    log(f"phases 20-22 ({smi}): {time.perf_counter() - t0:.1f} s")
     del images
     torch.cuda.empty_cache()
 
@@ -3465,6 +3798,7 @@ def main():
         "epoch_zscore": k2_tile, "epoch_zscore_e216": k2_tile,
         "epoch_zscore_simple": k2, "epoch_zscore_e216_simple": k2,
         "fcma_gram": k1_tc, "fcma_gram_e16": k1_tc,
+        "fcma_gram_mesh": k1_tc, "fcma_gram_distla": k1_tc,
         "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1,
         "fcma_gram_e80": k1_tcm, "fcma_gram_e80_ffma": k1,
         "fcma_gram_e216": k1_tcs, "fcma_gram_e216_ffma": k1,

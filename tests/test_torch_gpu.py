@@ -1248,6 +1248,54 @@ def test_voxel_selector_long_subjects_cuda_matches_cpu(cuda):
     assert np.max(np.abs(g - w)) <= 2 / 80 + 1e-6
 
 
+def test_block_gram_cuda_one_k1_a_shard(cuda):
+    """distla.block_gram on a 4-position mesh of the card: one K1
+    launch a data2 shard, the sum within 1e-5 of K[0, 0] of the
+    meshless K1.  1001 voxels take 3 zero pad columns, which add
+    exactly 0: K1 on the last shard with them equals K1 on its real
+    voxels bit for bit."""
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    d = _normalized(5, 16, 20, 37 + 1001, cuda)
+    blk, data2 = d[:, :, :37].contiguous(), d[:, :, 37:].contiguous()
+    mesh = make_mesh(("voxel",), (4,), devices=["cuda"] * 4)
+    fk.reset_launches()
+    got = distla.block_gram(blk, data2, mesh, 4)
+    assert fk.launches()["fcma_gram"] == 4
+    want = fk.fcma_gram(blk, data2, 4)
+    k00 = want[:, 0, 0, None, None]
+    assert float(((got - want).abs() / k00).max()) <= 1e-5
+    padded = torch.nn.functional.pad(data2, (0, 3))
+    last = padded[:, :, 3 * 251:].contiguous()
+    assert torch.equal(fk.fcma_gram(blk, last, 4),
+                       fk.fcma_gram(blk, last[:, :, :248].contiguous(), 4))
+
+
+@pytest.mark.parametrize("use_distla", [False, True])
+def test_voxel_selector_mesh_cuda_matches_meshless(cuda, use_distla):
+    """VoxelSelector on a 4-position mesh of the card: K1 once a
+    position over the whole volume (split 2, 2, 2, 1), or, with
+    use_distla, once a data2 shard a block; accuracies within one test
+    sample a fold of the meshless run's."""
+    from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    d = _normalized(6, 8, 20, 57, torch.device("cpu")).numpy()
+    d1, d2 = list(d[:, :, :7]), list(d[:, :, 7:])
+    labels = [0, 1] * 4
+    mesh = make_mesh(("voxel",), (4,), devices=["cuda"] * 4)
+    vs = VoxelSelector(labels, 4, 2, d1, raw_data2=d2, voxel_unit=4,
+                       mesh=mesh, use_distla=use_distla)
+    fk.reset_launches()
+    got = dict(vs.run('svm'))
+    assert fk.launches()["fcma_gram"] == (8 if use_distla else 4)
+    want = dict(VoxelSelector(labels, 4, 2, d1, raw_data2=d2).run('svm'))
+    g = np.array([got[k] for k in range(7)])
+    w = np.array([want[k] for k in range(7)])
+    assert np.max(np.abs(g - w)) <= 2 / 8 + 1e-6
+
+
 class _NearestMean:
     """A precomputed-kernel estimator: the class with the larger mean
     kernel value against its training samples."""

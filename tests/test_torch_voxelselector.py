@@ -33,6 +33,7 @@ from brainiak_tpu_torch.fcma import preprocessing as tprep
 from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
 from brainiak_tpu_torch.obs import sink as tsink
 from brainiak_tpu_torch.obs import spans as tspans
+from brainiak_tpu_torch.parallel import make_mesh
 from torch_obs_state import clean_obs, span_tree  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -213,10 +214,18 @@ def test_selector_errors():
                       device="cpu")
     with pytest.raises(ValueError):
         VoxelSelector(labels, 2, 2, [d[:, :0] for d in data], device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        VoxelSelector(labels, 2, 2, data, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # the JAX package's errors of the sharded-Gram path: an explicit
+    # use_distla=True needs a mesh and serves the on-device SVM only
+    with pytest.raises(ValueError, match="mesh"):
         VoxelSelector(labels, 2, 2, data, use_distla=True, device="cpu")
+    mesh = make_mesh(("voxel",), (2,), devices=["cpu"] * 2)
+    vs = VoxelSelector(labels, 2, 2, data, mesh=mesh, use_distla=True,
+                       device="cpu")
+    with pytest.raises(ValueError, match="on-device SVM"):
+        vs.run(LogisticRegression())
+    with pytest.raises(ValueError, match="'voxel' axis"):
+        VoxelSelector(labels, 2, 2, data, device="cpu", mesh=make_mesh(
+            ("subject",), (2,), devices=["cpu"] * 2))
     with pytest.raises(ValueError, match="highest"):
         VoxelSelector(labels, 2, 2, data, precision="hihgest",
                       device="cpu")
@@ -378,6 +387,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.ops.ring\n"
         "import brainiak_tpu_torch.ops.kernels.ring\n"
         "import brainiak_tpu_torch.parallel.mesh\n"
+        "import brainiak_tpu_torch.parallel.testing\n"
         "import brainiak_tpu_torch.stats.pvalues\n"
         "import brainiak_tpu_torch.utils.utils\n"
         "import brainiak_tpu_torch.utils.checkpoint\n"

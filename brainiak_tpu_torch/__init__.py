@@ -17,7 +17,11 @@ or across ``torch.distributed`` processes
 (:mod:`brainiak_tpu_torch.parallel`), the SUMMA ring Gram
 (:mod:`brainiak_tpu_torch.ops.distla`,
 :mod:`brainiak_tpu_torch.ops.ring`), ISC and ISFC
-(:mod:`brainiak_tpu_torch.isc`) and the ops they run on.
+(:mod:`brainiak_tpu_torch.isc`), the SRM family
+(:mod:`brainiak_tpu_torch.funcalign`, across processes too), the
+searchlight (:mod:`brainiak_tpu_torch.searchlight`), MVPA voxel
+selection (:mod:`brainiak_tpu_torch.fcma.mvpa_voxelselector`) and the
+ops they run on.
 """
 
 from .device import resolve_device, resolve_precision, set_fp32_defaults

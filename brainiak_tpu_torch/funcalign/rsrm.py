@@ -14,8 +14,13 @@ as large as the data, kept there for the whole fit and fetched once.
 The W update is :func:`~brainiak_tpu_torch.funcalign.srm._procrustes_batch`
 with no perturbation, whose Gram ``eigh`` floors the eigenvalues of
 the rank-deficient Grams RSRM meets.  With a ``mesh`` the stack is
-laid out along its ``'subject'`` axis, as SRM's is.  No hand-written
-kernel: the JAX package runs all of it as XLA ops.
+laid out along its ``'subject'`` axis, as SRM's is, in one process or
+across processes: there W and S stay rank-local, the R update's
+``Σ_i W_iᵀ(X_i − S_i)`` and the objective are completed by one
+``all_reduce`` each, and W and S come back whole on every rank by
+``fetch_replicated`` at the end (see
+:mod:`brainiak_tpu_torch.funcalign.srm`).  No hand-written kernel: the
+JAX package runs all of it as XLA ops.
 
 The chunk functions follow the dtype of their tensors; the estimator
 fits in float32.  Its cost records (``obs.profile.profile_program``)
@@ -31,9 +36,11 @@ from ..device import resolve_device
 from ..resilience.guards import (array_digest, check_state,
                                  make_device_carry_chunk,
                                  run_resilient_loop)
+from ..parallel.mesh import (all_sum, cat_pieces, fetch_rows, local_pieces,
+                             local_rows, split_rows)
 from . import srm
-from .srm import (NotFittedError, _assert_all_finite, _chunks, _host,
-                  _like, _procrustes, _procrustes_batch, _tensor)
+from .srm import (NotFittedError, _assert_all_finite, _carry_whole, _host,
+                  _procrustes, _procrustes_batch, _tensor)
 
 __all__ = ["RSRM"]
 
@@ -45,33 +52,34 @@ def _shrink(v, gamma):
     return torch.sign(v) * torch.clamp(torch.abs(v) - gamma, min=0.0)
 
 
-def _cat(parts):
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
-
-
 def _shared_response(x, s, w, n_subjects):
     """Σ_i W_iᵀ (X_i − S_i) / n_subjects, [K, T] on ``w``'s device,
-    the positions' partial sums added in position order."""
+    the positions' partial sums added in position order (and over the
+    ranks by one ``all_reduce``); ``s`` and ``w`` hold this process's
+    subjects."""
     total = None
-    for xk, sk, wk in zip(_chunks(x), _like(x, s), _like(x, w)):
+    for xk, sk, wk in zip(local_pieces(x), split_rows(x, s),
+                          split_rows(x, w)):
         part = torch.einsum('svk,svt->kt', wk, xk - sk).to(w.device)
         total = part if total is None else total + part
-    return total / n_subjects
+    return all_sum(x, total) / n_subjects
 
 
 def _rsrm_chunk(x, w, s, r, gamma, n_steps, mesh=None):
     """``n_steps`` RSRM BCD iterations from explicit state: the
     checkpointable unit of a preemption-safe fit."""
-    n_subjects = w.shape[0]
+    n_subjects = x.shape[0]
     for _ in range(n_steps):
-        a = _cat([torch.einsum('svt,kt->svk', xk - sk, r.to(xk.device))
-                  .to(w.device)
-                  for xk, sk in zip(_chunks(x), _like(x, s))])
-        w = _procrustes_batch(a, mesh, perturbation=0.0)
-        s = _cat([_shrink(xk - torch.einsum('svk,kt->svt', wk,
-                                            r.to(xk.device)), gamma)
-                  .to(w.device)
-                  for xk, wk in zip(_chunks(x), _like(x, w))])
+        a = cat_pieces([torch.einsum('svt,kt->svk', xk - sk,
+                                     r.to(xk.device)).to(w.device)
+                        for xk, sk in zip(local_pieces(x),
+                                          split_rows(x, s))])
+        w = _procrustes_batch(a, mesh, perturbation=0.0, x=x)
+        s = cat_pieces([_shrink(xk - torch.einsum('svk,kt->svt', wk,
+                                                  r.to(xk.device)), gamma)
+                        .to(w.device)
+                        for xk, wk in zip(local_pieces(x),
+                                          split_rows(x, w))])
         r = _shared_response(x, s, w, n_subjects)
     return w, s, r
 
@@ -79,20 +87,22 @@ def _rsrm_chunk(x, w, s, r, gamma, n_steps, mesh=None):
 def _rsrm_objective(x, w, s, r, gamma):
     """½ Σ_i ||X_i − W_i R − S_i||²_F + γ Σ_i |S_i|_1."""
     total = None
-    for xk, sk, wk in zip(_chunks(x), _like(x, s), _like(x, w)):
+    for xk, sk, wk in zip(local_pieces(x), split_rows(x, s),
+                          split_rows(x, w)):
         resid = xk - torch.einsum('svk,kt->svt', wk, r.to(xk.device)) - sk
         part = (0.5 * torch.sum(torch.square(resid))
                 + gamma * torch.sum(torch.abs(sk))).to(w.device)
         total = part if total is None else total + part
-    return total
+    return all_sum(x, total)
 
 
 def _fit_rsrm(x, w0, gamma, n_iter, mesh=None):
-    """The whole RSRM BCD fit from ``w0``: ``(w, s, r, objective)``,
-    all tensors on ``w0``'s device."""
-    s0 = torch.zeros(w0.shape[:2] + (_chunks(x)[0].shape[2],),
+    """The whole RSRM BCD fit from ``w0`` (this process's subjects):
+    ``(w, s, r, objective)``, all tensors on ``w0``'s device (``w`` and
+    ``s`` this process's subjects)."""
+    s0 = torch.zeros(w0.shape[:2] + (local_pieces(x)[0].shape[2],),
                      dtype=w0.dtype, device=w0.device)
-    r0 = _shared_response(x, s0, w0, w0.shape[0])
+    r0 = _shared_response(x, s0, w0, x.shape[0])
     w, s, r = _rsrm_chunk(x, w0, s0, r0, gamma, n_iter, mesh=mesh)
     return w, s, r, _rsrm_objective(x, w, s, r, gamma)
 
@@ -180,6 +190,10 @@ class RSRM(srm._SRMBase):
         -------
         >>> rsrm = RSRM(n_iter=20, features=10, gamma=1.0)
         >>> rsrm.fit(data, checkpoint_dir="/ckpts/rsrm1")  # resumable
+
+        Across processes as :meth:`~brainiak_tpu_torch.funcalign.srm
+        .SRM.fit` (the checkpointed state, S included, whole on every
+        rank).
         """
         logger.info('Starting RSRM')
         x, stacked, voxel_counts, _, _, _, w0, dev = \
@@ -191,7 +205,7 @@ class RSRM(srm._SRMBase):
             w, s, r, objective = self._fit_checkpointed(
                 x, w0, dev, array_digest(stacked), checkpoint_dir,
                 checkpoint_every)
-        w, s = _host(w), _host(s)
+        w, s = fetch_rows(x, w), fetch_rows(x, s)
         self.w_ = [w[i, :voxel_counts[i]] for i in range(len(X))]
         self.s_ = [s[i, :voxel_counts[i]] for i in range(len(X))]
         self.r_ = _host(r)
@@ -205,19 +219,23 @@ class RSRM(srm._SRMBase):
                           checkpoint_every):
         """Chunked BCD under the resilient loop (guard, rollback,
         checkpoint and resume, fault hooks)."""
-        n_subjects, voxels_pad, _ = w0.shape
-        trs = _chunks(x)[0].shape[2]
+        n_subjects, voxels_pad = x.shape[0], w0.shape[1]
+        trs = local_pieces(x)[0].shape[2]
         fingerprint = np.array(
             [data_digest, float(trs), float(voxels_pad),
              float(n_subjects), float(self.features),
              float(self.rand_seed), float(self.gamma)])
-        s0 = torch.zeros((n_subjects, voxels_pad, trs), dtype=w0.dtype,
+        s0 = torch.zeros(w0.shape[:2] + (trs,), dtype=w0.dtype,
                          device=dev)
         r0 = _shared_response(x, s0, w0, n_subjects)
-        init_state = {"w": _host(w0), "s": _host(s0), "r": _host(r0)}
+        init_state = {"w": fetch_rows(x, w0),
+                      "s": np.zeros((n_subjects, voxels_pad, trs),
+                                    dtype=np.float32),
+                      "r": _host(r0)}
         run_chunk, final_leaves = make_device_carry_chunk(
-            lambda leaves, n: _rsrm_chunk(x, *leaves, self.gamma, n,
-                                          mesh=self.mesh),
+            _carry_whole(x, lambda leaves, n: _rsrm_chunk(
+                x, *leaves, self.gamma, n, mesh=self.mesh),
+                (True, True, False)),
             ("w", "s", "r"), dtype=torch.float32, device=dev)
         state, step = run_resilient_loop(
             run_chunk, init_state, self.n_iter,
@@ -225,6 +243,7 @@ class RSRM(srm._SRMBase):
             checkpoint_every=checkpoint_every,
             fingerprint=fingerprint, name="RSRM.fit")
         w, s, r = final_leaves(state, step)
+        w, s = local_rows(x, w), local_rows(x, s)
         return w, s, r, _rsrm_objective(x, w, s, r, self.gamma)
 
     def _tensors(self, *arrays):

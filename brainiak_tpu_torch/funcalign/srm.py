@@ -24,6 +24,24 @@ products run on its own device, the partial ``Σ_i W_iᵀX_i/ρ_i²`` are
 added in position order on the first device, and the W solves go
 through :func:`brainiak_tpu_torch.ops.distla.shard_vmap`.
 
+Across processes (a mesh of
+:func:`~brainiak_tpu_torch.parallel.mesh.initialize_distributed`, every
+rank calling ``fit`` on the whole list of subjects) the stack and W
+stay rank-local: each rank holds and updates its own subjects only (W
+as a tensor of its subjects' rows on its first position's device).
+Every sum over subjects is completed by one ``all_reduce`` of the
+ranks' partial sums: ``Σ_i W_iᵀX_i/ρ_i²`` ([K, T]) an EM iteration,
+DetSRM's ``Σ_i W_iᵀX_i`` an iteration, and the objectives once.  The
+per-subject leaves ``rho2``, ``trace_xtx`` and ``voxel_counts`` are kept
+whole on every rank: each rank computes its subjects' ``rho2`` and one
+``all_gather`` an iteration brings the whole vector, so ``rho0``, the
+traces and ``log_det_psi`` are computed on every rank alike.  W0 is
+drawn whole on every rank (one CPU ``torch.Generator``) and each keeps
+its rows, so a fit over ranks starts from the single-process W0.  At
+the end W (and RSRM's S) come back whole on every rank by
+:func:`~brainiak_tpu_torch.parallel.mesh.fetch_replicated`: no fit
+returns a rank-partial result.
+
 Left out for now: a ``SubjectStore`` passed to ``fit`` (the data plane,
 ROADMAP item 13) raises ``NotImplementedError``; the JAX package's
 cost records of its compiled programs (``obs.profile.profile_program``)
@@ -38,8 +56,11 @@ import torch
 
 from ..device import resolve_device
 from ..ops import distla
-from ..parallel.mesh import (DEFAULT_SUBJECT_AXIS, Sharded, axis_devices,
-                             shard_along)
+from ..parallel.mesh import (DEFAULT_SUBJECT_AXIS, all_sum, axis_devices,
+                             axis_ranks, cat_pieces, fetch_rows,
+                             gather_rows, laid_out_rows, local_pieces,
+                             local_rows, process_index, shard_along,
+                             spans_processes, split_rows)
 from ..resilience.guards import (array_digest, check_state,
                                  make_device_carry_chunk,
                                  run_resilient_loop)
@@ -125,14 +146,21 @@ def _procrustes(a, perturbation=0.001):
     return u @ vt
 
 
-def _procrustes_batch(a, mesh, perturbation=0.001):
+def _procrustes_batch(a, mesh, perturbation=0.001, x=None):
     """Per-subject Procrustes W updates of a stacked [S, V, K] batch,
     laid out along the mesh's subject axis by
     :func:`~brainiak_tpu_torch.ops.distla.shard_vmap` (a plain vmap
-    without a mesh); per-subject numerics are the same either way."""
-    return distla.shard_vmap(
-        lambda m: _procrustes(m, perturbation=perturbation), mesh,
-        DEFAULT_SUBJECT_AXIS, a.shape[0])(a)
+    without a mesh); per-subject numerics are the same either way.
+    Across processes ``a`` holds this rank's subjects of the stack
+    ``x``: it goes to ``shard_vmap`` laid out as ``x`` is, and this
+    rank's rows come back."""
+    fn = lambda m: _procrustes(m, perturbation=perturbation)  # noqa: E731
+    if spans_processes(x):
+        out = distla.shard_vmap(fn, mesh, DEFAULT_SUBJECT_AXIS,
+                                x.shape[0])(laid_out_rows(x, a))
+        return cat_pieces([c.to(a.device) for _, c, _ in out.local()])
+    return distla.shard_vmap(fn, mesh, DEFAULT_SUBJECT_AXIS,
+                             a.shape[0])(a)
 
 
 def _init_w(rand_seed, voxels_pad, n_subjects, features, voxel_counts,
@@ -151,37 +179,23 @@ def _init_w(rand_seed, voxels_pad, n_subjects, features, voxel_counts,
     return torch.where(keep, q, 0.0)
 
 
-def _chunks(x):
-    """The blocks of the stacked data: each position's of a
-    :class:`Sharded`, or the tensor itself."""
-    return x.chunks if isinstance(x, Sharded) else [x]
-
-
-def _like(x, leaf):
-    """A per-subject ``leaf`` [S, ...] cut as ``x`` is laid out: each
-    position's subjects on its device, or the leaf itself."""
-    if not isinstance(x, Sharded):
-        return [leaf]
-    parts = torch.tensor_split(leaf, len(x.chunks))
-    return [p.to(d) for p, d in zip(parts, x.devices)]
-
-
 def _wt_x(w, x):
     """Σ_i W_iᵀ X_i, [K, T] on ``w``'s device: one product over every
     subject, or one a position with the partial sums added in
-    position order."""
+    position order (and over the ranks by one ``all_reduce``)."""
     total = None
-    for wk, xk in zip(_like(x, w), _chunks(x)):
+    for wk, xk in zip(split_rows(x, w), local_pieces(x)):
         part = torch.einsum('svk,svt->kt', wk, xk).to(w.device)
         total = part if total is None else total + part
-    return total
+    return all_sum(x, total)
 
 
 def _x_st(x, shared):
-    """X_i Sᵀ for every subject, [S, V, K] on ``shared``'s device."""
-    parts = [torch.einsum('svt,kt->svk', xk, shared.to(xk.device))
-             .to(shared.device) for xk in _chunks(x)]
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    """X_i Sᵀ for every subject this process holds, [S, V, K] on
+    ``shared``'s device."""
+    return cat_pieces([torch.einsum('svt,kt->svk', xk,
+                                    shared.to(xk.device)).to(shared.device)
+                       for xk in local_pieces(x)])
 
 
 def _cho_inverse(mat, eye):
@@ -194,7 +208,9 @@ def _cho_inverse(mat, eye):
 def _em_iteration(x, w, rho2, sigma_s, trace_xtx, voxel_counts, samples,
                   mesh=None):
     """One probabilistic-SRM EM iteration on stacked data ``x`` (a
-    tensor, or a subject-laid-out :class:`Sharded`)."""
+    tensor, or a subject-laid-out ``Sharded``): ``w`` holds this
+    process's subjects, ``rho2``, ``trace_xtx`` and ``voxel_counts``
+    every subject's."""
     features = sigma_s.shape[0]
     eye = torch.eye(features, dtype=sigma_s.dtype, device=sigma_s.device)
 
@@ -202,16 +218,18 @@ def _em_iteration(x, w, rho2, sigma_s, trace_xtx, voxel_counts, samples,
     _, inv_sigma_s = _cho_inverse(sigma_s, eye)
     _, inv_sigma_s_rhos = _cho_inverse(inv_sigma_s + eye * rho0, eye)
 
-    wt_invpsi_x = _wt_x(w / rho2[:, None, None], x)
+    wt_invpsi_x = _wt_x(w / local_rows(x, rho2)[:, None, None], x)
 
     shared = sigma_s @ (eye - rho0 * inv_sigma_s_rhos) @ wt_invpsi_x
     sigma_s = inv_sigma_s_rhos + shared @ shared.T / samples
     trace_sigma_s = samples * torch.trace(sigma_s)
 
     a = _x_st(x, shared)
-    w = _procrustes_batch(a, mesh)
-    rho2 = (trace_xtx - 2.0 * torch.sum(w * a, dim=(1, 2))
-            + trace_sigma_s) / (samples * voxel_counts)
+    w = _procrustes_batch(a, mesh, x=x)
+    rho2 = gather_rows(x, (local_rows(x, trace_xtx)
+                           - 2.0 * torch.sum(w * a, dim=(1, 2))
+                           + trace_sigma_s)
+                       / (samples * local_rows(x, voxel_counts)))
     return w, rho2, sigma_s, shared, wt_invpsi_x, inv_sigma_s_rhos
 
 
@@ -259,13 +277,14 @@ def _final_log_likelihood(x, w, rho2, sigma_s, trace_xtx, voxel_counts,
 
 
 def _samples(x):
-    return _chunks(x)[0].shape[2]
+    return local_pieces(x)[0].shape[2]
 
 
 def _fit_prob_srm(x, trace_xtx, voxel_counts, w0, n_iter, mesh=None):
-    """Full probabilistic-SRM EM fit from ``w0``, on ``w0``'s device:
-    ``(w, rho2, sigma_s, shared, log-likelihood)``, all tensors."""
-    n_subjects, features = w0.shape[0], w0.shape[2]
+    """Full probabilistic-SRM EM fit from ``w0`` (this process's
+    subjects), on ``w0``'s device: ``(w, rho2, sigma_s, shared,
+    log-likelihood)``, all tensors (``w`` this process's subjects)."""
+    n_subjects, features = x.shape[0], w0.shape[2]
     kw = dict(dtype=w0.dtype, device=w0.device)
     rho2 = torch.ones(n_subjects, **kw)
     sigma_s = torch.eye(features, **kw)
@@ -281,28 +300,45 @@ def _fit_prob_srm(x, trace_xtx, voxel_counts, w0, n_iter, mesh=None):
 def _det_chunk(x, w, shared, n_steps, mesh=None):
     """``n_steps`` deterministic-SRM block-coordinate descent
     iterations from explicit state: the checkpointable unit."""
-    n_subjects = w.shape[0]
+    n_subjects = x.shape[0]
     for _ in range(n_steps):
-        w = _procrustes_batch(_x_st(x, shared), mesh)
+        w = _procrustes_batch(_x_st(x, shared), mesh, x=x)
         shared = _wt_x(w, x) / n_subjects
     return w, shared
+
+
+def _carry_whole(x, chunk, per_subject):
+    """``chunk(leaves, n_steps)``, which takes and returns this
+    process's rows of the leaves flagged in ``per_subject``, as a
+    function of whole leaves.  The checkpointed loop holds every
+    subject's state on every process, as the JAX package's does (its
+    chunks fetch each leaf with ``fetch_replicated``), so that each
+    rank's guard and checkpoint see the whole state: across processes
+    one ``all_gather`` a flagged leaf a chunk, nothing in one
+    process."""
+    def run(leaves, n_steps):
+        out = chunk([local_rows(x, v) if f else v
+                     for v, f in zip(leaves, per_subject)], n_steps)
+        return tuple(gather_rows(x, v) if f else v
+                     for v, f in zip(out, per_subject))
+    return run
 
 
 def _det_objective(x, w, shared):
     """Σ_i ||X_i − W_i S||²_F / 2."""
     total = None
-    for wk, xk in zip(_like(x, w), _chunks(x)):
+    for wk, xk in zip(split_rows(x, w), local_pieces(x)):
         resid = xk - torch.einsum('svk,kt->svt', wk, shared.to(xk.device))
         part = torch.sum(torch.square(resid)).to(w.device)
         total = part if total is None else total + part
-    return total / 2.0
+    return all_sum(x, total) / 2.0
 
 
 def _fit_det_srm(x, w0, n_iter, mesh=None):
     """Deterministic SRM block-coordinate descent from ``w0``:
     alternate Procrustes W updates with S = mean_i W_iᵀ X_i.
     Returns ``(w, shared, objective)``, all tensors."""
-    shared = _wt_x(w0, x) / w0.shape[0]
+    shared = _wt_x(w0, x) / x.shape[0]
     w, shared = _det_chunk(x, w0, shared, n_steps=n_iter, mesh=mesh)
     return w, shared, _det_objective(x, w, shared)
 
@@ -410,32 +446,32 @@ class _SRMBase(_Estimator):
                 "{0:d} features.".format(self.features))
 
     def _fit_device(self):
-        """The device of the fit's state: the mesh's first position
-        along the subject axis, else ``device`` (raises without a
-        card unless it is the CPU).  A mesh that spans more than one
-        process raises ``NotImplementedError``: the EM's sums over
-        subjects would need all-reduces (ROADMAP item 11b), and a
-        rank's own subjects alone would give a partial fit."""
-        if getattr(self.mesh, "ranks", None) is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__} on a mesh that spans more than "
-                "one process is not ported yet (ROADMAP item 11b: the "
-                "subject-axis estimators across processes)")
+        """The device of the fit's state: the first position along the
+        mesh's subject axis that this process holds, else ``device``
+        (raises without a card unless it is the CPU)."""
         if self.mesh is not None:
-            return axis_devices(self.mesh, DEFAULT_SUBJECT_AXIS)[0]
+            devices = axis_devices(self.mesh, DEFAULT_SUBJECT_AXIS)
+            ranks = axis_ranks(self.mesh, DEFAULT_SUBJECT_AXIS)
+            me = process_index()
+            mine = [d for k, d in enumerate(devices)
+                    if ranks is None or ranks[k] == me]
+            # a rank with no position raises in shard_along
+            return mine[0] if mine else devices[0]
         return resolve_device(self.device)
 
     def _device_place(self, stacked, dev):
         """The host stack on the device: laid out along the mesh's
-        subject axis (a :class:`Sharded`), or one tensor on ``dev``."""
+        subject axis (a :class:`~brainiak_tpu_torch.parallel.mesh
+        .Sharded`), or one tensor on ``dev``."""
         if self.mesh is not None:
             resolve_device(dev)
             return shard_along(stacked, self.mesh, DEFAULT_SUBJECT_AXIS, 0)
         return torch.from_numpy(stacked).to(dev)
 
     def _prepare(self, X, demean):
-        """Validate, stack and place ``X``; draw ``w0``.  Returns
-        ``(x, host stack, voxel counts, means, trace, w0, dev)``."""
+        """Validate, stack and place ``X``; draw ``w0`` (every subject's,
+        then this process's rows of it).  Returns ``(x, host stack,
+        voxel counts, means, trace, w0, dev)``."""
         _refuse_store(X)
         self._validate(X)
         dev = self._fit_device()
@@ -444,13 +480,14 @@ class _SRMBase(_Estimator):
         x = self._device_place(stacked, dev)
         counts = torch.from_numpy(voxel_counts.astype(np.float32)).to(dev)
         n_subjects, voxels_pad, _ = stacked.shape
-        w0 = _init_w(self.rand_seed, voxels_pad, n_subjects, self.features,
-                     counts, dtype=torch.float32, device=dev)
+        w0 = local_rows(x, _init_w(self.rand_seed, voxels_pad, n_subjects,
+                                   self.features, counts,
+                                   dtype=torch.float32, device=dev))
         trace = torch.from_numpy(trace_xtx).to(dev)
         return x, stacked, voxel_counts, counts, mu, trace, w0, dev
 
-    def _fingerprint(self, digest, w0, samples):
-        n_subjects, voxels_pad, _ = w0.shape
+    def _fingerprint(self, digest, stacked):
+        n_subjects, voxels_pad, samples = stacked.shape
         return np.array([digest, float(samples), float(voxels_pad),
                          float(n_subjects), float(self.features),
                          float(self.rand_seed)])
@@ -499,7 +536,8 @@ class SRM(_SRMBase):
     mesh : :class:`~brainiak_tpu_torch.parallel.mesh.Mesh`, optional
         Lays the stacked data out along its ``'subject'`` axis (whose
         size must divide the number of subjects); the fit's state
-        lives on the axis' first device.
+        lives on the axis' first device (this process's first, across
+        processes: see the module docstring).
     device : str or torch.device, default "cuda"
         Where the fit runs without a mesh (raises without a card unless
         it is ``"cpu"``), and where ``transform_subject`` runs.
@@ -522,6 +560,14 @@ class SRM(_SRMBase):
         resilience guard (non-finite EM state rolls back to the last
         good checkpoint, and persistent divergence aborts with
         :class:`~brainiak_tpu_torch.resilience.DivergenceError`).
+        Across processes every rank calls ``fit`` with every subject,
+        and every rank gets the whole model.  With ``checkpoint_dir``
+        there every rank holds the whole EM state, guards it and saves
+        it to ``checkpoint_dir``, as the JAX package's ranks do: a
+        directory the ranks share gets the same files from each, each
+        written to a temporary name and renamed atomically, and a
+        resume restores the whole state on every rank, which keeps its
+        own subjects.
 
         Example
         -------
@@ -539,12 +585,12 @@ class SRM(_SRMBase):
             # the digest of the host stack and the voxel means (the
             # stack is demeaned, so X and X + c would otherwise collide)
             fingerprint = self._fingerprint(array_digest(stacked, *mu),
-                                            w0, stacked.shape[2])
+                                            stacked)
             w, rho2, sigma_s, shared, ll = self._fit_checkpointed(
                 x, trace, counts, w0, dev, fingerprint, checkpoint_dir,
                 checkpoint_every)
 
-        w = _host(w)
+        w = fetch_rows(x, w)
         self.w_ = [w[i, :voxel_counts[i]] for i in range(len(X))]
         self.s_ = _host(shared)
         self.sigma_s_ = _host(sigma_s)
@@ -564,17 +610,18 @@ class SRM(_SRMBase):
         """Chunked EM under the resilient loop: npz checkpoints
         between chunks, non-finite guard with rollback, and the fault
         injection hooks."""
-        n_subjects, _, features = w0.shape
+        n_subjects, features = x.shape[0], w0.shape[2]
         samples = _samples(x)
         init_state = {
-            "w": _host(w0),
+            "w": fetch_rows(x, w0),
             "rho2": np.ones(n_subjects, dtype=np.float32),
             "sigma_s": np.eye(features, dtype=np.float32),
             "shared": np.zeros((features, samples), dtype=np.float32),
         }
         run_chunk, final_leaves = make_device_carry_chunk(
-            lambda leaves, n: _em_chunk(x, trace, counts, *leaves,
-                                        n_steps=n, mesh=self.mesh),
+            _carry_whole(x, lambda leaves, n: _em_chunk(
+                x, trace, counts, *leaves, n_steps=n, mesh=self.mesh),
+                (True, False, False, False)),
             ("w", "rho2", "sigma_s", "shared"), dtype=torch.float32,
             device=dev)
         state, step = run_resilient_loop(
@@ -584,6 +631,7 @@ class SRM(_SRMBase):
             fingerprint=fingerprint, name="SRM.fit",
             progress_objective="rho2", progress_direction="min")
         w, rho2, sigma_s, shared = final_leaves(state, step)
+        w = local_rows(x, w)
         ll = _final_log_likelihood(x, w, rho2, sigma_s, trace, counts,
                                    mesh=self.mesh)
         return w, rho2, sigma_s, shared, ll
@@ -644,6 +692,8 @@ class DetSRM(_SRMBase):
         -------
         >>> det = DetSRM(n_iter=30, features=10)
         >>> det.fit(data, checkpoint_dir="/ckpts/det_run1")  # resumable
+
+        Across processes as :meth:`SRM.fit`.
         """
         logger.info('Starting Deterministic SRM')
         x, stacked, voxel_counts, _, _, _, w0, dev = \
@@ -652,13 +702,13 @@ class DetSRM(_SRMBase):
             w, shared, objective = _fit_det_srm(x, w0, self.n_iter,
                                                 mesh=self.mesh)
         else:
-            fingerprint = self._fingerprint(array_digest(stacked), w0,
-                                            stacked.shape[2])
+            fingerprint = self._fingerprint(array_digest(stacked),
+                                            stacked)
             w, shared, objective = self._fit_checkpointed(
                 x, w0, dev, fingerprint, checkpoint_dir,
                 checkpoint_every)
 
-        w = _host(w)
+        w = fetch_rows(x, w)
         self.w_ = [w[i, :voxel_counts[i]] for i in range(len(X))]
         self.s_ = _host(shared)
         self.objective_ = float(objective)
@@ -672,11 +722,11 @@ class DetSRM(_SRMBase):
                           checkpoint_every):
         """Chunked BCD under the resilient loop (as
         :meth:`SRM._fit_checkpointed`)."""
-        shared0 = _wt_x(w0, x) / w0.shape[0]
-        init_state = {"w": _host(w0), "shared": _host(shared0)}
+        shared0 = _wt_x(w0, x) / x.shape[0]
+        init_state = {"w": fetch_rows(x, w0), "shared": _host(shared0)}
         run_chunk, final_leaves = make_device_carry_chunk(
-            lambda leaves, n: _det_chunk(x, *leaves, n_steps=n,
-                                         mesh=self.mesh),
+            _carry_whole(x, lambda leaves, n: _det_chunk(
+                x, *leaves, n_steps=n, mesh=self.mesh), (True, False)),
             ("w", "shared"), dtype=torch.float32, device=dev)
         state, step = run_resilient_loop(
             run_chunk, init_state, self.n_iter,
@@ -684,4 +734,5 @@ class DetSRM(_SRMBase):
             checkpoint_every=checkpoint_every,
             fingerprint=fingerprint, name="DetSRM.fit")
         w, shared = final_leaves(state, step)
+        w = local_rows(x, w)
         return w, shared, _det_objective(x, w, shared)

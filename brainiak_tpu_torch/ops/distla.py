@@ -25,7 +25,8 @@ each step places one [V/n, V/n] block of the position's output rows.
   ``VoxelSelector(use_distla=)``.
 - :func:`shard_vmap`, :func:`batched_eigh` and
   :func:`batched_cholesky_solve`: per-subject small solves laid out
-  along a mesh's subject axis (SRM's W updates).
+  along a mesh's subject axis (SRM's W updates), in one process or
+  across processes.
 
 The ring is a Python loop over the n steps; at each step every position
 launches one ring step, and then hands its panel to the next position
@@ -53,9 +54,10 @@ plain version on the CPU); ``"unfused"`` is the reference's three-stage
 formulation (per-step products stacked, transposed and scattered) with
 ``torch.matmul`` on either device.
 
-Not across processes yet (ROADMAP item 11b): :func:`shard_vmap`,
-:func:`batched_eigh` and :func:`batched_cholesky_solve` raise
-``NotImplementedError`` on a mesh that spans more than one process.
+:func:`shard_vmap` (and so :func:`batched_eigh` and
+:func:`batched_cholesky_solve`) runs across processes too: each rank
+maps its own positions' slices of the batch, and a whole batch comes
+back whole on every rank by one ``all_gather``.
 """
 
 import logging
@@ -68,8 +70,9 @@ import torch
 from ..device import matmul_precision, resolve_device
 from ..obs import spans as obs_spans
 from ..parallel.mesh import (DEFAULT_SUBJECT_AXIS, DEFAULT_VOXEL_AXIS,
-                             Sharded, axis_devices, comm_device,
-                             fetch_replicated, process_index, shard_along)
+                             Sharded, _gather_pieces, axis_devices,
+                             axis_ranks, comm_device, fetch_replicated,
+                             process_index, shard_along)
 from ..resilience.guards import array_digest, run_resilient_loop
 from .fcma_kernels import fcma_gram
 from .kernels.ring import Split, ring_mma, split
@@ -558,42 +561,81 @@ def block_gram(blk, data2, mesh, epochs_per_subj,
 
 # -- sharded batched small-matrix solves -----------------------------
 
-def _refuse_processes(mesh, what):
-    if getattr(mesh, "ranks", None) is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh that spans more than one process is not "
-            "ported yet (ROADMAP item 11b: the subject-axis solves and "
-            "estimators across processes)")
+def _per_output(outs):
+    """Each position's output of a vmap (a tensor or a tuple, None for
+    a position of another rank) as one list of pieces per output, and
+    whether the outputs are tuples."""
+    first = next(o for o in outs if o is not None)
+    if isinstance(first, torch.Tensor):
+        return [outs], False
+    return [[None if o is None else o[i] for o in outs]
+            for i in range(len(first))], True
 
 
 def shard_vmap(fn, mesh, axis_name, n_batch):
     """``torch.func.vmap(fn)`` with the leading batch dimension laid
     out along the mesh's ``axis_name``: each position runs the vmap on
     its slice of the batch, on its own device (positions may repeat a
-    device), and the slices of each output are concatenated along dim
-    0 on the first position's device, in position order.  Without a
-    mesh, or when the axis is absent or trivial or does not divide
-    ``n_batch``, the plain vmap over the whole batch.  The positions
-    run one after another (one process drives the mesh); a mesh across
-    processes raises ``NotImplementedError`` (ROADMAP item 11b)."""
-    _refuse_processes(mesh, "shard_vmap")
+    device; a process runs its positions one after another).  The
+    returned function takes either of two batches:
+
+    - the whole batch (tensors; across processes every rank holds all
+      of it, the MPI-replica semantic): the output's slices are
+      concatenated along dim 0, in position order, on the first device
+      of this process's positions.  Across processes each rank maps
+      only its own positions' slices, and one ``all_gather`` an output
+      brings every rank the whole output.
+    - a batch already laid out along the axis (each argument a
+      :class:`~brainiak_tpu_torch.parallel.mesh.Sharded` split along
+      dim 0 over ``axis_name``, one piece a position, as SRM's subject
+      stack is): each piece this process holds is mapped on its
+      device, and each output is a :class:`Sharded` of the same layout
+      (across processes, with this rank's pieces only), which the
+      caller fetches with :func:`~brainiak_tpu_torch.parallel.mesh
+      .fetch_replicated` when it needs the whole.
+
+    Without a mesh, or when the axis is absent or trivial or does not
+    divide ``n_batch``, the plain vmap over the whole batch (every rank
+    maps all of it), as in the JAX package."""
     mapped = torch.func.vmap(fn)
     if mesh is None or axis_name not in getattr(mesh, "shape", {}) \
             or mesh.shape[axis_name] <= 1 \
             or n_batch % mesh.shape[axis_name]:
         return mapped
     devices = axis_devices(mesh, axis_name)
+    ranks = axis_ranks(mesh, axis_name)
     n = len(devices)
+    me = process_index()
+
+    def laid_out(args):
+        lay = args[0]
+        if any(len(a.chunks) != n for a in args):
+            raise ValueError(f"a batch laid out on {len(lay.chunks)} "
+                             f"positions for the {n} of mesh axis "
+                             f"{axis_name!r}")
+        outs = [None if c[0] is None else mapped(*c)
+                for c in zip(*(a.chunks for a in args))]
+        lists, is_tuple = _per_output(outs)
+        res = [Sharded(o, lay.devices, 0, lay.axes, lay.ranks,
+                       (n_batch,) + tuple(next(
+                           c for c in o if c is not None).shape[1:]))
+               for o in lists]
+        return tuple(res) if is_tuple else res[0]
 
     def run(*args):
+        if isinstance(args[0], Sharded):
+            return laid_out(args)
         pieces = [torch.tensor_split(a, n) for a in args]
         outs = [mapped(*(p[k].to(dev) for p in pieces))
+                if ranks is None or ranks[k] == me else None
                 for k, dev in enumerate(devices)]
-        first = devices[0]
-        if isinstance(outs[0], torch.Tensor):
-            return torch.cat([o.to(first) for o in outs])
-        return tuple(torch.cat([o[i].to(first) for o in outs])
-                     for i in range(len(outs[0])))
+        first = next(d for d, o in zip(devices, outs) if o is not None)
+        lists, is_tuple = _per_output(outs)
+        if ranks is not None:
+            lists = [_gather_pieces(Sharded(o, devices, 0, (axis_name,),
+                                            ranks)) for o in lists]
+        res = [torch.cat([c.to(first) for c in o]) for o in lists]
+        return tuple(res) if is_tuple else res[0]
 
     return run
 
@@ -601,8 +643,10 @@ def shard_vmap(fn, mesh, axis_name, n_batch):
 def batched_eigh(mats, mesh=None, axis_name=DEFAULT_SUBJECT_AXIS):
     """Eigendecomposition of a batch of symmetric matrices [S, K, K],
     the batch laid out over the mesh's subject axis when it divides
-    it (:func:`shard_vmap`).  Returns ``(eigenvalues [S, K],
-    eigenvectors [S, K, K])``, eigenvalues ascending."""
+    it (:func:`shard_vmap`: ``mats`` the whole batch, or a
+    :class:`Sharded` laid out along the axis, which gives outputs of
+    that layout).  Returns ``(eigenvalues [S, K], eigenvectors
+    [S, K, K])``, eigenvalues ascending."""
     return shard_vmap(torch.linalg.eigh, mesh, axis_name,
                       mats.shape[0])(mats)
 
@@ -618,6 +662,7 @@ def batched_cholesky_solve(mats, rhs, mesh=None,
     [S, K, K] against [S, K, M] right-hand sides by a Cholesky factor
     each (``torch.linalg.cholesky_ex``, whose error check is left to
     the caller, so no host read), the batch laid out over the mesh's
-    subject axis when it divides it (:func:`shard_vmap`)."""
+    subject axis when it divides it (:func:`shard_vmap`: both the whole
+    batch, or both laid out along the axis)."""
     return shard_vmap(_cholesky_solve, mesh, axis_name,
                       mats.shape[0])(mats, rhs)

@@ -41,17 +41,26 @@ __all__ = [
     "DEFAULT_VOXEL_AXIS",
     "Mesh",
     "Sharded",
+    "all_sum",
     "axis_devices",
     "axis_ranks",
+    "cat_pieces",
     "comm_device",
     "fetch_replicated",
+    "fetch_rows",
+    "gather_rows",
     "initialize_distributed",
+    "laid_out_rows",
+    "local_pieces",
+    "local_rows",
     "make_mesh",
     "max_divisible_shards",
     "place_on_mesh",
     "process_index",
     "replicated",
     "shard_along",
+    "spans_processes",
+    "split_rows",
     "subject_voxel_mesh",
 ]
 
@@ -479,3 +488,95 @@ def fetch_replicated(x, mesh=None):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+# -- the rows of a stack split along its first dimension ---------------
+#
+# An estimator over subjects holds its stacked data ``x`` either as one
+# tensor or as a Sharded split along dim 0, and each per-subject
+# ``leaf`` (W, S, rho2) as a tensor of the rows this process holds, in
+# order.  These helpers take either form of ``x``; in one process they
+# hand the leaf back as it is.
+
+
+def cat_pieces(parts):
+    """``parts`` concatenated along dim 0 (one part: itself, no copy)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def local_pieces(x):
+    """The pieces of ``x`` that this process holds: each of its
+    positions' of a :class:`Sharded`, or the tensor itself."""
+    if isinstance(x, Sharded):
+        return [c for c in x.chunks if c is not None]
+    return [x]
+
+
+def spans_processes(x):
+    """Whether ``x`` is laid out across processes."""
+    return isinstance(x, Sharded) and x.ranks is not None
+
+
+def _local_row_ids(x):
+    """The rows of ``x`` (split along dim 0 across processes) that this
+    process holds, in order: the pieces' bounds by
+    ``torch.tensor_split``'s rule, which :func:`place_on_mesh` cuts
+    by."""
+    n, k = x.shape[0], len(x.chunks)
+    sizes = [n // k + (i < n % k) for i in range(k)]
+    starts = np.cumsum([0] + sizes)
+    return [i for j, c in enumerate(x.chunks) if c is not None
+            for i in range(starts[j], starts[j + 1])]
+
+
+def local_rows(x, leaf):
+    """This process's rows of ``leaf`` [n, ...], held whole."""
+    if not spans_processes(x):
+        return leaf
+    return leaf[torch.tensor(_local_row_ids(x), device=leaf.device)]
+
+
+def split_rows(x, leaf):
+    """This process's rows ``leaf`` cut as ``x`` is laid out: each of
+    its positions' rows on that position's device, or ``[leaf]``."""
+    if not isinstance(x, Sharded):
+        return [leaf]
+    pieces = local_pieces(x)
+    parts = torch.split(leaf, [c.shape[0] for c in pieces])
+    return [p.to(c.device) for p, c in zip(parts, pieces)]
+
+
+def laid_out_rows(x, leaf):
+    """This process's rows ``leaf`` as a :class:`Sharded` laid out as
+    ``x`` (None at the positions of other ranks)."""
+    parts = iter(split_rows(x, leaf))
+    return Sharded([None if c is None else next(parts) for c in x.chunks],
+                   x.devices, 0, x.axes, x.ranks,
+                   (x.shape[0],) + tuple(leaf.shape[1:]))
+
+
+def gather_rows(x, leaf):
+    """Every row of ``leaf`` from this process's rows, on the leaf's
+    device: one ``all_gather`` across processes, the leaf itself
+    otherwise."""
+    if not spans_processes(x):
+        return leaf
+    return cat_pieces([p.to(leaf.device)
+                       for p in _gather_pieces(laid_out_rows(x, leaf))])
+
+
+def fetch_rows(x, leaf):
+    """Host numpy array of every row of ``leaf`` from this process's
+    rows (:func:`fetch_replicated` across processes)."""
+    return fetch_replicated(laid_out_rows(x, leaf)
+                            if spans_processes(x) else leaf)
+
+
+def all_sum(x, total):
+    """A sum over this process's rows completed over every process's:
+    one ``all_reduce`` across processes, ``total`` itself otherwise."""
+    if not spans_processes(x):
+        return total
+    summed = total.to(comm_device())
+    torch.distributed.all_reduce(summed)
+    return summed.to(total.device)

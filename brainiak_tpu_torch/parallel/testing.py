@@ -33,8 +33,8 @@ import os, pickle, sys
 sys.path[:0] = [{extra_path!r}, {package_root!r}]
 from brainiak_tpu_torch.parallel.mesh import initialize_distributed
 initialize_distributed(coordinator_address="{coord}", num_processes={n},
-                       process_id={pid}, device="{device}",
-                       local_devices={local!r})
+                       process_id={pid}, backend={backend!r},
+                       device="{device}", local_devices={local!r})
 from {module} import {fn} as worker
 try:
     result = worker({pid}, {n})
@@ -64,7 +64,7 @@ def _free_port():
 
 
 def run_distributed(module, fn, n_procs=2, local_devices=2, timeout=240,
-                    extra_path=None, device="cpu"):
+                    extra_path=None, device="cpu", backend=None):
     """Run ``module.fn(process_id, num_processes)`` in ``n_procs`` OS
     processes forming one ``torch.distributed`` process group.
 
@@ -72,7 +72,13 @@ def run_distributed(module, fn, n_procs=2, local_devices=2, timeout=240,
     ``local_devices`` CPU positions to a mesh built with
     ``devices=None``, so the global position count is ``n_procs *
     local_devices``; with ``device="cuda"`` (NCCL) each process takes
-    one card (``local_devices`` is ignored).  The moment a process
+    one card (``local_devices`` is ignored).  ``backend`` is that of
+    :func:`~brainiak_tpu_torch.parallel.mesh.initialize_distributed`
+    (None: NCCL for ``"cuda"``, gloo for ``"cpu"``); ``device="cuda",
+    backend="gloo"`` runs the ranks on the card ``cuda:(rank %
+    device_count)`` each, so two ranks share one card, their
+    collectives staged through the host (NCCL refuses two ranks on one
+    device).  The moment a process
     fails, the others are killed and its output's tail is raised as a
     ``RuntimeError``; a run past ``timeout`` seconds is killed and
     raises too.  Returns the list of per-process return values (which
@@ -90,7 +96,7 @@ def run_distributed(module, fn, n_procs=2, local_devices=2, timeout=240,
             outs.append(out)
             code = _WORKER_TEMPLATE.format(
                 coord=coord, n=n_procs, pid=pid, module=module, fn=fn,
-                out=out, device=device, local=local,
+                out=out, device=device, backend=backend, local=local,
                 extra_path=extra_path, package_root=_PACKAGE_ROOT)
             env = dict(os.environ)
             env.pop("PYTHONPATH", None)

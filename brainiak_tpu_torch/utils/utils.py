@@ -3,15 +3,17 @@
 
 Copies of ``brainiak_tpu/utils/utils.py``'s ``_check_timeseries_input``
 and ``array_correlation``, which :mod:`brainiak_tpu_torch.isc` needs,
-and of its ``concatenate_not_none``, which SS-SRM needs; the port
+of its ``concatenate_not_none``, which SS-SRM needs, and of its
+``usable_cpu_count``, which the searchlight's host tier needs; the port
 imports nothing of the JAX package.
 """
 
 import logging
+import os
 
 import numpy as np
 
-__all__ = ["array_correlation", "concatenate_not_none"]
+__all__ = ["array_correlation", "concatenate_not_none", "usable_cpu_count"]
 
 logger = logging.getLogger(__name__)
 
@@ -67,3 +69,11 @@ def array_correlation(x, y, axis=0):
 def concatenate_not_none(data, axis=0):
     """Concatenate the non-None entries of a list of arrays."""
     return np.concatenate([d for d in data if d is not None], axis=axis)
+
+
+def usable_cpu_count():
+    """Number of CPUs usable by the current process (cpuset-aware)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths (FCMA voxel selection and
 classification, the SUMMA ring Gram, ISC/ISFC, SRM, the FCMA file
-front end, RSRM, SS-SRM, FastSRM, FCMA on a mesh) on one CUDA card.
+front end, RSRM, SS-SRM, FastSRM, FCMA on a mesh, the SRM family and
+FCMA on two ranks, the searchlight, MVPA voxel selection) on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -272,7 +274,40 @@ first one that goes wrong:
    .run_distributed(..., device="cuda")``): ``VoxelSelector(mesh=)``
    and ring path C's ``isfc(mesh=)`` on both ranks, against phases 20
    and C.  It needs two cards: on one it prints a line saying so.
-23. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
+23. Two ranks on the one card over gloo (``run_distributed(...,
+   device="cuda", backend="gloo")``: both ranks on ``cuda:0``, every
+   collective staged through the host), after phase 19: SRM, DetSRM
+   and RSRM on a ``'subject'`` mesh of the two ranks, on phase 14's
+   data (phase 17's for RSRM), 10 subjects a rank, each rank's fits
+   bit for bit the other's.  Each kind runs twice from the same w0
+   as phases 14 and 17: in float64 through its chunk functions, within
+   1e-10 of the one-process float64 fit (max|W|, max|S| or max|R| and
+   the objective), and in float32 through the estimator, within 1e-3
+   of max|W|, 3e-3 of max|S| or max|R| and 1e-5 of the objective of
+   the one-process float32 fit.  Then phase 22's body:
+   ``VoxelSelector(mesh=)`` (K1 once a rank, row ``fcma_gram_rank``)
+   held to phase 20's accuracies and the ring ``isfc(mesh=)`` (K5 16
+   times a rank with split panels crossing the ranks, row
+   ``ring_mma_v4096``) held to the dense ``isfc``.  Each rank's fit
+   seconds, K1 and K5 launches, and its collective calls with the
+   bytes it sent and received.
+24. The searchlight's traced tier at whole-brain width: 8 subjects on
+   a 64 x 64 x 36 grid, 150 TRs, float32, an ellipsoid brain mask of
+   56,240 voxels (0.71 GB on the card); ``Ball(3)`` (123 voxels),
+   55,808 centres, the RSA statistic of
+   ``benchmarks/run_baselines.py:142-155`` in torch, at batch sizes
+   256 and 1024: warm centres/s, the launches and device time of a
+   batch over a profiled warm sweep, one batch by CUDA events, peak
+   memory; 2,000 seeded centres within 1e-4 of a float64 NumPy
+   evaluation; a 4-position mesh of the card and two ranks over gloo
+   within 1e-6 of the meshless volume.
+25. ``MVPAVoxelSelector`` on the host tier: a planted region in a
+   seeded 16^3 volume of 120 samples (the layout of
+   ``examples/searchlight_decoding.py:31-46``), ``Ball(1)``, 4 folds,
+   a nearest-class-mean estimator on raw features; serially and with
+   a ``Pool`` of 4 forked after CUDA is initialised: equal volumes,
+   the top 5 voxels in the planted region.
+26. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
    not there while the paths above are timed).
@@ -1796,11 +1831,14 @@ K5_KERNELS = ("ring_mma", "split_kmajor")
 #: resident block, routes) of path A's one-card ring (a Gram: both
 #: kernels on the same inputs, and the card's clock and power), one
 #: step of path B's 4-position ring, path C's step (the ISFC's panel
-#: is the other subjects' mean)
+#: is the other subjects' mean), and a step of path C's ring on phase
+#: 23's two ranks (each rank's half of the voxels, the panel its
+#: peer's half)
 RING_SHAPES = {
     "ring_mma": (600, 65536, 65536, 1, 0, 3, True, ("tc", "ffma")),
     "ring_mma_n4": (600, 16384, 16384, 4, 2, 5, False, ("tc",)),
-    "ring_mma_v8192": (600, 8192, 8192, 1, 0, 10, False, ("tc",))}
+    "ring_mma_v8192": (600, 8192, 8192, 1, 0, 10, False, ("tc",)),
+    "ring_mma_v4096": (600, 4096, 4096, 2, 1, 10, False, ("tc",))}
 
 
 def phase_ring_kernel(torch, dev, shapes=RING_SHAPES):
@@ -2532,7 +2570,7 @@ def srm_sync_and_profile(torch, srm, em_args, smi, n_iter):
     del x, state, gram
 
 
-def run_srm(torch, smi, dev="cuda", shape=None, data=None):
+def run_srm(torch, smi, dev="cuda", shape=None, data=None, keep=None):
     """SRM and DetSRM at BASELINE.md:120's shape (20 subjects x 40,000
     voxels x 300 TRs, 50 features, 10 iterations, float32), and a
     ragged SRM fit, each once: ``run_srm_contract`` runs first, so
@@ -2541,7 +2579,9 @@ def run_srm(torch, smi, dev="cuda", shape=None, data=None):
     orthonormal maps and to the planted structure; each fit's split
     and peak memory, and the SRM EM's syncs and profile are printed.
     ``data``: ``srm_data``'s output at that shape (made here if
-    None)."""
+    None).  ``keep``: a dict that takes the SRM and DetSRM fits' W
+    (stacked), S and objective, and their float64 references' (keys
+    ``"SRM_f64"``, ``"DetSRM_f64"``), for phase 23."""
     from brainiak_tpu_torch.funcalign import srm
 
     n_s, n_v, n_t, k, n_iter = shape or (
@@ -2570,11 +2610,16 @@ def run_srm(torch, smi, dev="cuda", shape=None, data=None):
             f"{secs['fetch']:.3f} + the rest; peak device memory "
             f"{peak / 2**30:.2f} GiB")
         w0 = em_args[3] if kind == "SRM" else em_args[1]
-        srm_checks(label, model, data, W, kind,
-                   srm_reference(torch, srm, data, kind, w0, n_iter, dev))
+        ref = srm_reference(torch, srm, data, kind, w0, n_iter, dev)
+        srm_checks(label, model, data, W, kind, ref)
         if label == "SRM":
             srm_sync_and_profile(torch, srm, em_args, smi, n_iter)
-        del model, em_args, w0
+        if keep is not None and kind == label:
+            keep[kind] = (np.stack(model.w_), model.s_,
+                          model.logprob_ if kind == "SRM"
+                          else model.objective_)
+            keep[kind + "_f64"] = ref
+        del model, em_args, w0, ref
         torch.cuda.empty_cache()
 
 
@@ -2860,13 +2905,15 @@ def bcd_profile(torch, label, step, n_iter, smi, top=6):
     return per[2] - per[1], host / n_iter, busy / max(wall_ms, 1e-9)
 
 
-def run_rsrm(torch, smi, dev="cuda", shape=None, data=None):
+def run_rsrm(torch, smi, dev="cuda", shape=None, data=None, keep=None):
     """RSRM at phase 14's shape (20 subjects x 40,000 voxels x 300
     TRs, K=50, 10 iterations, gamma 1, float32) on phase 14's data
     (``data``, made here if None) with a planted sparse term: held to
     a float64 fit of the same chunk functions on the card from the
     same w0, to orthonormal maps and to the planted structure; its
-    seconds split, peak memory, syncs and profile."""
+    seconds split, peak memory, syncs and profile.  ``keep``: a dict
+    that takes the fit's W (stacked), R and objective, and the float64
+    fit's (key ``"RSRM_f64"``), for phase 23."""
     from brainiak_tpu_torch.funcalign import rsrm, srm
 
     n_s, n_v, n_t, k, n_iter = shape or (
@@ -2932,6 +2979,9 @@ def run_rsrm(torch, smi, dev="cuda", shape=None, data=None):
         fail(f"RSRM: the maps are not orthonormal ({ortho:.3e})")
     if not (on > RSRM_PLANT_RATIO * off and 0 < nonzero < RSRM_NONZERO):
         fail("RSRM: the sparse term does not find the planted entries")
+    if keep is not None:
+        keep["RSRM"] = (np.stack(model.w_), model.r_, model.objective_)
+        keep["RSRM_f64"] = (w_ref, r_ref, obj_ref)
     del model, w_ref
     s0 = torch.zeros_like(x)
     r0 = rsrm._shared_response(x, s0, w0, n_s)
@@ -3289,13 +3339,15 @@ MESH_POSITIONS = 4
 def phase_mesh_kernels(torch, dev):
     """K1 at the shapes the mesh paths give it, whole-brain widths: a
     mesh position's slice of the 1,024 block voxels (B=256) against
-    the 65,536 voxels (phase 20), and the 1,024 block voxels against
-    one data2 shard of 16,384 voxels (phase 21); inputs of their own
-    seed."""
+    the 65,536 voxels (phase 20), the 1,024 block voxels against one
+    data2 shard of 16,384 voxels (phase 21), and a rank's half of the
+    block voxels (B=512) against the 65,536 voxels (phase 23's two
+    ranks); inputs of their own seed."""
     rng = np.random.default_rng(SEED + 15)
     rows = {}
     for name, n_b, n_v in (("fcma_gram_mesh", 256, 65536),
-                           ("fcma_gram_distla", 1024, 16384)):
+                           ("fcma_gram_distla", 1024, 16384),
+                           ("fcma_gram_rank", 512, 65536)):
         data = normalized_epochs(torch, rng, 32, 150, n_v, dev)
         blk = normalized_epochs(torch, rng, 32, 150, n_b, dev)
         rows[name] = check_k1(torch, blk, data, 4, 5)["tc"]
@@ -3498,27 +3550,38 @@ def nccl_worker(process_id, num_processes):
     anew from their seed, ``VoxelSelector(mesh=)`` on the two ranks'
     voxel mesh, and ring path C's ``isfc(mesh=)`` against its dense
     ``isfc`` on this rank."""
+    from brainiak_tpu_torch import set_fp32_defaults
+
+    set_fp32_defaults()
+    return mesh_paths_on_ranks()
+
+
+def mesh_paths_on_ranks():
+    """The body of phase 22's worker, which phase 23's runs too: the
+    FCMA mesh and the ring ``isfc`` on a voxel mesh of this rank's
+    positions and its peer's."""
     import torch
 
     from brainiak_tpu_torch import isc as tisc
-    from brainiak_tpu_torch import set_fp32_defaults
     from brainiak_tpu_torch.fcma import prepare_fcma_data
     from brainiak_tpu_torch.fcma.voxelselector import VoxelSelector
     from brainiak_tpu_torch.ops.kernels import ring as kr
     from brainiak_tpu_torch.parallel import make_mesh
 
-    set_fp32_defaults()
+    t0 = time.perf_counter()
     images, conditions, mask1 = whole_brain_inputs(
         np.random.default_rng(SEED + 1))
     raw1, raw2, labels = prepare_fcma_data(
         images, conditions, mask1, np.ones(mask1.shape, dtype=bool))
     del images
+    t_prep = time.perf_counter() - t0
     mesh = make_mesh(("voxel",), (-1,))
     vs = VoxelSelector(labels, 4, 4, raw1, raw_data2=raw2, mesh=mesh)
     vs.run('svm')
     results, t_fcma, launches, _ = timed_run(torch, vs)
     out = {"accs": np.array([a for _, a in sorted(results)]),
-           "fcma_s": t_fcma, "k1": launches["fcma_gram_tc"],
+           "prep_s": t_prep, "fcma_s": t_fcma,
+           "k1": launches["fcma_gram_tc"],
            "card": torch.cuda.current_device()}
     del vs, raw1, raw2
     data = isfc_data(8, 600, 8192)
@@ -3526,8 +3589,11 @@ def nccl_worker(process_id, num_processes):
     t0 = time.perf_counter()
     ring = tisc.isfc(data, mesh=mesh)
     out["isfc_s"] = time.perf_counter() - t0
-    out["k5"] = kr.launches("tc")
+    out["k5"], out["k5_all"], out["k5_split"] = (
+        kr.launches("tc"), kr.launches(), kr.launches("split"))
+    t0 = time.perf_counter()
     dense = tisc.isfc(data)
+    out["dense_s"] = time.perf_counter() - t0
     out["isfc_err"] = max(float(np.max(np.abs(r - d)))
                           for r, d in zip(ring, dense))
     return out
@@ -3562,6 +3628,547 @@ def run_two_ranks(torch, mesh_accs):
         if not r["isfc_err"] <= ISFC_ATOL:
             fail("phase 22: the two-rank ring disagrees with the dense isfc")
     check_agree("phase 22 vs phase 20", ranks[0]["accs"], mesh_accs, 4, 32)
+
+
+# -- phases 23-25: the subject axis and the searchlight across ranks ---
+
+#: two-rank fits against the single-process fits of phases 14 and 17
+#: from the same w0, in max|dW| / max|W|, max|dS| / max|S| (R for
+#: RSRM) and d(objective) / |objective|.  In float64 the ranks' chunk
+#: functions are held to the one-process float64 fit at 1e-10 in all
+#: three, which leaves no room for a fault in the collectives; the
+#: float32 fits are held to the one-process float32 fits at 1e-3 on W,
+#: 1e-5 on the objective and 3e-3 on S or R: SRM's S carries the
+#: cancellation in I - rho0 (inv(Sigma_s) + rho0 I)^-1, and the
+#: two-rank sum of two partials moves it by 1.362e-3 of max|S| on an
+#: H100 (each float32 fit 7.5e-4 of max|S| off float64), where the
+#: float64 fits agree to 1.9e-12
+TWO_RANK_F64_RTOL = 1e-10
+TWO_RANK_RTOLS = (1e-3, 3e-3, 1e-5)
+SL_SHAPE, SL_SUBJECTS, SL_TRS = (64, 64, 36), 8, 150
+SL_VOXELS = 56240     # the ellipsoid mask's voxels
+SL_RAD, SL_CENTRES = 3, 55808   # Ball(3): 123 voxels a neighbourhood
+SL_BATCHES = (256, 1024)
+SL_SAMPLED, SL_F64_ATOL = 2000, 1e-4   # centres held to float64 NumPy
+SL_MESH_ATOL = 1e-6   # the 4-position mesh and two ranks vs meshless
+MVPA_DIM, MVPA_TRS, MVPA_FOLDS, MVPA_POOL = 16, 120, 4, 4
+MVPA_TOP = 5          # voxels that must lie in the planted region
+#: K5's launches on a rank of phase 23: 8 rings (one a subject) of 2
+#: steps each, and the pre-pass splits of each ring's two operands
+TWO_RANK_K5 = 16
+
+
+class _CollectiveBytes:
+    """While installed, counts this rank's calls of the collectives the
+    port makes (``torch.distributed``'s ``all_reduce``, ``all_gather``
+    and ``batch_isend_irecv``), the bytes it hands to them (the
+    tensors it sends) and the bytes they return to it (the buffers they
+    fill: an ``all_gather`` fills one of the sent size from each rank,
+    its own included)."""
+
+    def __init__(self, torch):
+        self.dist = torch.distributed
+        self.calls = self.sent = self.received = 0
+
+    @staticmethod
+    def _bytes(t):
+        return t.numel() * t.element_size()
+
+    def __enter__(self):
+        dist = self.dist
+        self.real = {n: getattr(dist, n) for n in
+                     ("all_reduce", "all_gather", "batch_isend_irecv")}
+
+        def all_reduce(t, *a, **k):
+            self.calls += 1
+            self.sent += self._bytes(t)
+            self.received += self._bytes(t)
+            return self.real["all_reduce"](t, *a, **k)
+
+        def all_gather(parts, t, *a, **k):
+            self.calls += 1
+            self.sent += self._bytes(t)
+            self.received += sum(self._bytes(p) for p in parts)
+            return self.real["all_gather"](parts, t, *a, **k)
+
+        def batch_isend_irecv(ops):
+            self.calls += 1
+            for op in ops:
+                if op.op is dist.isend:
+                    self.sent += self._bytes(op.tensor)
+                else:
+                    self.received += self._bytes(op.tensor)
+            return self.real["batch_isend_irecv"](ops)
+
+        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        dist.batch_isend_irecv = batch_isend_irecv
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.dist, n, fn)
+
+    def line(self):
+        return (f"{self.calls} collective calls, {self.sent / 1e6:.3f} MB "
+                f"sent, {self.received / 1e6:.3f} MB received")
+
+
+def _digest(a):
+    import hashlib
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def float64_fit(torch, kind, data, mesh):
+    """The float64 fit of ``kind``'s chunk functions across the ranks,
+    on this rank's subjects of ``data`` laid out on the subject mesh,
+    from the estimator's w0 in float64: what phases 14 and 17 hold
+    their float32 fits to in one process.  Returns (W whole, S or R,
+    objective) on the host, on every rank."""
+    from brainiak_tpu_torch.funcalign import rsrm, srm
+    from brainiak_tpu_torch.parallel.mesh import (fetch_rows, local_rows,
+                                                  shard_along)
+
+    dev = mesh.local_devices()[0]
+    stacked, counts, _, trace = srm._stack_and_pad(
+        data, np.float64, demean=kind == "SRM")
+    x = shard_along(stacked, mesh, "subject", 0)
+    n_s, v_pad, _ = stacked.shape
+    w0 = local_rows(x, srm._init_w(
+        0, v_pad, n_s, SRM_FEATURES,
+        torch.from_numpy(counts.astype(np.float32)).to(dev),
+        dtype=torch.float32, device=dev)).to(torch.float64)
+    if kind == "SRM":
+        w, _, _, shared, obj = srm._fit_prob_srm(
+            x, torch.from_numpy(trace).to(dev),
+            torch.from_numpy(counts.astype(np.float64)).to(dev), w0,
+            SRM_ITERS, mesh=mesh)
+    elif kind == "DetSRM":
+        w, shared, obj = srm._fit_det_srm(x, w0, SRM_ITERS, mesh=mesh)
+    else:
+        w, _, shared, obj = rsrm._fit_rsrm(x, w0, RSRM_GAMMA, SRM_ITERS,
+                                           mesh=mesh)
+    return fetch_rows(x, w), shared.cpu().numpy(), float(obj)
+
+
+def two_rank_fits(torch, mesh):
+    """Phase 23's SRM, DetSRM and RSRM on this rank's half of phase
+    14's subjects (phase 17's planted data for RSRM), each in float32
+    through the estimator and in float64 through its chunk functions:
+    the float32 fit's seconds and collectives, and of each fit its W,
+    S or R and objective (W and S as digests alone on rank 1)."""
+    from brainiak_tpu_torch.funcalign import rsrm, srm
+
+    t0 = time.perf_counter()
+    X, _, _ = srm_data(SRM_SUBJECTS, SRM_VOXELS, SRM_TRS, SRM_FEATURES,
+                       SEED + 7)
+    planted, _ = plant_sparse(X, SEED + 10)
+    me = torch.distributed.get_rank()
+    fits = {"data_s": time.perf_counter() - t0}
+    for kind, data in (("SRM", X), ("DetSRM", X), ("RSRM", planted)):
+        kw = dict(n_iter=SRM_ITERS, features=SRM_FEATURES, mesh=mesh)
+        model = rsrm.RSRM(gamma=RSRM_GAMMA, **kw) if kind == "RSRM" \
+            else getattr(srm, kind)(**kw)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        with _CollectiveBytes(torch) as moved:
+            t0 = time.perf_counter()
+            model.fit(data)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        w = np.stack(model.w_)
+        shared = model.r_ if kind == "RSRM" else model.s_
+        obj = model.logprob_ if kind == "SRM" else model.objective_
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        w64, s64, obj64 = float64_fit(torch, kind, data, mesh)
+        torch.cuda.synchronize()
+        secs64 = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        fits[kind] = {"secs": secs, "moved": moved.line(),
+                      "secs64": secs64,
+                      "digests": [_digest(a) for a in (w, shared, w64,
+                                                       s64)],
+                      "objectives": (obj, obj64),
+                      "fits": ((w, shared), (w64, s64)) if me == 0
+                      else None}
+    return fits
+
+
+def gloo_worker(process_id, num_processes):
+    """Phase 23 on one rank of two, both on the one card over gloo: the
+    subject-axis fits across the ranks, then phase 22's body (the FCMA
+    mesh and the ring ``isfc``), with this rank's collectives."""
+    import torch
+
+    from brainiak_tpu_torch import set_fp32_defaults
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    set_fp32_defaults()
+    out = {"fits": two_rank_fits(torch, make_mesh(("subject",), (-1,)))}
+    torch.cuda.empty_cache()
+    with _CollectiveBytes(torch) as moved:
+        out.update(mesh_paths_on_ranks())
+    out["moved"] = moved.line()
+    return out
+
+
+def rel_max(got, want):
+    """max|got - want| / max|want|."""
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def run_gloo_ranks(torch, smi, single, mesh_accs, rows):
+    """Phase 23: two ranks on the one card over gloo
+    (``run_distributed(..., device="cuda", backend="gloo")``: both on
+    ``cuda:0``, every collective staged through the host).  SRM, DetSRM
+    and RSRM at phase 14's shape, 10 subjects a rank, each rank's fits
+    bit for bit the other's; the float64 fits within
+    ``TWO_RANK_F64_RTOL`` of the one-process float64 fits, the float32
+    fits within ``TWO_RANK_RTOLS`` of the one-process float32 fits
+    (``single``: phases 14 and 17's, from the same w0).  Then phase
+    22's FCMA mesh and ring ``isfc(mesh=)``, held to phase 20's
+    accuracies (``mesh_accs``) and to the dense ``isfc``, K1 once a
+    rank and K5 ``TWO_RANK_K5`` times.  Sets the launches of the rows
+    of K1 and K5 at phase 23's shapes."""
+    import os
+
+    from brainiak_tpu_torch.parallel.testing import run_distributed
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_distributed(
+        "chip_smoke", "gloo_worker", n_procs=2, device="cuda",
+        backend="gloo", timeout=600,
+        extra_path=os.path.dirname(os.path.abspath(__file__)))
+    log(f"phase 23, two ranks on the one card over gloo ({smi}): "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    data_s = ", ".join(f"{r['fits']['data_s']:.1f}" for r in ranks)
+    log(f"  the ranks' SRM data made in {data_s} s")
+    for kind in ("SRM", "DetSRM", "RSRM"):
+        got = [r["fits"][kind] for r in ranks]
+        for pid, f in enumerate(got):
+            log(f"  rank {pid} {kind}: float32 fit {f['secs']:.3f} s, "
+                f"{f['moved']}; float64 fit {f['secs64']:.3f} s")
+        if any(f["digests"] != got[0]["digests"] or
+               f["objectives"] != got[0]["objectives"] for f in got):
+            fail(f"phase 23: the ranks' {kind} fits differ")
+        name = "R" if kind == "RSRM" else "S"
+        errs = {}
+        for prec, (w, shared), obj, (w_ref, s_ref, obj_ref) in zip(
+                ("float32", "float64"), got[0]["fits"],
+                got[0]["objectives"], (single[kind], single[kind + "_f64"])):
+            errs[prec] = (rel_max(w, w_ref), rel_max(shared, s_ref),
+                          abs(obj - obj_ref) / abs(obj_ref))
+            log(f"  {kind} {prec} on two ranks vs one process: "
+                f"max|dW|/max|W| {errs[prec][0]:.3e}, max|d{name}|/max|"
+                f"{name}| {errs[prec][1]:.3e}, dobj/|obj| "
+                f"{errs[prec][2]:.3e}; bit for bit on both ranks")
+        w64, s64, _ = single[kind + "_f64"]
+        for who, (w32, s32) in (("one-process", single[kind][:2]),
+                                ("two-rank", got[0]["fits"][0])):
+            log(f"  the {who} {kind} float32 fit vs the one-process "
+                f"float64 fit: max|dW|/max|W| {rel_max(w32, w64):.3e}, "
+                f"max|d{name}|/max|{name}| {rel_max(s32, s64):.3e} "
+                "(float32's own rounding)")
+        log(f"  bounds: float64 {TWO_RANK_F64_RTOL}, float32 "
+            f"{TWO_RANK_RTOLS}")
+        if not max(errs["float64"]) <= TWO_RANK_F64_RTOL:
+            fail(f"phase 23: the two-rank float64 {kind} fit is off the "
+                 "one-process float64 fit")
+        if not all(e <= t for e, t in zip(errs["float32"], TWO_RANK_RTOLS)):
+            fail(f"phase 23: the two-rank {kind} fit is off the "
+                 "single-process fit")
+    for pid, r in enumerate(ranks):
+        log(f"  rank {pid} (cuda:{r['card']}): FCMA inputs and prepare "
+            f"{r['prep_s']:.1f} s, warm run('svm') {r['fcma_s']:.3f} s, "
+            f"K1 launches {r['k1']}; isfc(mesh=) {r['isfc_s']:.3f} s, K5 "
+            f"launches {r['k5_all']} ({r['k5']} tensor-core, "
+            f"{r['k5_split']} pre-pass splits), dense isfc "
+            f"{r['dense_s']:.3f} s, max diff vs dense {r['isfc_err']:.3e} "
+            f"(atol {ISFC_ATOL}); {r['moved']}")
+        if not np.array_equal(r["accs"], ranks[0]["accs"]):
+            fail("phase 23: the ranks return different accuracies")
+        if not r["isfc_err"] <= ISFC_ATOL:
+            fail("phase 23: the two-rank ring disagrees with the dense isfc")
+        if r["k1"] != 1 or not (r["k5"] == r["k5_all"] == r["k5_split"]
+                                == TWO_RANK_K5):
+            fail(f"phase 23: rank {pid} ran K1 {r['k1']} times (not once) "
+                 f"and K5 {r['k5_all']} times, {r['k5']} tensor-core, "
+                 f"with {r['k5_split']} splits (not {TWO_RANK_K5} each)")
+    check_agree("phase 23 vs phase 20", ranks[0]["accs"], mesh_accs, 4, 32)
+    rows["fcma_gram_rank"]["launches"] = sum(r["k1"] for r in ranks)
+    rows["ring_mma_v4096"]["launches"] = sum(r["k5"] for r in ranks)
+
+
+def sl_volume():
+    """Phase 24's data from its seed: 8 subjects [64, 64, 36, 150]
+    float32, one shared signal plus noise each, and the ellipsoid brain
+    mask (semi-axes 0.45 of each edge: 56,240 voxels)."""
+    rng = np.random.default_rng(SEED + 20)
+    signal = rng.standard_normal(SL_SHAPE + (SL_TRS,), dtype=np.float32)
+    subjects = []
+    for _ in range(SL_SUBJECTS):
+        x = rng.standard_normal(SL_SHAPE + (SL_TRS,), dtype=np.float32)
+        x += signal
+        subjects.append(x)
+    grid = np.meshgrid(*[np.arange(n) for n in SL_SHAPE], indexing="ij")
+    mask = sum(((g - (n - 1) / 2) / (0.45 * n)) ** 2
+               for g, n in zip(grid, SL_SHAPE)) <= 1
+    return subjects, mask
+
+
+def rsa_voxel_fn(patches, mask_patch, rad, bcast):
+    """The RSA statistic of ``benchmarks/run_baselines.py:142-155`` in
+    torch: the correlation between subject 0's neighbourhood contrast
+    (mean of the first half of the TRs less the second's) and the mean
+    contrast of the other subjects, over the valid voxels."""
+    import torch
+
+    half = patches.shape[2] // 2
+    d = patches[:, :, :half].mean(dim=2) - patches[:, :, half:].mean(dim=2)
+    zero = torch.zeros_like(d[0])
+    d0 = torch.where(mask_patch, d[0], zero)
+    rest = torch.where(mask_patch, d[1:].mean(dim=0), zero)
+    num = torch.sum(d0 * rest)
+    den = torch.sqrt(torch.sum(d0 ** 2) * torch.sum(rest ** 2)) + 1e-12
+    return num / den
+
+
+def rsa_float64(subjects, mask, shape_mask, centres):
+    """``rsa_voxel_fn`` in float64 NumPy at ``centres``."""
+    rad = shape_mask.shape[0] // 2
+    half = subjects[0].shape[3] // 2
+    out = np.empty(len(centres))
+    for n, (i, j, k) in enumerate(centres):
+        sl = np.s_[i - rad:i + rad + 1, j - rad:j + rad + 1,
+                   k - rad:k + rad + 1]
+        valid = (mask[sl] & shape_mask)[shape_mask]
+        d = np.stack([s[sl][shape_mask].astype(np.float64)
+                      for s in subjects])
+        d = d[:, :, :half].mean(axis=2) - d[:, :, half:].mean(axis=2)
+        d0 = np.where(valid, d[0], 0.0)
+        rest = np.where(valid, d[1:].mean(axis=0), 0.0)
+        out[n] = np.sum(d0 * rest) / (
+            np.sqrt(np.sum(d0 ** 2) * np.sum(rest ** 2)) + 1e-12)
+    return out
+
+
+def sweep_worker(process_id, num_processes):
+    """Phase 24's sweep on one rank of two over gloo, both on the one
+    card: the volume from its seed, the centres split over the ranks'
+    voxel mesh; every rank returns the whole volume."""
+    import torch
+
+    from brainiak_tpu_torch import set_fp32_defaults
+    from brainiak_tpu_torch.parallel import make_mesh
+    from brainiak_tpu_torch.searchlight import Ball, Searchlight
+
+    set_fp32_defaults()
+    subjects, mask = sl_volume()
+    sl = Searchlight(sl_rad=SL_RAD, shape=Ball,
+                     mesh=make_mesh(("voxel",), (-1,)))
+    sl.distribute(subjects, mask)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    vol = sl.run_searchlight_jax(rsa_voxel_fn, batch_size=SL_BATCHES[-1])
+    return vol, time.perf_counter() - t0
+
+
+def run_searchlight_phase(torch, smi, dev="cuda"):
+    """Phase 24: the searchlight's traced tier at whole-brain width (8
+    subjects on a 64 x 64 x 36 grid, 150 TRs, float32, 0.71 GB on the
+    card; Ball(3), 55,808 centres, the RSA statistic), at batch sizes
+    256 and 1024: warm centres/s, the launches and device time of a
+    batch, peak memory; 2,000 seeded centres against float64 NumPy; a
+    4-position mesh of the card and two ranks over gloo against the
+    meshless volume."""
+    import os
+
+    from brainiak_tpu_torch.parallel import make_mesh
+    from brainiak_tpu_torch.parallel.testing import run_distributed
+    from brainiak_tpu_torch.searchlight import Ball, Searchlight
+
+    t0 = time.perf_counter()
+    subjects, mask = sl_volume()
+    t_data = time.perf_counter() - t0
+    sl = Searchlight(sl_rad=SL_RAD, shape=Ball, device=dev)
+    sl.distribute(subjects, mask)
+    centres = sl._centers()
+    n_vox, n_p = int(mask.sum()), int(sl.shape.sum())
+    log(f"phase 24, searchlight: {SL_SUBJECTS} subjects x {SL_SHAPE} x "
+        f"{SL_TRS} TRs, mask {n_vox} voxels, Ball({SL_RAD}) of {n_p} "
+        f"voxels, {len(centres)} centres (data made in {t_data:.2f} s)")
+    if n_vox != SL_VOXELS or len(centres) != SL_CENTRES:
+        fail("phase 24: the mask or the centres are not the whole brain's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sl.run_searchlight_jax(rsa_voxel_fn, batch_size=SL_BATCHES[0])
+    log(f"  cold sweep (upload and index included) "
+        f"{time.perf_counter() - t0:.3f} s")
+    vols = {}
+    state = sl._cache
+    key = next(iter(state["flat"]))
+    for bs in SL_BATCHES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vols[bs] = sl.run_searchlight_jax(rsa_voxel_fn, batch_size=bs)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_batches = -(-len(centres) // bs)
+        # the whole warm sweep under the profiler, the card idle at
+        # its start; then one batch by CUDA events
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            sl.run_searchlight_jax(rsa_voxel_fn, batch_size=bs)
+            torch.cuda.synchronize()
+        host, device = launch_counts(torch, prof)
+        busy = sum(us for _, (us, _) in device_events(torch, prof)) / 1e3
+        one_ms = cuda_ms(torch, lambda: sl._sweep(
+            state["flat"][key], state["mflat"][key], state["idx"][0][:bs],
+            rsa_voxel_fn, bs), 5)
+        per_batch = (f"{busy / n_batches:.3f} ms device busy a batch "
+                     f"({device} device kernels seen)" if device else
+                     "device busy not measured (the profile recorded no "
+                     "device kernel)")
+        log(f"  batch {bs} ({smi}): warm sweep {secs:.3f} s, "
+            f"{len(centres) / secs:.1f} centres/s, {n_batches} batches; "
+            f"profiled sweep: {host / n_batches:.1f} kernel launches a "
+            f"batch, {per_batch}; one batch by CUDA events {one_ms:.3f} "
+            f"ms; peak device memory {peak:.2f} GiB (a batch gathers "
+            f"{SL_SUBJECTS * bs * n_p * SL_TRS * 4 / 1e9:.2f} GB)")
+    got = vols[SL_BATCHES[0]]
+    finite = np.isfinite(got)
+    if got.shape != SL_SHAPE or got.dtype != np.float32 or \
+            int(finite.sum()) != len(centres) or \
+            not np.all(np.abs(got[finite]) <= 1 + 1e-6):
+        fail(f"phase 24: the volume is not {len(centres)} finite "
+             f"correlations ({int(finite.sum())})")
+    batch_diff = float(np.nanmax(np.abs(vols[SL_BATCHES[1]] - got)))
+    c = centres[np.random.default_rng(SEED + 21).choice(
+        len(centres), SL_SAMPLED, replace=False)]
+    want = rsa_float64(subjects, mask, sl.shape, c)
+    f64_err = float(np.max(np.abs(got[c[:, 0], c[:, 1], c[:, 2]] - want)))
+    log(f"  batch {SL_BATCHES[1]} vs {SL_BATCHES[0]} max diff "
+        f"{batch_diff:.3e}; {SL_SAMPLED} centres vs float64 NumPy max "
+        f"diff {f64_err:.3e} (atol {SL_F64_ATOL}); mean statistic "
+        f"{float(np.nanmean(got)):.4f}")
+    if not f64_err <= SL_F64_ATOL:
+        fail("phase 24: the sweep disagrees with float64")
+    del sl, vols, state
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(("voxel",), (4,), devices=[dev] * 4)
+    slm = Searchlight(sl_rad=SL_RAD, shape=Ball, mesh=mesh)
+    slm.distribute(subjects, mask)
+    slm.run_searchlight_jax(rsa_voxel_fn, batch_size=SL_BATCHES[-1])
+    t0 = time.perf_counter()
+    on_mesh = slm.run_searchlight_jax(rsa_voxel_fn,
+                                      batch_size=SL_BATCHES[-1])
+    t_mesh = time.perf_counter() - t0
+    mesh_err = float(np.nanmax(np.abs(on_mesh - got)))
+    log(f"  4-position mesh of the card: warm {t_mesh:.3f} s, max diff "
+        f"vs meshless {mesh_err:.3e} (atol {SL_MESH_ATOL})")
+    if not (mesh_err <= SL_MESH_ATOL and
+            np.array_equal(np.isnan(on_mesh), np.isnan(got))):
+        fail("phase 24: the mesh sweep disagrees with the meshless one")
+    del slm, on_mesh, subjects
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_distributed(
+        "chip_smoke", "sweep_worker", n_procs=2, device=dev,
+        backend="gloo", timeout=300,
+        extra_path=os.path.dirname(os.path.abspath(__file__)))
+    errs = [float(np.nanmax(np.abs(v - got))) for v, _ in ranks]
+    log(f"  two ranks over gloo: {time.perf_counter() - t0:.1f} s with the "
+        f"processes' start, cold sweeps "
+        f"{', '.join(f'{t:.3f}' for _, t in ranks)} s, max diff vs "
+        f"meshless {max(errs):.3e} (atol {SL_MESH_ATOL})")
+    if not (max(errs) <= SL_MESH_ATOL and
+            all(np.array_equal(np.isnan(v), np.isnan(got))
+                for v, _ in ranks)):
+        fail("phase 24: the two-rank sweep disagrees with the meshless one")
+
+
+class _NearestMean:
+    """A classifier on raw features with the scikit-learn
+    fit/predict/score interface: the class whose training mean is
+    nearest (Euclidean)."""
+
+    def fit(self, x, y):
+        self.classes_ = np.unique(y)
+        self.means_ = np.stack([x[np.asarray(y) == c].mean(axis=0)
+                                for c in self.classes_])
+        return self
+
+    def predict(self, x):
+        d = ((x[:, None, :] - self.means_[None]) ** 2).sum(axis=2)
+        return self.classes_[np.argmin(d, axis=1)]
+
+    def score(self, x, y):
+        return float(np.mean(self.predict(x) == np.asarray(y)))
+
+
+def mvpa_data():
+    """Phase 25's volume, the layout of
+    ``examples/searchlight_decoding.py:31-46``: uniform noise [16, 16,
+    16, 120], random labels, a Gaussian kernel of edge 5 times the
+    labels planted at the centre, a ball mask of radius 0.45 of the
+    edge.  Returns (data, labels, mask, planted point)."""
+    rng = np.random.RandomState(SEED + 22)
+    dim, point, kd = MVPA_DIM, (MVPA_DIM // 2,) * 3, 2
+    data = rng.random_sample((dim,) * 3 + (MVPA_TRS,)).astype(np.float32)
+    labels = rng.choice([0.0, 1.0], (MVPA_TRS,))
+    grid = np.mgrid[-kd:kd + 1, -kd:kd + 1, -kd:kd + 1]
+    kernel = np.exp(-(grid ** 2).sum(0).astype(np.float32))
+    data[tuple(slice(p - kd, p + kd + 1) for p in point)] += \
+        np.multiply.outer(kernel, labels).astype(np.float32)
+    xx, yy, zz = np.mgrid[:dim, :dim, :dim]
+    c = (dim - 1) / 2.0
+    mask = np.sqrt((xx - c) ** 2 + (yy - c) ** 2 + (zz - c) ** 2) \
+        < dim * 0.45
+    return data, labels, mask, point
+
+
+def run_mvpa_phase(torch, smi):
+    """Phase 25: ``MVPAVoxelSelector`` on the host tier (Ball(1), 4
+    folds, ``_NearestMean``), serially and with a ``Pool`` of 4 forked
+    after CUDA is initialised here (the children touch no CUDA): equal
+    volumes and rankings, and the top voxels in the planted region."""
+    from brainiak_tpu_torch.fcma.mvpa_voxelselector import \
+        MVPAVoxelSelector
+    from brainiak_tpu_torch.searchlight import Ball, Searchlight
+
+    if not torch.cuda.is_initialized():
+        fail("phase 25: CUDA is not initialised before the pool forks")
+    data, labels, mask, point = mvpa_data()
+    vols, ranked = {}, {}
+    for pool in (1, MVPA_POOL):
+        sel = MVPAVoxelSelector(data, mask, labels, MVPA_FOLDS,
+                                Searchlight(sl_rad=1, shape=Ball,
+                                            pool_size=pool))
+        t0 = time.perf_counter()
+        vols[pool], ranked[pool] = sel.run(_NearestMean())
+        log(f"phase 25, MVPAVoxelSelector, pool_size {pool} ({smi}): "
+            f"{int(mask.sum())} voxels in {time.perf_counter() - t0:.3f} s")
+    same = all((a is None and b is None) or a == b for a, b in
+               zip(vols[1].ravel(), vols[MVPA_POOL].ravel()))
+    coords = np.argwhere(mask)
+    top = [coords[v] for v, _ in ranked[1][:MVPA_TOP]]
+    inside = [bool(np.all(np.abs(t - point) <= 2)) for t in top]
+    log(f"  serial and pool volumes equal: {same}; top {MVPA_TOP} voxels "
+        f"{[tuple(int(i) for i in t) for t in top]}, accuracies "
+        f"{[round(float(a), 4) for _, a in ranked[1][:MVPA_TOP]]}, in the "
+        f"planted region (within 2 of {point}): {inside}; median accuracy "
+        f"{float(np.median([a for _, a in ranked[1]])):.4f}")
+    if not same or ranked[1] != ranked[MVPA_POOL]:
+        fail("phase 25: the pool's volume differs from the serial one")
+    if not all(inside):
+        fail("phase 25: the top voxels are not in the planted region")
 
 
 def main():
@@ -3752,14 +4359,17 @@ def main():
     # phase 14's data, kept for RSRM and FastSRM (phases 17 and 19)
     srm_phase_data = srm_data(SRM_SUBJECTS, SRM_VOXELS, SRM_TRS,
                               SRM_FEATURES, SEED + 7)
-    run_srm(torch, smi, data=srm_phase_data)
+    # the single-process fits that phase 23's two ranks are held to
+    single_fits = {}
+    run_srm(torch, smi, data=srm_phase_data, keep=single_fits)
     run_panel_gram(torch, smi)
     run_file_front_end(torch, *wb_inputs, wb_results, smi)
     del wb_inputs
     for label, phase in (
             ("17, RSRM", lambda: (run_rsrm_contract(torch, smi),
                                   run_rsrm(torch, smi,
-                                           data=srm_phase_data))),
+                                           data=srm_phase_data,
+                                           keep=single_fits))),
             ("18, SS-SRM", lambda: run_sssrm(torch, smi)),
             ("19, FastSRM", lambda: run_fastsrm(torch, smi,
                                                 data=srm_phase_data))):
@@ -3767,6 +4377,18 @@ def main():
         phase()
         log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")
     del srm_phase_data
+    torch.cuda.empty_cache()
+    for label, phase in (
+            ("23, two ranks over gloo", lambda: run_gloo_ranks(
+                torch, smi, single_fits, mesh_accs, rows)),
+            ("24, searchlight", lambda: run_searchlight_phase(torch, smi)),
+            ("25, MVPA voxel selection", lambda: run_mvpa_phase(torch,
+                                                                smi))):
+        t0 = time.perf_counter()
+        phase()
+        log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    del single_fits
     run_ingest_split(torch, dev)
 
     csrc = "brainiak_tpu_torch/csrc/"
@@ -3799,6 +4421,7 @@ def main():
         "epoch_zscore_simple": k2, "epoch_zscore_e216_simple": k2,
         "fcma_gram": k1_tc, "fcma_gram_e16": k1_tc,
         "fcma_gram_mesh": k1_tc, "fcma_gram_distla": k1_tc,
+        "fcma_gram_rank": k1_tc,
         "fcma_gram_ffma": k1, "fcma_gram_ffma_e16": k1,
         "fcma_gram_e80": k1_tcm, "fcma_gram_e80_ffma": k1,
         "fcma_gram_e216": k1_tcs, "fcma_gram_e216_ffma": k1,
@@ -3819,7 +4442,7 @@ def main():
     k5_tc = ("brainiak_tpu/ops/kernels/ring.py:116",
              csrc + "ring_mma_tc.cu")
     origin.update(ring_mma=k5_tc, ring_mma_n4=k5_tc, ring_mma_v8192=k5_tc,
-                  ring_split=k5_tc, ring_mma_ffma=k5)
+                  ring_mma_v4096=k5_tc, ring_split=k5_tc, ring_mma_ffma=k5)
     # no path forces ring_mma.cu
     rows["ring_mma_ffma"]["launches"] = 0
     kernels = [dict(name=name, route="cuda", source=origin[name][1],

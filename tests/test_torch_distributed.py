@@ -208,13 +208,32 @@ def test_place_on_mesh_in_one_process():
         tmesh.place_on_mesh(arr, mesh, ("subject", "voxel"))
 
 
-@pytest.mark.parametrize("name", ["SRM", "DetSRM", "RSRM", "batched_eigh",
-                                  "batched_cholesky_solve", "shard_vmap"])
-def test_subject_axis_refused_across_processes(ranks, name):
-    """No rank-partial result: the subject-axis estimators and solves
-    raise on a mesh across processes, naming ROADMAP item 11b."""
-    for r in ranks:
-        assert "item 11b" in r["refusals"][name]
+def test_row_helpers_of_a_stack_across_ranks():
+    """The row helpers on a stack of 5 rows in 3 pieces (2, 2, 1 rows,
+    ``torch.tensor_split``'s cut) of which this rank owns the first and
+    the last: its rows are 0, 1 and 4, cut back into its two pieces;
+    on a plain tensor every helper hands the leaf back."""
+    stack = torch.arange(15.0).reshape(5, 3)
+    pieces = torch.tensor_split(stack, 3)
+    x = tmesh.Sharded([pieces[0], None, pieces[2]],
+                      [torch.device("cpu")] * 3, 0, ("subject",), [0, 1, 0],
+                      tuple(stack.shape))
+    leaf = torch.arange(5.0) * 10
+    assert tmesh.spans_processes(x) and not tmesh.spans_processes(stack)
+    assert [p.shape[0] for p in tmesh.local_pieces(x)] == [2, 1]
+    mine = tmesh.local_rows(x, leaf)
+    np.testing.assert_array_equal(mine.numpy(), [0.0, 10.0, 40.0])
+    parts = tmesh.split_rows(x, mine)
+    assert [p.tolist() for p in parts] == [[0.0, 10.0], [40.0]]
+    laid = tmesh.laid_out_rows(x, mine)
+    assert laid.chunks[1] is None and laid.shape == (5,)
+    assert torch.equal(tmesh.cat_pieces(parts), mine)
+    assert tmesh.cat_pieces([leaf]) is leaf
+    for helper in (tmesh.local_rows, tmesh.gather_rows, tmesh.all_sum):
+        assert helper(stack, leaf) is leaf
+    assert tmesh.split_rows(stack, leaf) == [leaf]
+    np.testing.assert_array_equal(tmesh.fetch_rows(stack, leaf),
+                                  leaf.numpy())
 
 
 def test_failing_rank_kills_its_peer():

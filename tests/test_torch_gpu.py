@@ -1838,3 +1838,84 @@ def test_nifti_round_trip_of_a_cuda_tensor(cuda, tmp_path):
         img = nifti.load(tmp_path / name)
         assert np.array_equal(img.dataobj, x.cpu().numpy())
         assert np.array_equal(img.affine, affine)
+
+
+def _sl_statistic(patches, mask_patch, rad, bcast):
+    """The mean over the valid voxels of the correlation of the first
+    two subjects' time series."""
+    x, y = patches[0], patches[1]
+    xd = x - x.mean(dim=1, keepdim=True)
+    yd = y - y.mean(dim=1, keepdim=True)
+    r = torch.sum(xd * yd, dim=1) / torch.sqrt(
+        torch.sum(xd ** 2, dim=1) * torch.sum(yd ** 2, dim=1))
+    return torch.sum(torch.where(mask_patch, r, torch.zeros_like(r))) \
+        / torch.sum(mask_patch)
+
+
+def _sl_inputs():
+    rng = np.random.RandomState(23)
+    subjects = [rng.randn(12, 11, 10, 30).astype(np.float32)
+                for _ in range(3)]
+    return subjects, rng.rand(12, 11, 10) > 0.2
+
+
+def test_searchlight_traced_tier_cuda_matches_cpu(cuda):
+    """The traced tier's sweep on the card (two batch sizes) against
+    the CPU port's: 1e-5 (a correlation averaged in float32)."""
+    from brainiak_tpu_torch.searchlight import Ball, Searchlight
+
+    subjects, mask = _sl_inputs()
+    vols = []
+    for dev, bs in (("cpu", 1024), ("cuda", 64), ("cuda", 1024)):
+        sl = Searchlight(sl_rad=2, shape=Ball, device=dev)
+        sl.distribute(subjects, mask)
+        vols.append(sl.run_searchlight_jax(_sl_statistic, batch_size=bs))
+    for got in vols[1:]:
+        assert got.dtype == np.float32
+        assert np.array_equal(np.isnan(got), np.isnan(vols[0]))
+        np.testing.assert_allclose(got, vols[0], atol=1e-5, rtol=0)
+
+
+def test_searchlight_mesh_cuda_matches_meshless(cuda):
+    """Four positions of the card split the centres (padded to a
+    multiple of 4): the meshless sweep's volume within 1e-6."""
+    from brainiak_tpu_torch.parallel import make_mesh
+    from brainiak_tpu_torch.searchlight import Ball, Searchlight
+
+    subjects, mask = _sl_inputs()
+    single = Searchlight(sl_rad=2, shape=Ball)
+    single.distribute(subjects, mask)
+    want = single.run_searchlight_jax(_sl_statistic, batch_size=128)
+    mesh = make_mesh(("voxel",), (4,), devices=["cuda"] * 4)
+    sl = Searchlight(sl_rad=2, shape=Ball, mesh=mesh)
+    sl.distribute(subjects, mask)
+    got = sl.run_searchlight_jax(_sl_statistic, batch_size=128)
+    assert len(sl._centers()) % 4 != 0
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_detsrm_two_ranks_one_card_over_gloo(cuda):
+    """DetSRM on a subject mesh of two ranks that share the card over
+    gloo (every collective through the host): each rank returns the
+    whole fit, bit for bit the other's, and the one-process fit on the
+    card within 2e-4 of max(1, max|.|), the objective within 1e-4."""
+    import os
+
+    from brainiak_tpu_torch.funcalign.srm import DetSRM
+    from brainiak_tpu_torch.parallel.testing import run_distributed
+    from torch_card_workers import make_detsrm_data
+
+    ranks = run_distributed(
+        "torch_card_workers", "detsrm_card_worker", n_procs=2,
+        device="cuda", backend="gloo", timeout=120,
+        extra_path=os.path.dirname(os.path.abspath(__file__)))
+    for key in ("w", "s_", "objective"):
+        np.testing.assert_array_equal(np.asarray(ranks[0][key]),
+                                      np.asarray(ranks[1][key]))
+    want = DetSRM(n_iter=5, features=3).fit(make_detsrm_data())
+    for got, w in zip(ranks[0]["w"] + [ranks[0]["s_"]],
+                      want.w_ + [want.s_]):
+        assert np.abs(got - w).max() <= 2e-4 * max(1.0, np.abs(w).max())
+    assert abs(ranks[0]["objective"] - want.objective_) <= \
+        1e-4 * abs(want.objective_)

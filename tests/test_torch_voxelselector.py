@@ -370,6 +370,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.fcma.preprocessing\n"
         "import brainiak_tpu_torch.fcma.util\n"
         "import brainiak_tpu_torch.fcma.voxelselector\n"
+        "import brainiak_tpu_torch.fcma.mvpa_voxelselector\n"
+        "import brainiak_tpu_torch.searchlight\n"
+        "import brainiak_tpu_torch.searchlight.searchlight\n"
         "import brainiak_tpu_torch.ops.fcma_kernels\n"
         "import brainiak_tpu_torch.ops.svm\n"
         "import brainiak_tpu_torch.ops.kernels.epoch_norm\n"

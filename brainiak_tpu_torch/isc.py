@@ -24,9 +24,17 @@ computes its own positions' pieces; :func:`isc` gathers them with
 ring's [V, V] matrices reach the host of every rank one row slab at a
 time (:func:`_fetch_ring_matrix`), so no device holds the whole.
 
-The resampling tests (``bootstrap_isc``, ``permutation_isc``,
-``timeshift_isc``, ``phaseshift_isc``) come with the port of
-``stats/`` and its ``NullEngine``.
+The resampling tests (:func:`bootstrap_isc`, :func:`permutation_isc`,
+:func:`timeshift_isc`, :func:`phaseshift_isc`) route through the
+:mod:`brainiak_tpu_torch.stats` engine
+(:class:`~brainiak_tpu_torch.stats.engine.NullEngine`): each null
+family is a batched tensor program over resample descriptors drawn up
+front from one ``torch.Generator`` seeded with ``random_state``, so a
+seed gives other (statistically equivalent) resamples than the JAX
+package's ``jax.random`` keys.  Exact tests enumerate their resamples
+and agree with it.  Pass ``return_distribution=False`` to count the
+null into the engine's mergeable accumulator instead of materializing
+``[n_resamples, V]``.
 """
 
 import numpy as np
@@ -35,13 +43,25 @@ from scipy.spatial.distance import squareform
 
 from .device import matmul_precision, resolve_device
 from .obs import spans as obs_spans
+from .ops import stats as ops_stats
 from .ops.distla import summa_gram
 from .parallel.mesh import (DEFAULT_VOXEL_AXIS, Sharded, comm_device,
                             fetch_replicated, shard_along)
 from .stats.pvalues import compute_summary_statistic
 from .utils.utils import _check_timeseries_input, array_correlation
 
-__all__ = ["compute_summary_statistic", "isc", "isfc", "squareform_isfc"]
+__all__ = [
+    "bootstrap_isc",
+    "compute_summary_statistic",
+    "isc",
+    "isfc",
+    "permutation_isc",
+    "phaseshift_isc",
+    "squareform_isfc",
+    "timeshift_isc",
+]
+
+MAX_RANDOM_SEED = 2 ** 32 - 1
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +82,25 @@ def _threshold_nans(data, tolerate_nans):
                   data.shape[-1] * tolerate_nans)
     mask = ~nans
     return data[:, mask, :], mask
+
+
+def _check_isc_input(iscs, pairwise=False):
+    """Standardize ISC stat-test input; returns (iscs, n_subjects,
+    n_voxels)."""
+    if isinstance(iscs, list):
+        iscs = np.array(iscs)[:, np.newaxis]
+    elif isinstance(iscs, np.ndarray) and iscs.ndim == 1:
+        iscs = iscs[:, np.newaxis]
+    if pairwise:
+        try:
+            test_square = squareform(iscs[:, 0], force='tomatrix')
+            n_subjects = test_square.shape[0]
+        except ValueError:
+            raise ValueError("For pairwise input, ISCs must be the "
+                             "vectorized triangle of a square matrix.")
+    else:
+        n_subjects = iscs.shape[0]
+    return iscs, n_subjects, iscs.shape[1]
 
 
 def squareform_isfc(isfcs, iscs=None):
@@ -99,14 +138,15 @@ def _f32(arr, device):
                            device=device)
 
 
-def _shard_voxels(arr, mesh, axis, device):
-    """``arr`` as float32 on ``device`` (``mesh=None``), or split along
-    ``axis`` over the mesh's ``'voxel'`` positions (a
+def _shard_voxels(arr, mesh, axis, device, dtype=np.float32):
+    """``arr`` as ``dtype`` (float32 by default) on ``device``
+    (``mesh=None``), or split along ``axis`` over the mesh's
+    ``'voxel'`` positions (a
     :class:`~brainiak_tpu_torch.parallel.mesh.Sharded`), NaN-padded up
     to a multiple of the position count; callers slice padded outputs
     with ``[..., :n]``."""
     if mesh is None:
-        return _f32(arr, device)
+        return torch.as_tensor(np.asarray(arr, dtype=dtype), device=device)
     n_shards = mesh.shape[DEFAULT_VOXEL_AXIS]
     pad = (-arr.shape[axis]) % n_shards
     if pad:
@@ -114,7 +154,7 @@ def _shard_voxels(arr, mesh, axis, device):
         widths[axis] = (0, pad)
         arr = np.pad(np.asarray(arr, dtype=float), widths,
                      constant_values=np.nan)
-    return shard_along(np.asarray(arr, dtype=np.float32), mesh,
+    return shard_along(np.asarray(arr, dtype=dtype), mesh,
                        DEFAULT_VOXEL_AXIS, axis)
 
 
@@ -383,3 +423,238 @@ def isfc(data, targets=None, pairwise=False, summary_statistic=None,
     if vectorize_isfcs and symmetric:
         return squareform_isfc(isfcs)
     return isfcs
+
+
+# ---------------------------------------------------------------------------
+# resampling statistics
+
+def _reinsert_nan_voxels(observed, distribution, mask, n_voxels):
+    """Restore NaN columns for voxels excluded by _threshold_nans so
+    output stays positionally aligned with the input voxel axis."""
+    if np.all(mask):
+        return observed, distribution
+    idx = np.where(mask)[0]
+    obs_full = np.full(observed.shape[:-1] + (n_voxels,), np.nan)
+    obs_full[..., idx] = observed
+    dist_full = np.full(distribution.shape[:-1] + (n_voxels,), np.nan)
+    dist_full[..., idx] = distribution
+    return obs_full, dist_full
+
+
+def _resolve_seed(random_state):
+    if isinstance(random_state, np.random.RandomState):
+        return int(random_state.randint(0, MAX_RANDOM_SEED))
+    if random_state is None:
+        return int(np.random.randint(0, MAX_RANDOM_SEED))
+    return int(random_state)
+
+
+def _null_engine(mesh, null_batch_size, device):
+    from .stats.engine import NullEngine
+    return NullEngine(mesh=mesh, null_batch_size=null_batch_size,
+                      device=device)
+
+
+def _reinsert_nan_p(observed, p, mask, n_voxels, n_samples):
+    """Accumulator-mode counterpart of _reinsert_nan_voxels: excluded
+    voxels get the all-NaN-column p of ``1 / (n + 1)`` (every NaN
+    comparison counts as a non-exceedance)."""
+    if np.all(mask):
+        return observed, p
+    idx = np.where(mask)[0]
+    obs_full = np.full(observed.shape[:-1] + (n_voxels,), np.nan)
+    obs_full[..., idx] = observed
+    p_full = np.full(np.shape(p)[:-1] + (n_voxels,),
+                     1.0 / (n_samples + 1))
+    p_full[..., idx] = p
+    return obs_full, p_full
+
+
+def bootstrap_isc(iscs, pairwise=False, summary_statistic='median',
+                  n_bootstraps=1000, ci_percentile=95, side='right',
+                  random_state=None, mesh=None, null_batch_size=None,
+                  return_distribution=True, device="cuda"):
+    """Subject-wise bootstrap test for ISCs.
+
+    Resamples subjects with replacement, shifts the bootstrap
+    distribution by the observed statistic (Hall & Wilson 1991), and
+    returns (observed, ci, p, distribution).
+
+    mesh : optional Mesh with a ``'voxel'`` axis -- splits the voxel
+        dimension of the resampling program over its positions.
+    null_batch_size : resamples a batched program evaluates at once;
+        default :func:`brainiak_tpu_torch.stats.engine
+        .default_null_batch`.
+    return_distribution : when False the ``[n_bootstraps, V]`` null is
+        never materialized -- p and CI come from the engine's mergeable
+        accumulator (CI to sketch accuracy) and the returned
+        distribution is None.
+    device : ``"cuda"`` (default) or ``"cpu"``.
+    """
+    iscs, n_subjects, n_voxels = _check_isc_input(iscs, pairwise=pairwise)
+    if summary_statistic not in ('mean', 'median'):
+        raise ValueError("Summary statistic must be 'mean' or 'median'")
+
+    observed = compute_summary_statistic(
+        iscs, summary_statistic=summary_statistic, axis=0)
+
+    engine = _null_engine(mesh, null_batch_size, device)
+    result = engine.run(
+        iscs, "subject_bootstrap", n_bootstraps,
+        statistic=summary_statistic, side=side,
+        seed=_resolve_seed(random_state), pairwise=pairwise,
+        observed=observed, center=observed,
+        return_distribution=return_distribution)
+
+    if return_distribution:
+        # p and the CI from the null on the engine's device: the same
+        # counts and percentiles as NumPy's on the host copy
+        null = result.null_tensor
+        ci = tuple(ops_stats.percentiles(
+            null, ((100 - ci_percentile) / 2,
+                   ci_percentile + (100 - ci_percentile) / 2)))
+        obs = torch.as_tensor(observed, dtype=null.dtype,
+                              device=null.device)
+        p = ops_stats.p_from_null(obs, null - obs, side=side,
+                                  exact=False).cpu().numpy()
+        return observed, ci, p, result.distribution
+    # accumulator mode: exceedance counts of (null - observed), i.e.
+    # exactly the Hall & Wilson shifted comparison, without the array
+    p = result.p_values(side=side, exact=False)
+    ci = result.ci(ci_percentile)
+    return observed, ci, p, None
+
+
+def _null_p(result, observed, side, exact):
+    """p of ``observed`` against the materialized null, counted on the
+    engine's device (the counts, so the values, of
+    :func:`~brainiak_tpu_torch.stats.pvalues.p_from_null` on the host
+    copy)."""
+    null = result.null_tensor
+    obs = torch.as_tensor(observed, dtype=null.dtype, device=null.device)
+    return ops_stats.p_from_null(obs, null, side=side,
+                                 exact=exact).cpu().numpy()
+
+
+def _check_group_assignment(group_assignment, n_subjects):
+    if isinstance(group_assignment, list):
+        group_assignment = np.array(group_assignment)
+    if group_assignment is not None and \
+            len(group_assignment) != n_subjects:
+        raise ValueError("Group assignments ({0}) do not match number of "
+                         "subjects ({1})!".format(len(group_assignment),
+                                                  n_subjects))
+    return group_assignment
+
+
+def permutation_isc(iscs, group_assignment=None, pairwise=False,
+                    summary_statistic='median', n_permutations=1000,
+                    side='right', random_state=None, mesh=None,
+                    null_batch_size=None, return_distribution=True,
+                    device="cuda"):
+    """Group-label permutation test for ISCs.
+
+    One group: sign-flipping (exact when 2**N <= n_permutations).  Two
+    groups: group-assignment shuffling (exact when N! <=
+    n_permutations).  Returns (observed, p, distribution).
+
+    mesh / null_batch_size / return_distribution / device : see
+    :func:`bootstrap_isc`.
+    """
+    iscs, n_subjects, n_voxels = _check_isc_input(iscs, pairwise=pairwise)
+    if summary_statistic not in ('mean', 'median'):
+        raise ValueError("Summary statistic must be 'mean' or 'median'")
+    group_assignment = _check_group_assignment(group_assignment, n_subjects)
+
+    labels = (np.unique(group_assignment)
+              if group_assignment is not None else np.array([0]))
+    n_groups = len(labels)
+    if n_groups > 2:
+        raise ValueError("This test is not valid for more than "
+                         "2 groups! (got {0})".format(n_groups))
+
+    family = "sign_flip" if n_groups == 1 else "group_shuffle"
+    engine = _null_engine(mesh, null_batch_size, device)
+    result = engine.run(
+        iscs, family, n_permutations, statistic=summary_statistic,
+        side=side, seed=_resolve_seed(random_state), pairwise=pairwise,
+        group_assignment=group_assignment,
+        return_distribution=return_distribution)
+
+    observed = result.observed
+    if return_distribution:
+        return observed, _null_p(result, observed, side, result.exact), \
+            result.distribution
+    return observed, result.p_values(side=side), None
+
+
+def timeshift_isc(data, pairwise=False, summary_statistic='median',
+                  n_shifts=1000, side='right', tolerate_nans=True,
+                  random_state=None, mesh=None, null_batch_size=None,
+                  return_distribution=True, device="cuda"):
+    """Circular time-shift null for ISC.
+
+    Returns (observed, p, distribution).
+    mesh / null_batch_size / return_distribution / device : see
+    :func:`bootstrap_isc`."""
+    data, n_TRs, n_voxels, n_subjects = _check_timeseries_input(data)
+    data, mask = _threshold_nans(data, tolerate_nans)
+
+    observed = isc(data, pairwise=pairwise,
+                   summary_statistic=summary_statistic,
+                   tolerate_nans=tolerate_nans, mesh=mesh, device=device)
+
+    engine = _null_engine(mesh, null_batch_size, device)
+    result = engine.run(
+        data, "circular_timeshift", n_shifts,
+        statistic=summary_statistic, side=side,
+        seed=_resolve_seed(random_state), pairwise=pairwise,
+        tolerate_nans=tolerate_nans, observed=observed,
+        return_distribution=return_distribution)
+
+    if return_distribution:
+        _, p = _reinsert_nan_p(observed, _null_p(result, observed, side,
+                                                 False),
+                               mask, n_voxels, result.n)
+        observed, distribution = _reinsert_nan_voxels(
+            observed, result.distribution, mask, n_voxels)
+        return observed, p, distribution
+    observed, p = _reinsert_nan_p(
+        observed, result.p_values(side=side), mask, n_voxels, result.n)
+    return observed, p, None
+
+
+def phaseshift_isc(data, pairwise=False, summary_statistic='median',
+                   n_shifts=1000, voxelwise=False, side='right',
+                   tolerate_nans=True, random_state=None, mesh=None,
+                   null_batch_size=None, return_distribution=True,
+                   device="cuda"):
+    """Phase-randomization null for ISC.
+
+    Returns (observed, p, distribution).
+    mesh / null_batch_size / return_distribution / device : see
+    :func:`bootstrap_isc`."""
+    data, n_TRs, n_voxels, n_subjects = _check_timeseries_input(data)
+    data, mask = _threshold_nans(data, tolerate_nans)
+
+    observed = isc(data, pairwise=pairwise,
+                   summary_statistic=summary_statistic,
+                   tolerate_nans=tolerate_nans, mesh=mesh, device=device)
+
+    engine = _null_engine(mesh, null_batch_size, device)
+    result = engine.run(
+        data, "phase_randomize", n_shifts, statistic=summary_statistic,
+        side=side, seed=_resolve_seed(random_state), pairwise=pairwise,
+        voxelwise=voxelwise, tolerate_nans=tolerate_nans,
+        observed=observed, return_distribution=return_distribution)
+
+    if return_distribution:
+        _, p = _reinsert_nan_p(observed, _null_p(result, observed, side,
+                                                 False),
+                               mask, n_voxels, result.n)
+        observed, distribution = _reinsert_nan_voxels(
+            observed, result.distribution, mask, n_voxels)
+        return observed, p, distribution
+    observed, p = _reinsert_nan_p(
+        observed, result.p_values(side=side), mask, n_voxels, result.n)
+    return observed, p, None

@@ -2,8 +2,8 @@
 """Drive the PyTorch port's paths (FCMA voxel selection and
 classification, the SUMMA ring Gram, ISC/ISFC, SRM, the FCMA file
 front end, RSRM, SS-SRM, FastSRM, FCMA on a mesh, the SRM family and
-FCMA on two ranks, the searchlight, MVPA voxel selection) on one CUDA
-card.
+FCMA on two ranks, the searchlight, MVPA voxel selection, the
+resampling statistics, event segmentation) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -307,6 +307,32 @@ first one that goes wrong:
    a nearest-class-mean estimator on raw features; serially and with
    a ``Pool`` of 4 forked after CUDA is initialised: equal volumes,
    the top 5 voxels in the planted region.
+27. The resampling nulls at whole brain (run before phase 26): 20
+   subjects x 300 TRs x 65,536 voxels, float32, one shared signal
+   scaled a voxel plus noise a subject (the layout of
+   ``benchmarks/run_baselines.py:103-110``); ``isc``, then
+   ``bootstrap_isc`` (10,000), ``permutation_isc`` (sign flips,
+   10,000; two groups of 10, 5,000), ``timeshift_isc`` and
+   ``phaseshift_isc`` (1,000 each), each materialized and counted
+   (``return_distribution=False``), every run at its default
+   ``null_batch_size``: warm
+   resamples/s, peak memory, the launches and syncs of a chunk (runs
+   of one and two chunks, profiled).  Gates: on 2,000 seeded voxels
+   the same descriptors in float64 NumPy (the ISC-input nulls of the
+   first 2,000 resamples bit for bit, 'mean' ones within 1e-12; the
+   shift nulls, all 1,000, within 1e-5, by the spectrum), p-values
+   equal on >= 99% of the voxels and never 2 counts apart; the counted
+   p-map bit for bit the materialized one; a bootstrap preempted after
+   its first checkpoint (chunk 20 of 40) and resumed, bit for bit.
+28. ``EventSegment`` on a planted segmentation
+   (``benchmarks/run_baselines.py:85-100``'s recipe): the full tier
+   (V=100, T=500, K=40) and a movie (V=1,000, T=1,976, K=50), float32:
+   warm fit seconds, annealing steps, launches and syncs a step (fits
+   of 3 steps less 1, profiled), boundary accuracy, peak memory; the
+   ``ll_`` of steps 2-30 within 1e-4 of a float64 fit of 30 steps on
+   the card; ``find_events`` on held-out data;
+   a checkpointed full-tier fit preempted at step 25 and resumed, bit
+   for bit the unbroken one.
 26. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
@@ -4171,6 +4197,422 @@ def run_mvpa_phase(torch, smi):
         fail("phase 25: the top voxels are not in the planted region")
 
 
+# phase 27: the resampling nulls at whole brain, the layout of
+# benchmarks/run_baselines.py:103-110 at 65,536 voxels
+ST_SUBJECTS, ST_TRS, ST_VOXELS = 20, 300, 65536
+ST_SAMPLED = 2000       # voxels held to float64 NumPy
+ST_ISC_REF = 2000       # ISC-input resamples held to float64 NumPy
+ST_SHIFT_ATOL = 1e-5    # the shift nulls against float64 NumPy
+ST_MEAN_ATOL = 1e-12    # float64 'mean' nulls against float64 NumPy
+ST_P_AGREE, ST_P_COUNTS = 0.99, 2
+# phase 28: event segmentation, benchmarks/run_baselines.py:85-100
+ES_TIERS = (("full tier", 100, 500, 40), ("movie", 1000, 1976, 50))
+ES_LL_RTOL = 1e-4       # float32 ll_ against a float64 fit on the card
+ES_F64_STEPS = 30       # annealing steps of the float64 fits
+
+
+def stats_data(torch, dev):
+    """Phase 27's [T, V, S] float32 data from its seed, drawn on
+    ``dev`` and fetched: one shared signal, scaled a voxel by an
+    amplitude drawn in [0, 0.4), plus independent noise a subject (so
+    the voxels' p-values spread)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    amp = torch.rand(ST_VOXELS, generator=g, device=dev) * 0.4
+    signal = torch.randn((ST_TRS, ST_VOXELS), generator=g,
+                         device=dev) * amp
+    noise = torch.randn((ST_TRS, ST_VOXELS, ST_SUBJECTS), generator=g,
+                        device=dev)
+    return (signal[..., None] + noise).cpu().numpy()
+
+
+def isc_nulls_float64(family, iscs, xs, group=None, statistic="median"):
+    """The ISC-input nulls of descriptors ``xs`` over an [S, V] float64
+    stack, in NumPy (leave-one-out): [n, V]."""
+    summary = np.median if statistic == "median" else \
+        (lambda x, axis: np.tanh(np.mean(np.arctanh(x), axis=axis)))
+    if family == "subject_bootstrap":
+        return summary(iscs[xs], axis=1)
+    if family == "sign_flip":
+        return summary(xs[:, :, None] * iscs[None], axis=1)
+    labels = np.unique(group)
+    out = []
+    for perm in xs:
+        sel = group[perm]
+        out.append(np.median(iscs[sel == labels[0]], axis=0)
+                   - np.median(iscs[sel == labels[1]], axis=0))
+    return np.stack(out)
+
+
+def shift_nulls_float64(family, data, xs):
+    """The leave-one-out shift nulls (median) of descriptors ``xs``
+    over [T, V, S] data, in float64 NumPy, each shifted subject against
+    the unshifted others' mean, by the spectrum: a circular shift's
+    correlation numerators for every shift at once are the
+    cross-correlation ``irfft(conj(X) Y)``, and a phase rotation's is
+    ``(2 Re sum_f rot_f X_f conj(Y_f) + the Nyquist term) / T``
+    (Parseval), the power, hence the denominator, unchanged.  [n, V]."""
+    x = data.astype(np.float64)
+    n_trs, _, n_subj = x.shape
+    others = (x.sum(axis=2, keepdims=True) - x) / (n_subj - 1)
+    xd = x - x.mean(axis=0)
+    yd = others - others.mean(axis=0)
+    den = np.sqrt((xd ** 2).sum(axis=0) * (yd ** 2).sum(axis=0))  # [V, S]
+    xf, yf = np.fft.rfft(xd, axis=0), np.fft.rfft(yd, axis=0)
+    r = np.empty((len(xs), n_subj, x.shape[1]))
+    if family == "circular_timeshift":
+        cc = np.fft.irfft(np.conj(xf) * yf, n=n_trs, axis=0)   # [T, V, S]
+        for s in range(n_subj):
+            r[:, s] = cc[xs[:, s], :, s] / den[:, s]
+    else:
+        n_pos = xs.shape[1]
+        q = xf * np.conj(yf)
+        rot = np.exp(1j * xs[:, :, 0, :].astype(np.float64))  # [n, P, S]
+        nyq = q[n_pos + 1].real if n_trs % 2 == 0 else 0.0
+        for s in range(n_subj):
+            num = 2 * (rot[:, :, s] @ q[1:n_pos + 1, :, s]).real
+            num = num + (nyq[:, s] if n_trs % 2 == 0 else 0.0)
+            r[:, s] = num / n_trs / den[:, s]
+    return np.median(r, axis=1)
+
+
+def stats_probe(torch, engine, x, family, n, kwargs):
+    """Kernel launches and host syncs of one engine run of ``n``
+    resamples (the counted path), under ``torch.profiler`` and the
+    sync debug mode."""
+    prof_box = {}
+
+    def run():
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            engine.run(x, family, n, **kwargs)
+            torch.cuda.synchronize()
+        prof_box["prof"] = prof
+
+    syncs, where = count_syncs(torch, run)
+    return launch_counts(torch, prof_box["prof"])[0], syncs, where
+
+
+def run_stats_phase(torch, smi, dev="cuda"):
+    """Phase 27: the four ``*_isc`` nulls at whole brain (20 subjects x
+    300 TRs x 65,536 voxels, float32): bootstrap (10,000), sign flip
+    (10,000), two groups of 10 (5,000), circular time shift and phase
+    randomization (1,000 each), each materialized and counted; warm
+    resamples/s, launches and syncs a chunk, peak memory; 2,000 seeded
+    voxels against float64 NumPy on the same descriptors; the counted
+    p-map against the materialized one; a preempted bootstrap resumed
+    bit for bit."""
+    import os
+    import tempfile
+
+    from brainiak_tpu_torch import isc as tisc
+    from brainiak_tpu_torch.resilience import faults
+    from brainiak_tpu_torch.stats import engine as eng
+    from brainiak_tpu_torch.stats import surrogates as sur
+
+    t0 = time.perf_counter()
+    data = stats_data(torch, dev)
+    t_data = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iscs = tisc.isc(data, device=dev)
+    t_isc = time.perf_counter() - t0
+    log(f"phase 27, resampling nulls ({smi}): {ST_SUBJECTS} subjects x "
+        f"{ST_TRS} TRs x {ST_VOXELS} voxels float32 ({data.nbytes / 1e9:.2f}"
+        f" GB, made in {t_data:.1f} s); isc (leave-one-out) {t_isc:.3f} s")
+    vox = np.sort(np.random.default_rng(SEED + 28).choice(
+        ST_VOXELS, ST_SAMPLED, replace=False))
+    group = np.array([0] * 10 + [1] * 10)
+    runs = (
+        ("bootstrap_isc", "subject_bootstrap", 10000, iscs,
+         lambda rd: tisc.bootstrap_isc(iscs, n_bootstraps=10000,
+                                       random_state=SEED + 1,
+                                       return_distribution=rd,
+                                       device=dev), {}),
+        ("permutation_isc, sign flip", "sign_flip", 10000, iscs,
+         lambda rd: tisc.permutation_isc(iscs, n_permutations=10000,
+                                         random_state=SEED + 2,
+                                         return_distribution=rd,
+                                         device=dev), {}),
+        ("permutation_isc, two groups of 10", "group_shuffle", 5000, iscs,
+         lambda rd: tisc.permutation_isc(iscs, group_assignment=group,
+                                         n_permutations=5000,
+                                         random_state=SEED + 3,
+                                         return_distribution=rd,
+                                         device=dev),
+         {"group_assignment": group}),
+        ("timeshift_isc", "circular_timeshift", 1000, data,
+         lambda rd: tisc.timeshift_isc(data, n_shifts=1000,
+                                       random_state=SEED + 4,
+                                       return_distribution=rd,
+                                       device=dev), {}),
+        ("phaseshift_isc", "phase_randomize", 1000, data,
+         lambda rd: tisc.phaseshift_isc(data, n_shifts=1000,
+                                        random_state=SEED + 5,
+                                        return_distribution=rd,
+                                        device=dev), {}),
+    )
+    results = {}
+    for k, (label, family, n, x, call, extra) in enumerate(runs):
+        shift = family not in sur.ISC_INPUT_FAMILIES
+        # the default lanes: a leave-one-out shift lane holds [V, S]
+        batch = eng.default_null_batch(
+            ST_TRS * ST_VOXELS * ST_SUBJECTS if shift else ST_VOXELS)
+        chunk = eng._chunk_length(ST_VOXELS, batch,
+                                  eng.stats_budget_bytes())
+        # warm-up and the counts: one chunk, then two (the setup
+        # cancels); a shift family's probe chunks hold two lane groups
+        probe = 2 * batch if shift else chunk
+        engine = eng.NullEngine(null_batch_size=batch, device=dev,
+                                budget_bytes=16 * ST_VOXELS * probe)
+        kw = dict(statistic="median", seed=SEED + 1 + k,
+                  observed=np.zeros(ST_VOXELS), **extra)
+        launches, syncs = [], []
+        t_probe = time.perf_counter()
+        for m in (1, 2):
+            a, b, where = stats_probe(torch, engine, x, family,
+                                      m * probe, kw)
+            launches.append(a)
+            syncs.append(b)
+        t_probe = time.perf_counter() - t_probe
+        out = {}
+        for rd in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out[rd] = call(rd)
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"  {label}, return_distribution={rd} ({smi}): {n} "
+                f"resamples in {secs:.3f} s, {n / secs:.1f} resamples/s "
+                f"warm, peak device memory {peak:.2f} GiB, "
+                f"null_batch_size {batch}")
+        log(f"    a chunk of {probe} resamples ({probe // batch} lane "
+            f"groups; the runs above take {chunk} a chunk): "
+            f"{launches[1] - launches[0]} kernel launches, "
+            f"{syncs[1] - syncs[0]} host syncs (a one-chunk run, the "
+            f"setup included: {launches[0]} launches, {syncs[0]} syncs "
+            f"at {where}; the two profiled runs {t_probe:.1f} s)")
+        results[family] = out
+        if not np.array_equal(out[True][-2], out[False][-2]):
+            fail(f"phase 27: {label}: the counted p-map is not the "
+                 f"materialized one")
+
+        # the same descriptors in float64 NumPy on the seeded voxels
+        dist = out[True][-1]
+        xs = sur.draw_descriptors(family, SEED + 1 + k, n, ST_SUBJECTS,
+                                  n_trs=ST_TRS)
+        t0 = time.perf_counter()
+        if shift:
+            ref = shift_nulls_float64(family, data[:, vox], xs)
+            card = dist[:, vox]
+            err = float(np.max(np.abs(card - ref)))
+            ok = err <= ST_SHIFT_ATOL
+            obs_ref = np.median(shift_nulls_float64(
+                "circular_timeshift", data[:, vox],
+                np.zeros((1, ST_SUBJECTS), dtype=np.int64)), axis=0)
+            p_card = out[True][1][vox]
+            p_ref = (np.sum(ref >= obs_ref, axis=0) + 1) / (n + 1)
+            what = f"all {n} resamples"
+        else:
+            m = ST_ISC_REF
+            ref = isc_nulls_float64(family, iscs[:, vox], xs[:m], group)
+            card = dist[:m, vox]
+            err = float(np.max(np.abs(card - ref)))
+            ok = np.array_equal(card, ref)
+            obs = out[True][0][..., vox].reshape(-1)
+            shifted_c = card - obs if family == "subject_bootstrap" \
+                else card
+            shifted_r = ref - obs if family == "subject_bootstrap" \
+                else ref
+            p_card = (np.sum(shifted_c >= obs, axis=0) + 1) / (m + 1)
+            p_ref = (np.sum(shifted_r >= obs, axis=0) + 1) / (m + 1)
+            what = f"the first {m} resamples"
+        counts = np.abs(p_card - p_ref) * (len(card) + 1)
+        same = float(np.mean(counts < 0.5))
+        log(f"    {ST_SAMPLED} voxels x {what} against float64 NumPy "
+            f"({time.perf_counter() - t0:.1f} s): max |diff| {err:.3e}"
+            f" ({'bit for bit' if not shift else f'atol {ST_SHIFT_ATOL}'}"
+            f"); p equal on {same:.4f} of them, at most "
+            f"{int(round(float(counts.max())))} counts apart")
+        if not ok:
+            fail(f"phase 27: {label}: the card's null disagrees with "
+                 f"float64 NumPy")
+        if same < ST_P_AGREE or counts.max() > ST_P_COUNTS + 1e-6:
+            fail(f"phase 27: {label}: p-values disagree with float64 "
+                 f"NumPy")
+        del dist
+        out[True] = None
+        torch.cuda.empty_cache()
+
+    # 'mean' summaries of two ISC-input families on the card, float64
+    x = torch.as_tensor(iscs, device=dev)
+    for family, null in (("subject_bootstrap", sur.bootstrap_null),
+                         ("sign_flip", sur.sign_flip_null)):
+        xs = sur.draw_descriptors(family, SEED + 9, 256, ST_SUBJECTS)
+        got = null(x, torch.as_tensor(xs, device=dev), "mean")
+        ref = isc_nulls_float64(family, iscs[:, vox], xs,
+                                statistic="mean")
+        err = float(np.max(np.abs(got.cpu().numpy()[:, vox] - ref)))
+        log(f"    {family}, 'mean', 256 resamples x {ST_SAMPLED} voxels "
+            f"against float64 NumPy: max |diff| {err:.3e} (atol "
+            f"{ST_MEAN_ATOL})")
+        if not err <= ST_MEAN_ATOL:
+            fail(f"phase 27: the 'mean' {family} null disagrees with "
+                 f"float64 NumPy")
+
+    # a preempted bootstrap resumed: bit for bit the counted run's (in
+    # chunks of 256 resamples, the default budget's at 65,536 voxels)
+    engine = eng.NullEngine(device=dev, budget_bytes=16 * ST_VOXELS * 256)
+    observed = results["subject_bootstrap"][False][0]
+    kw = dict(statistic="median", side="right", seed=SEED + 1,
+              observed=observed, center=observed, checkpoint_every=20)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        try:
+            with faults.inject("preempt", at_step=2):
+                engine.run(iscs, "subject_bootstrap", 10000,
+                           checkpoint_dir=ckpt, **kw)
+            fail("phase 27: the injected preemption did not fire")
+        except faults.PreemptionError:
+            pass
+        resumed = engine.run(iscs, "subject_bootstrap", 10000,
+                             checkpoint_dir=ckpt, **kw)
+        secs = time.perf_counter() - t0
+    _, ci, p, _ = results["subject_bootstrap"][False]
+    same = np.array_equal(resumed.p_values(), p) and all(
+        np.array_equal(a, b) for a, b in zip(resumed.ci(95), ci))
+    log(f"  bootstrap preempted after its first checkpoint (chunk 20 of "
+        f"40) and resumed ({smi}): {secs:.1f} s in all; p and CI equal "
+        f"to the uninterrupted run's: {same}")
+    if not same:
+        fail("phase 27: the resumed bootstrap differs from the "
+             "uninterrupted run")
+
+
+def es_data(n_vox, n_trs, k, seed):
+    """Phase 28's planted segmentation (``run_baselines.bench_eventseg``'s
+    recipe), float32, and a held-out run of the same events."""
+    rng = np.random.RandomState(seed)
+    bounds = np.sort(rng.choice(np.arange(1, n_trs), k - 1,
+                                replace=False))
+    labels = np.searchsorted(bounds, np.arange(n_trs), side='right')
+    pat = rng.randn(k, n_vox)
+    d = pat[labels] + 0.5 * rng.randn(n_trs, n_vox)
+    held = pat[labels] + 0.5 * rng.randn(n_trs, n_vox)
+    return d.astype(np.float32), held.astype(np.float32), labels
+
+
+def es_step_counts(torch, k, d, dev):
+    """Kernel launches and host syncs an annealing step: a fit of at
+    most 3 steps less a fit of 1 (the setup cancels), over the steps
+    between them."""
+    from brainiak_tpu_torch.eventseg import EventSegment
+
+    out = []
+    for n_iter in (1, 3):
+        box = {}
+
+        def fit():
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                es = EventSegment(k, n_iter=n_iter, device=dev).fit(d)
+                torch.cuda.synchronize()
+            # steps run: the accepted ones and a rejected last one
+            box["prof"] = prof
+            box["steps"] = min(n_iter, len(es.ll_) + 1)
+
+        syncs, _ = count_syncs(torch, fit)
+        out.append((launch_counts(torch, box["prof"])[0], syncs,
+                    box["steps"]))
+    steps = max(out[1][2] - out[0][2], 1)
+    return (out[1][0] - out[0][0]) / steps, (out[1][1] - out[0][1]) / steps
+
+
+def run_eventseg_phase(torch, smi, dev="cuda"):
+    """Phase 28: ``EventSegment`` fits of a planted segmentation at the
+    baseline's full tier (V=100, T=500, K=40) and a movie-length run
+    (V=1,000, T=1,976, K=50), float32: warm fit seconds, annealing
+    steps, launches and syncs a step, boundary accuracy, peak memory;
+    ``ll_`` within 1e-4 of a float64 fit on the card; a checkpointed
+    fit preempted and resumed bit for bit the unbroken one;
+    ``find_events`` on held-out data."""
+    import os
+    import tempfile
+
+    from brainiak_tpu_torch.eventseg import EventSegment
+    from brainiak_tpu_torch.resilience import faults
+
+    warm, _, _ = es_data(20, 60, 5, SEED + 40)
+    EventSegment(5, device=dev).fit(warm)
+    for t, (label, n_vox, n_trs, k) in enumerate(ES_TIERS):
+        d, held, labels = es_data(n_vox, n_trs, k, SEED + 41 + t)
+        launches, syncs = es_step_counts(torch, k, d, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        es = EventSegment(k, device=dev).fit(d)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        n_acc = len(es.ll_)
+        acc = float(np.mean(np.argmax(es.segments_[0], axis=1) == labels))
+        log(f"phase 28, EventSegment, {label} V={n_vox} T={n_trs} K={k} "
+            f"float32 ({smi}): fit {secs:.3f} s warm, {n_acc} annealing "
+            f"steps accepted ({n_acc + 1} run), {secs / (n_acc + 1):.4f} s "
+            f"a step, {launches:.0f} kernel launches and {syncs:.0f} host "
+            f"syncs a step, boundary accuracy {acc:.4f}, peak device "
+            f"memory {peak:.1f} MiB")
+        n_iter = ES_F64_STEPS
+        t0 = time.perf_counter()
+        ref = EventSegment(k, n_iter=n_iter, device=dev).fit(
+            d.astype(np.float64))
+        secs64 = time.perf_counter() - t0
+        n = min(len(ref.ll_), n_acc)
+        rel = float(np.max(np.abs(es.ll_[1:n] - ref.ll_[1:n])) /
+                    np.max(np.abs(ref.ll_[1:n])))
+        rel0 = float(np.max(np.abs(es.ll_[0] - ref.ll_[0])) /
+                     np.max(np.abs(ref.ll_[0])))
+        log(f"  float64 fit on the card, {n_iter} steps at most: "
+            f"{len(ref.ll_)} accepted in {secs64:.3f} s; ll_ of steps 2-{n} "
+            f"max |d| / max |ll| {rel:.3e} (rtol {ES_LL_RTOL}; step 1, "
+            f"whose pattern is rounding noise: {rel0:.3e})")
+        if not rel <= ES_LL_RTOL:
+            fail(f"phase 28: {label}: the float32 ll_ is off the float64 "
+                 f"fit's")
+        seg, test_ll = es.find_events(held)
+        held_acc = float(np.mean(np.argmax(seg, axis=1) == labels))
+        log(f"  find_events on held-out data: {seg.shape}, ll "
+            f"{test_ll:.3f}, boundary accuracy {held_acc:.4f}")
+        if seg.shape != (n_trs, k) or not np.isfinite(test_ll) or \
+                not np.allclose(seg.sum(axis=1), 1.0, atol=1e-4):
+            fail(f"phase 28: {label}: find_events on held-out data")
+        if t:
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "ckpt")
+            t0 = time.perf_counter()
+            try:
+                with faults.inject("preempt", at_step=2):
+                    EventSegment(k, device=dev).fit(
+                        d, checkpoint_dir=ckpt, checkpoint_every=25)
+                fail("phase 28: the injected preemption did not fire")
+            except faults.PreemptionError:
+                pass
+            resumed = EventSegment(k, device=dev).fit(
+                d, checkpoint_dir=ckpt, checkpoint_every=25)
+            secs = time.perf_counter() - t0
+        same = np.array_equal(resumed.ll_, es.ll_) and \
+            np.array_equal(resumed.event_pat_, es.event_pat_) and \
+            np.array_equal(resumed.segments_[0], es.segments_[0])
+        log(f"  checkpointed fit (every 25 steps) preempted at step 25 and "
+            f"resumed ({secs:.3f} s in all): bit for bit the unbroken "
+            f"fit: {same}")
+        if not same:
+            fail("phase 28: the resumed fit differs from the unbroken one")
+
+
 def main():
     import torch
 
@@ -4389,6 +4831,14 @@ def main():
         log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
     del single_fits
+    for label, phase in (
+            ("27, resampling nulls", lambda: run_stats_phase(torch, smi)),
+            ("28, event segmentation", lambda: run_eventseg_phase(torch,
+                                                                 smi))):
+        t0 = time.perf_counter()
+        phase()
+        log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
     run_ingest_split(torch, dev)
 
     csrc = "brainiak_tpu_torch/csrc/"

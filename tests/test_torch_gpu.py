@@ -1919,3 +1919,98 @@ def test_detsrm_two_ranks_one_card_over_gloo(cuda):
         assert np.abs(got - w).max() <= 2e-4 * max(1.0, np.abs(w).max())
     assert abs(ranks[0]["objective"] - want.objective_) <= \
         1e-4 * abs(want.objective_)
+
+
+@pytest.mark.parametrize("statistic", ["median", "mean"])
+def test_isc_input_family_cuda_matches_cpu(cuda, statistic):
+    """Subject bootstraps of a float64 ISC stack on the card: the same
+    descriptors give the CPU path's null (medians bit for bit, means to
+    float64 rounding), and the engine's counted p-map is the
+    materialized one's."""
+    from brainiak_tpu_torch.isc import bootstrap_isc
+    from brainiak_tpu_torch.stats import surrogates as sur
+
+    rng = np.random.RandomState(0)
+    iscs = np.clip(0.3 + 0.2 * rng.randn(20, 4096), -0.99, 0.99)
+    samples = torch.as_tensor(sur.draw_descriptors(
+        "subject_bootstrap", 3, 64, 20))
+    got = sur.bootstrap_null(torch.as_tensor(iscs, device=cuda),
+                             samples.to(cuda), statistic).cpu().numpy()
+    want = sur.bootstrap_null(torch.as_tensor(iscs), samples,
+                              statistic).numpy()
+    if statistic == "median":
+        assert np.array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-13, rtol=0)
+    kw = dict(n_bootstraps=300, summary_statistic=statistic,
+              random_state=1)
+    _, _, p, dist = bootstrap_isc(iscs, device="cuda", **kw)
+    _, _, p_cpu, dist_cpu = bootstrap_isc(iscs, device="cpu", **kw)
+    _, _, p_counted, none = bootstrap_isc(iscs, device="cuda",
+                                          return_distribution=False, **kw)
+    assert none is None and np.array_equal(p_counted, p)
+    if statistic == "median":
+        assert np.array_equal(dist, dist_cpu) and np.array_equal(p, p_cpu)
+
+
+@pytest.mark.parametrize("family", ["circular_timeshift",
+                                    "phase_randomize"])
+def test_shift_family_cuda_matches_cpu(cuda, family):
+    """The shift nulls on the card against the CPU path on the same
+    descriptors (float32 both: within 1e-5), leave-one-out and
+    pairwise."""
+    from brainiak_tpu_torch.isc import _loo_means_core
+    from brainiak_tpu_torch.stats import surrogates as sur
+
+    rng = np.random.RandomState(1)
+    sig = rng.randn(150, 2048)
+    data = np.stack([sig + rng.randn(150, 2048) for _ in range(12)],
+                    axis=-1).astype(np.float32)
+    xs = torch.as_tensor(sur.draw_descriptors(family, 5, 16, 12,
+                                              n_trs=150))
+    iu = tuple(torch.as_tensor(i) for i in np.triu_indices(12, 1))
+    want = {}
+    for dev in ("cpu", cuda):
+        x = torch.as_tensor(data, device=dev)
+        others = _loo_means_core(x, True)
+        for pairwise in (False, True):
+            args = (None if pairwise else others, xs.to(dev), "median",
+                    tuple(i.to(dev) for i in iu) if pairwise else None)
+            if family == "circular_timeshift":
+                out = sur.timeshift_null(x, *args)
+            else:
+                out = sur.phase_null(x, *args)
+            if dev == "cpu":
+                want[pairwise] = out.numpy()
+            else:
+                np.testing.assert_allclose(out.cpu().numpy(),
+                                           want[pairwise], atol=1e-5,
+                                           rtol=0)
+
+
+def test_eventseg_cuda_matches_cpu(cuda):
+    """An EventSegment fit on the card against the same fit on the CPU
+    (float64: within 1e-8; float32: the same steps, ll within 1e-4),
+    and find_events on held-out data."""
+    from brainiak_tpu_torch.eventseg import EventSegment
+
+    rng = np.random.RandomState(0)
+    k, t, v = 10, 120, 50
+    bounds = np.sort(rng.choice(np.arange(1, t), k - 1, replace=False))
+    labels = np.searchsorted(bounds, np.arange(t), side='right')
+    pat = rng.randn(k, v)
+    d = pat[labels] + 0.5 * rng.randn(t, v)
+    gpu = EventSegment(k, device="cuda").fit(d)
+    cpu = EventSegment(k, device="cpu").fit(d)
+    assert gpu.ll_.shape == cpu.ll_.shape
+    np.testing.assert_allclose(gpu.ll_[1:], cpu.ll_[1:], rtol=1e-8)
+    np.testing.assert_allclose(gpu.segments_[0], cpu.segments_[0],
+                               atol=1e-8)
+    g32 = EventSegment(k, device="cuda").fit(d.astype(np.float32))
+    n = min(len(g32.ll_), len(cpu.ll_))
+    np.testing.assert_allclose(g32.ll_[1:n], cpu.ll_[1:n], rtol=1e-4)
+    held = pat[labels] + 0.5 * rng.randn(t, v)
+    seg, ll = gpu.find_events(held)
+    seg_cpu, ll_cpu = cpu.find_events(held)
+    np.testing.assert_allclose(seg, seg_cpu, atol=1e-8)
+    assert np.isclose(ll, ll_cpu, rtol=1e-10)

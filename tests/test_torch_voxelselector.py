@@ -392,6 +392,18 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.parallel.mesh\n"
         "import brainiak_tpu_torch.parallel.testing\n"
         "import brainiak_tpu_torch.stats.pvalues\n"
+        "assert 'brainiak_tpu_torch.stats.engine' not in sys.modules\n"
+        "import brainiak_tpu_torch.stats\n"
+        "import brainiak_tpu_torch.stats.accum\n"
+        "import brainiak_tpu_torch.stats.surrogates\n"
+        "import brainiak_tpu_torch.stats.engine\n"
+        "import brainiak_tpu_torch.ops.stats\n"
+        "import brainiak_tpu_torch.ops.masked\n"
+        "import brainiak_tpu_torch.eventseg\n"
+        "import brainiak_tpu_torch.eventseg.event\n"
+        "from brainiak_tpu_torch.isc import bootstrap_isc, \\\n"
+        "    permutation_isc, timeshift_isc, phaseshift_isc\n"
+        "from brainiak_tpu_torch.stats import NullEngine\n"
         "import brainiak_tpu_torch.utils.utils\n"
         "import brainiak_tpu_torch.utils.checkpoint\n"
         "import brainiak_tpu_torch.obs\n"

@@ -3,9 +3,11 @@
 
 Copies of ``brainiak_tpu/utils/utils.py``'s ``_check_timeseries_input``
 and ``array_correlation``, which :mod:`brainiak_tpu_torch.isc` needs,
-of its ``concatenate_not_none``, which SS-SRM needs, and of its
-``usable_cpu_count``, which the searchlight's host tier needs; the port
-imports nothing of the JAX package.
+of its ``concatenate_not_none``, which SS-SRM needs, of its
+``usable_cpu_count``, which the searchlight's host tier needs, and of
+its ``from_tri_2_sym`` / ``from_sym_2_tri``, which TFA and HTFA need
+for their packed covariance fields; the port imports nothing of the
+JAX package.
 """
 
 import logging
@@ -13,7 +15,8 @@ import os
 
 import numpy as np
 
-__all__ = ["array_correlation", "concatenate_not_none", "usable_cpu_count"]
+__all__ = ["array_correlation", "concatenate_not_none", "from_sym_2_tri",
+           "from_tri_2_sym", "usable_cpu_count"]
 
 logger = logging.getLogger(__name__)
 
@@ -77,3 +80,25 @@ def usable_cpu_count():
         return len(os.sched_getaffinity(0))
     except AttributeError:
         return os.cpu_count() or 1
+
+
+def from_tri_2_sym(tri, dim):
+    """Expand an upper-triangular 1-D vector into a dim×dim symmetric matrix.
+
+    Only the upper triangle of the result is populated (matching the
+    reference, utils/utils.py:69-92, which leaves the strict lower triangle
+    zero).
+    """
+    symm = np.zeros((dim, dim), dtype=np.asarray(tri).dtype)
+    symm[np.triu_indices(dim)] = tri
+    return symm
+
+
+def from_sym_2_tri(symm):
+    """Extract the upper triangle (incl. diagonal) of a symmetric matrix
+    as 1-D.
+
+    Reference contract: utils/utils.py:95-115.
+    """
+    symm = np.asarray(symm)
+    return symm[np.triu_indices_from(symm)]

@@ -3,7 +3,8 @@
 classification, the SUMMA ring Gram, ISC/ISFC, SRM, the FCMA file
 front end, RSRM, SS-SRM, FastSRM, FCMA on a mesh, the SRM family and
 FCMA on two ranks, the searchlight, MVPA voxel selection, the
-resampling statistics, event segmentation) on one CUDA card.
+resampling statistics, event segmentation, TFA and HTFA, the encoding
+tier) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -152,7 +153,9 @@ first one that goes wrong:
    the other three blocks held bit-identical to a sentinel); (c)
    T=7, n_local=130, B=67, owner 1 of 3 with a NaN column (ragged
    edges; both kernels); at T=600, n_local=B=8192 with a panel of its
-   own (path C's step); and on unnormalized inputs (scales 1e3 and
+   own (path C's step); at T=4,000, n_local=B=512, owner 1 of 4 (a step
+   of phase 31's ring Gram of the ridge's design); and on unnormalized
+   inputs (scales 1e3 and
    1e-3) against the float64 product, within four times the fp32
    product's error.  The pre-pass kernel's hi and lo are held
    bit-identical to ``split_kmajor`` (row ``ring_split``).
@@ -290,7 +293,9 @@ first one that goes wrong:
    times a rank with split panels crossing the ranks, row
    ``ring_mma_v4096``) held to the dense ``isfc``.  Each rank's fit
    seconds, K1 and K5 launches, and its collective calls with the
-   bytes it sent and received.
+   bytes it sent and received.  Then HTFA on a subject mesh of the two
+   ranks (8 subjects of phase 30's layout, 2 x 2 iterations), held to
+   the one-process fit in phase 30.
 24. The searchlight's traced tier at whole-brain width: 8 subjects on
    a 64 x 64 x 36 grid, 150 TRs, float32, an ellipsoid brain mask of
    56,240 voxels (0.71 GB on the card); ``Ball(3)`` (123 voxels),
@@ -307,7 +312,8 @@ first one that goes wrong:
    a nearest-class-mean estimator on raw features; serially and with
    a ``Pool`` of 4 forked after CUDA is initialised: equal volumes,
    the top 5 voxels in the planted region.
-27. The resampling nulls at whole brain (run before phase 26): 20
+27. The resampling nulls at whole brain (run, as 28-31, before phase
+   26): 20
    subjects x 300 TRs x 65,536 voxels, float32, one shared signal
    scaled a voxel plus noise a subject (the layout of
    ``benchmarks/run_baselines.py:103-110``); ``isc``, then
@@ -333,6 +339,38 @@ first one that goes wrong:
    the card; ``find_events`` on held-out data;
    a checkpointed full-tier fit preempted at step 25 and resumed, bit
    for bit the unbroken one.
+29. ``TFA`` on one subject: 65,536 voxels (64 x 64 x 16 at 3 mm from a
+   scanner origin 100-150 mm off zero) x 600 TRs, K=50 planted
+   factors, the reference's defaults (5,000 voxels x 500 TRs a
+   subsample, 10 iterations, 60 L-BFGS steps), fitted in float32 and in
+   float64: ``rbf_factors``, ``rbf_weight_products``,
+   ``rbf_residual_sum`` and the NLLS objective's value and gradient in
+   float32 within 1e-5 of float64 at fixed parameters; the float32
+   fit's reconstruction error within 1e-2 (relative) of the float64
+   fit's; the planted centres recovered within a grid step by float32
+   for at least 90% of those float64 recovers; seconds, peak memory,
+   launches and syncs of an iteration.
+30. ``HTFA`` on 20 subjects x 65,536 voxels x 300 TRs, float32, centres
+   jittered around a planted template, K=50, soft-L1, the default
+   ratios and caps (5,000 voxels x 30 TRs a subsample), 2 x 2
+   iterations (a depth cut of the default 10 x 10, forced by the run's
+   time limit): the fit on a 4-position subject mesh of
+   the card bit for bit the meshless one, the float32 template centres
+   within 3 mm of a float64 fit's (matched), template recovery, the
+   seconds, launches and syncs of a subject step (one host L-BFGS a
+   subject); phase 23's two-rank fit bit for bit the one-process fit.
+31. The encoding tier: ``RidgeEncoder`` at T=4,000, F=2,048, V=65,536,
+   the default 7 lambdas, 5 folds, ``lambda_block=2``: ``cv_scores_``
+   within 1e-4, ``lambda_`` equal on >= 99% and ``W_`` within 1e-3 of
+   max|W| of a float64 Cholesky CV on the card for 2,048 voxels; on a
+   4-position voxel mesh of the card with the distla budget at 1 MiB,
+   its Gram on the SUMMA ring (16 K5 launches: row
+   ``ring_mma_ridge``), ``lambda_`` equal to the meshless fit's on >=
+   99% and ``W_`` within 1e-3 of max|W|; ``BandedRidgeEncoder`` at
+   F=1,024 in two bands of 512, 49 candidates, ``candidate_block=4``:
+   ``lambda_`` rows equal to the float64 CV's on >= 99% of 2,048
+   voxels; fit seconds and peak memory, the launches and syncs of a
+   sweep block.
 26. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
@@ -1857,14 +1895,16 @@ K5_KERNELS = ("ring_mma", "split_kmajor")
 #: resident block, routes) of path A's one-card ring (a Gram: both
 #: kernels on the same inputs, and the card's clock and power), one
 #: step of path B's 4-position ring, path C's step (the ISFC's panel
-#: is the other subjects' mean), and a step of path C's ring on phase
+#: is the other subjects' mean), a step of path C's ring on phase
 #: 23's two ranks (each rank's half of the voxels, the panel its
-#: peer's half)
+#: peer's half), and a step of phase 31's ring Gram of the ridge's
+#: design (T=4,000, F=2,048 over 4 positions)
 RING_SHAPES = {
     "ring_mma": (600, 65536, 65536, 1, 0, 3, True, ("tc", "ffma")),
     "ring_mma_n4": (600, 16384, 16384, 4, 2, 5, False, ("tc",)),
     "ring_mma_v8192": (600, 8192, 8192, 1, 0, 10, False, ("tc",)),
-    "ring_mma_v4096": (600, 4096, 4096, 2, 1, 10, False, ("tc",))}
+    "ring_mma_v4096": (600, 4096, 4096, 2, 1, 10, False, ("tc",)),
+    "ring_mma_ridge": (4000, 512, 512, 4, 1, 10, False, ("tc",))}
 
 
 def phase_ring_kernel(torch, dev, shapes=RING_SHAPES):
@@ -3824,7 +3864,8 @@ def two_rank_fits(torch, mesh):
 def gloo_worker(process_id, num_processes):
     """Phase 23 on one rank of two, both on the one card over gloo: the
     subject-axis fits across the ranks, then phase 22's body (the FCMA
-    mesh and the ring ``isfc``), with this rank's collectives."""
+    mesh and the ring ``isfc``), with this rank's collectives; then
+    phase 30's HTFA on a subject mesh of the ranks."""
     import torch
 
     from brainiak_tpu_torch import set_fp32_defaults
@@ -3836,6 +3877,10 @@ def gloo_worker(process_id, num_processes):
     with _CollectiveBytes(torch) as moved:
         out.update(mesh_paths_on_ranks())
     out["moved"] = moved.line()
+    torch.cuda.empty_cache()
+    with _CollectiveBytes(torch) as moved:
+        out["htfa"] = htfa_on_ranks(torch)
+    out["htfa"]["moved"] = moved.line()
     return out
 
 
@@ -3856,7 +3901,8 @@ def run_gloo_ranks(torch, smi, single, mesh_accs, rows):
     22's FCMA mesh and ring ``isfc(mesh=)``, held to phase 20's
     accuracies (``mesh_accs``) and to the dense ``isfc``, K1 once a
     rank and K5 ``TWO_RANK_K5`` times.  Sets the launches of the rows
-    of K1 and K5 at phase 23's shapes."""
+    of K1 and K5 at phase 23's shapes.  Returns each rank's HTFA fit
+    (``htfa_on_ranks``), which phase 30 holds to one process."""
     import os
 
     from brainiak_tpu_torch.parallel.testing import run_distributed
@@ -3925,6 +3971,11 @@ def run_gloo_ranks(torch, smi, single, mesh_accs, rows):
     check_agree("phase 23 vs phase 20", ranks[0]["accs"], mesh_accs, 4, 32)
     rows["fcma_gram_rank"]["launches"] = sum(r["k1"] for r in ranks)
     rows["ring_mma_v4096"]["launches"] = sum(r["k5"] for r in ranks)
+    for pid, r in enumerate(ranks):
+        log(f"  rank {pid} HTFA ({HTFA_RANK_SUBJECTS} subjects on a subject "
+            f"mesh of the ranks): {r['htfa']['secs']:.3f} s; "
+            f"{r['htfa']['moved']} (held to one process in phase 30)")
+    return [r["htfa"] for r in ranks]
 
 
 def sl_volume():
@@ -4613,6 +4664,624 @@ def run_eventseg_phase(torch, smi, dev="cuda"):
             fail("phase 28: the resumed fit differs from the unbroken one")
 
 
+# -- phases 29-31: TFA, HTFA, the encoding tier -------------------------
+
+TFA_GRID = (64, 64, 16)   # 65,536 voxels
+TFA_SPACING = 3.0         # mm
+TFA_ORIGIN = (100.0, 120.0, 150.0)  # mm: a scanner origin off zero
+TFA_TRS = 600
+TFA_K = 50
+FA_F64_RTOL = 1e-5        # float32 RBF ops, objective, gradient vs float64
+TFA_RECON_RTOL = 1e-2     # float32 reconstruction error vs float64's
+TFA_RECOVERY = 0.9        # float32 recovers >= 90% of float64's factors
+HTFA_SUBJECTS = 20
+HTFA_TRS = 300
+# max_global_iter, max_local_iter: a depth cut of the default 10 x 10.
+# A subject step is one host-driven L-BFGS (about 0.38 s on an H100),
+# so 3 x 3 took 85 s a fit of 20 subjects there, and the phase's three
+# fits did not fit the run's time limit beside the earlier phases
+HTFA_ITERS = (2, 2)
+HTFA_TEMPLATE_ATOL = 3.0  # mm, one grid step: float32 vs float64 template
+HTFA_POSITIONS = 4
+HTFA_RANK_SUBJECTS = 8    # the two gloo ranks' fit (phase 23's spawn)
+HTFA_RANK_ITERS = (2, 2)
+ENC_SHAPE = (4000, 2048, 65536)   # T, F, V
+ENC_BLOCK = 2             # lambda_block: about 8 GB transient
+ENC_CHECK = 2048          # voxels held to the float64 CV
+ENC_CV_ATOL = 1e-4
+ENC_AGREE = 0.99          # share of voxels whose lambdas are equal
+ENC_W_RTOL = 1e-3         # of max|W|
+ENC_BANDED_F = 1024       # two bands of 512
+ENC_CAND_BLOCK = 4
+ENC_BUDGET = 1 << 20      # bytes: the meshed fit's Gram takes the ring
+
+
+def step_counts(torch, fn):
+    """(kernel launches the host made, host syncs, {line: syncs}) of
+    one ``fn()``, profiled under sync debug mode."""
+    box = {}
+
+    def run():
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+        box["prof"] = prof
+
+    syncs, where = count_syncs(torch, run)
+    return launch_counts(torch, box["prof"])[0], syncs, where
+
+
+def fa_grid():
+    """Phases 29-30's coordinates [65,536, 3] (mm): the 64 x 64 x 16
+    grid at 3 mm from ``TFA_ORIGIN``, exact in float32."""
+    idx = np.indices(TFA_GRID).reshape(3, -1).T
+    return np.asarray(TFA_ORIGIN) + TFA_SPACING * idx
+
+
+def fa_planted(rng, k):
+    """``k`` planted centres inside the grid (two steps from its faces)
+    and widths of 200-800 mm², both exact in float32."""
+    lo = np.asarray(TFA_ORIGIN) + 2 * TFA_SPACING
+    hi = np.asarray(TFA_ORIGIN) + TFA_SPACING * (np.asarray(TFA_GRID) - 3)
+    centers = lo + (hi - lo) * rng.rand(k, 3)
+    widths = 200.0 + 600.0 * rng.rand(k, 1)
+    return (centers.astype(np.float32).astype(np.float64),
+            widths.astype(np.float32).astype(np.float64))
+
+
+def tfa_data(seed):
+    """Phase 29's subject: X = F(planted) W + 0.1 noise, float32."""
+    rng = np.random.RandomState(seed)
+    R = fa_grid()
+    centers, widths = fa_planted(rng, TFA_K)
+    F = np.exp(-((R[:, None, :] - centers[None]) ** 2).sum(-1) / widths.T)
+    X = F @ rng.randn(TFA_K, TFA_TRS) + 0.1 * rng.randn(R.shape[0], TFA_TRS)
+    return X.astype(np.float32), R, centers, widths
+
+
+def matched_distances(est, planted):
+    """Distances (mm) of the Hungarian matching of ``est`` to
+    ``planted`` centres."""
+    from scipy.optimize import linear_sum_assignment
+    from scipy.spatial import distance
+
+    cost = distance.cdist(planted, est)
+    rows, cols = linear_sum_assignment(cost)
+    return cost[rows, cols]
+
+
+def recovery_line(d):
+    return (f"{int(np.sum(d <= TFA_SPACING))}/{d.size} within a grid step, "
+            f"matched distance median {np.median(d):.3f} mm, max "
+            f"{d.max():.3f} mm")
+
+
+def fa_op_errors(torch, dev, X, R, centers, widths, tmpl):
+    """Phase 29's gate on the ops: rbf_factors, rbf_weight_products,
+    rbf_residual_sum (linear and soft-L1) and the NLLS objective's
+    value and gradient (TFA's: linear, no template; HTFA's: soft-L1
+    with a template) in float32 against float64 on the card, at fixed
+    parameters away from the optimum on a subsample of 5,000 x 500.
+    ``{name: relative error}``."""
+    from brainiak_tpu_torch.factoranalysis import tfa as ttfa
+    from brainiak_tpu_torch.ops import rbf
+    from brainiak_tpu_torch.ops.optimize import _value_and_grad
+
+    rng = np.random.RandomState(SEED + 52)
+    feat = rng.choice(X.shape[0], min(5000, X.shape[0]), replace=False)
+    samp = rng.choice(X.shape[1], min(500, X.shape[1]), replace=False)
+    sub, sub_r = X[feat][:, samp], R[feat]
+    k = centers.shape[0]
+    c = (centers + 6.0 * rng.randn(*centers.shape)).astype(np.float32)
+    w = (1.5 * widths).astype(np.float32)
+    sigma = float(np.std(sub) / np.sqrt(2.0))
+    out = {}
+    res = {}
+    for dt in (torch.float64, torch.float32):
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+        r_, x_, c_, w_ = t(sub_r), t(sub), t(c), t(w)
+        f = rbf.rbf_factors(r_, c_, w_)
+        g, b = rbf.rbf_weight_products(r_, c_, w_, x_)
+        if dt == torch.float64:
+            wmat = torch.linalg.solve(
+                g + torch.var(x_, unbiased=False) * torch.eye(
+                    k, dtype=dt, device=dev), b)
+        wm = wmat.to(dt)
+        sums = [rbf.rbf_residual_sum(r_, c_, w_, x_, wm, sigma,
+                                     nlss_loss=loss)
+                for loss in ("linear", "soft_l1")]
+        params = torch.cat([c_.reshape(-1), w_.reshape(-1)])
+        objs = []
+        for loss, with_tmpl in (("linear", False), ("soft_l1", True)):
+            objs += list(_value_and_grad(
+                lambda p: ttfa._nlls_objective(
+                    p, r_, x_, wm, sigma, 0.05, *(t(a) for a in tmpl), K=k,
+                    n_dim=3, nlss_loss=loss, has_template=with_tmpl),
+                params))
+        res[dt] = [f, g, b] + sums + objs
+    names = ["rbf_factors", "FtF", "FtX", "residual sum linear",
+             "residual sum soft_l1", "objective TFA", "gradient TFA",
+             "objective HTFA", "gradient HTFA"]
+    for name, a, b in zip(names, res[torch.float32], res[torch.float64]):
+        diff = (a.double() - b)
+        if name.startswith("gradient"):
+            out[name] = float(torch.linalg.vector_norm(diff) /
+                              torch.linalg.vector_norm(b))
+        else:
+            out[name] = float(diff.abs().max() / b.abs().max())
+    return out
+
+
+def recon_error(torch, model, x64):
+    """``||X - F_ W_|| / ||X||`` in float64 on ``x64``'s device."""
+    f = torch.as_tensor(model.F_, dtype=torch.float64, device=x64.device)
+    w = torch.as_tensor(model.W_, dtype=torch.float64, device=x64.device)
+    return float(torch.linalg.vector_norm(x64 - f @ w) /
+                 torch.linalg.vector_norm(x64))
+
+
+def run_tfa_phase(torch, smi, dev="cuda"):
+    """Phase 29: TFA on one subject of 65,536 voxels (64 x 64 x 16 at
+    3 mm, a scanner origin 100-150 mm off zero) x 600 TRs, K=50 planted
+    factors, the reference's defaults (5,000 voxels x 500 TRs a
+    subsample, 10 iterations, 60 L-BFGS steps): fits in float32 and
+    float64; the ops, the objective and its gradient in float32 against
+    float64 (``FA_F64_RTOL``); the float32 fit's reconstruction error
+    within ``TFA_RECON_RTOL`` of the float64 fit's; recovery of the
+    planted centres; launches and syncs of an iteration."""
+    from brainiak_tpu_torch.factoranalysis import TFA
+
+    t0 = time.perf_counter()
+    X, R, centers, widths = tfa_data(SEED + 50)
+    log(f"phase 29, TFA ({smi}): {X.shape[0]} voxels on a {TFA_GRID} grid "
+        f"at {TFA_SPACING} mm from {TFA_ORIGIN} mm x {X.shape[1]} TRs, "
+        f"K={TFA_K}, planted; data made in {time.perf_counter() - t0:.1f} s")
+    x64 = torch.as_tensor(X, dtype=torch.float64, device=dev)
+    fits, recon, recovered = {}, {}, {}
+    for name, data in (("float32", X), ("float64", X.astype(np.float64))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = TFA(K=TFA_K, device=dev).fit(data, R)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        fits[name] = model
+        d = matched_distances(model.get_centers(model.local_posterior_),
+                              centers)
+        err = recon_error(torch, model, x64)
+        log(f"  {name} fit: {secs:.3f} s ({model.miter} iterations of "
+            f"{model.max_num_voxel} x {model.max_num_tr}), peak device "
+            f"memory {peak:.1f} MiB; reconstruction error {err:.6f}; "
+            f"planted centres: {recovery_line(d)}")
+        recon[name] = err
+        recovered[name] = int(np.sum(d <= TFA_SPACING))
+    rel = abs(recon["float32"] - recon["float64"]) / recon["float64"]
+    log(f"  float32 vs float64 reconstruction error: {rel:.3e} relative "
+        f"(rtol {TFA_RECON_RTOL})")
+    if not rel <= TFA_RECON_RTOL:
+        fail("phase 29: the float32 TFA fit is off the float64 fit")
+    n32, n64 = recovered["float32"], recovered["float64"]
+    if n32 < TFA_RECOVERY * n64:
+        fail(f"phase 29: float32 recovers {n32} planted centres, float64 "
+             f"{n64}")
+    m = fits["float32"]
+    tmpl_cov = np.cov(R.T) * TFA_K ** (-2 / 3.0)
+    tmpl = (centers, np.tile(np.linalg.inv(tmpl_cov), (TFA_K, 1, 1)),
+            widths, np.full((TFA_K, 1), 1.0 / m._get_max_sigma(R)))
+    errs = fa_op_errors(torch, dev, X, R, centers, widths, tmpl)
+    log("  float32 vs float64 on the card, at fixed parameters: " +
+        ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
+        f" (rtol {FA_F64_RTOL})")
+    if not max(errs.values()) <= FA_F64_RTOL:
+        fail("phase 29: a float32 RBF op or the objective is off float64")
+
+    def seeding():
+        m.init_centers_widths(R)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    seeding()
+    secs = time.perf_counter() - t0
+    launches, syncs, _ = step_counts(torch, seeding)
+    log(f"  the seeding k-means (k-means++ and Lloyd, 10 runs batched, "
+        f"K={TFA_K}, float64 on the card): {secs:.3f} s, {launches} kernel "
+        f"launches, {syncs} host syncs")
+
+    def step():
+        m._fit_tfa_inner(X, R, None, None, None, None)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    step()
+    secs = time.perf_counter() - t0
+    launches, syncs, where = step_counts(torch, step)
+    top = sorted(where.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  an iteration (subsample, weight solve, L-BFGS): {secs:.3f} s, "
+        f"{launches} kernel launches, {syncs} host syncs (most at {top})")
+    del x64
+    torch.cuda.empty_cache()
+
+
+def htfa_data(torch, n_subj, seed, dev):
+    """HTFA's subjects on the phase-29 grid: centres jittered by 2 mm
+    and widths by 10% around a planted template; X_s = F_s W_s + 0.1
+    noise, made on ``dev`` from the seed, float32 on the host."""
+    from brainiak_tpu_torch.ops.rbf import rbf_factors
+
+    rng = np.random.RandomState(seed)
+    R = fa_grid()
+    centers, widths = fa_planted(rng, TFA_K)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.as_tensor(R, device=dev)
+    X = []
+    for _ in range(n_subj):
+        c = centers + 2.0 * rng.randn(*centers.shape)
+        w = widths * np.clip(1.0 + 0.1 * rng.randn(*widths.shape), 0.5,
+                             1.5)
+        f = rbf_factors(r, torch.as_tensor(c, device=dev),
+                        torch.as_tensor(w, device=dev))
+        wm = torch.randn(TFA_K, HTFA_TRS, generator=gen, device=dev,
+                         dtype=torch.float64)
+        noise = torch.randn(R.shape[0], HTFA_TRS, generator=gen,
+                            device=dev, dtype=torch.float64)
+        X.append((f @ wm + 0.1 * noise).float().cpu().numpy())
+    return X, [R] * n_subj, centers
+
+
+def htfa_kw(n_subj, iters):
+    return dict(K=TFA_K, n_subj=n_subj, max_global_iter=iters[0],
+                max_local_iter=iters[1])
+
+
+def htfa_fit(torch, X, R, seed, kw, **extra):
+    """One seeded HTFA fit: (model, seconds, peak MiB)."""
+    from brainiak_tpu_torch.factoranalysis import HTFA
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    model = HTFA(**kw, **extra).fit(X, R)
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def htfa_fields(model):
+    return (model.global_posterior_, model.local_posterior_,
+            model.local_weights_)
+
+
+def htfa_on_ranks(torch, dev="cuda"):
+    """HTFA on a subject mesh of the ranks (phase 23's spawn): 8
+    subjects, 2 x 2 iterations; this rank's fit and seconds."""
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    X, R, _ = htfa_data(torch, HTFA_RANK_SUBJECTS, SEED + 61, dev)
+    model, secs, _ = htfa_fit(
+        torch, X, R, SEED + 62,
+        htfa_kw(HTFA_RANK_SUBJECTS, HTFA_RANK_ITERS), device=dev,
+        mesh=make_mesh(("subject",), (-1,)))
+    return {"fields": htfa_fields(model), "secs": secs}
+
+
+def run_htfa_phase(torch, smi, ranks, dev="cuda"):
+    """Phase 30: HTFA on 20 subjects of 65,536 voxels x 300 TRs,
+    float32, K=50, the default ratios and caps (5,000 voxels, 30 TRs a
+    subsample), soft-L1, ``HTFA_ITERS`` iterations (a depth cut of the
+    default 10 x 10): a meshless fit, a fit on a 4-position subject mesh of the
+    card (bit for bit the meshless one) and a float64 fit (template
+    centres matched within ``HTFA_TEMPLATE_ATOL``); template recovery;
+    seconds, launches and syncs of a subject step.  Then the two gloo
+    ranks' fit of phase 23 (``ranks``) against the one-process fit at
+    its settings, bit for bit."""
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    X, R, centers = htfa_data(torch, HTFA_SUBJECTS, SEED + 60, dev)
+    log(f"phase 30, HTFA ({smi}): {HTFA_SUBJECTS} subjects x "
+        f"{X[0].shape[0]} voxels x {HTFA_TRS} TRs float32, K={TFA_K}, "
+        f"{HTFA_ITERS[0]} x {HTFA_ITERS[1]} iterations (a depth cut of the "
+        f"default 10 x 10, forced by the run's time limit); data made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = htfa_kw(HTFA_SUBJECTS, HTFA_ITERS)
+    single, secs, peak = htfa_fit(torch, X, R, SEED + 63, kw, device=dev)
+    steps = HTFA_SUBJECTS * HTFA_ITERS[0] * HTFA_ITERS[1]
+    log(f"  float32 fit: {secs:.3f} s (at most {steps} subject steps of "
+        f"{single.sub_nvox[0]} x {single.sub_ntr[0]}), peak device memory "
+        f"{peak:.1f} MiB")
+    mesh = make_mesh(("subject",), (HTFA_POSITIONS,),
+                     devices=[dev] * HTFA_POSITIONS)
+    meshed, secs, _ = htfa_fit(torch, X, R, SEED + 63, kw, device=dev,
+                               mesh=mesh)
+    same = all(np.array_equal(a, b) for a, b in
+               zip(htfa_fields(meshed), htfa_fields(single)))
+    log(f"  on a {HTFA_POSITIONS}-position subject mesh of the card: "
+        f"{secs:.3f} s, bit for bit the meshless fit: {same}")
+    if not same:
+        fail("phase 30: the meshed HTFA fit differs from the meshless fit")
+    del meshed
+    f64, secs, _ = htfa_fit(torch, [x.astype(np.float64) for x in X], R,
+                            SEED + 63, kw, device=dev)
+    c32 = single.get_centers(single.global_posterior_)
+    c64 = f64.get_centers(f64.global_posterior_)
+    d = matched_distances(c32, c64)
+    log(f"  float64 fit: {secs:.3f} s; float32 template centres vs "
+        f"float64's, matched: median {np.median(d):.4f} mm, max "
+        f"{d.max():.4f} mm (atol {HTFA_TEMPLATE_ATOL} mm)")
+    if not d.max() <= HTFA_TEMPLATE_ATOL:
+        fail("phase 30: the float32 HTFA template is off the float64 one")
+    for name, c in (("float32", c32), ("float64", c64)):
+        log(f"  {name} template vs the planted centres: "
+            f"{recovery_line(matched_distances(c, centers))}")
+    # a subject step, as the fit runs it: subject 0 of the last global
+    # iteration's template
+    tmpl = single._template_terms()
+    rng = np.random.RandomState(0)
+    curr, curr_r, beta, sigma = single._gather_subsample(X[0], R[0], rng, 0)
+    prior = single.global_prior_[:single.prior_size]
+
+    def step():
+        single._subject_step(curr, curr_r, prior, 0, beta, sigma, tmpl,
+                             torch.device(dev))
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.perf_counter()
+    step()
+    secs = time.perf_counter() - t0
+    launches, syncs, where = step_counts(torch, step)
+    top = sorted(where.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  a subject step (weight solve, bounded L-BFGS of "
+        f"{single.lbfgs_iters} steps at most, one subject after another on "
+        f"the host): {secs:.3f} s, {launches} kernel launches, {syncs} host "
+        f"syncs (most at {top})")
+    del single, f64, X
+    torch.cuda.empty_cache()
+    # the two gloo ranks' fit (run in phase 23's spawn) against one process
+    X, R, _ = htfa_data(torch, HTFA_RANK_SUBJECTS, SEED + 61, dev)
+    one, secs, _ = htfa_fit(torch, X, R, SEED + 62,
+                            htfa_kw(HTFA_RANK_SUBJECTS, HTFA_RANK_ITERS),
+                            device=dev)
+    same = [all(np.array_equal(a, b) for a, b in
+                zip(r["fields"], htfa_fields(one))) for r in ranks]
+    rank_secs = ", ".join(f"{r['secs']:.3f}" for r in ranks)
+    log(f"  two gloo ranks ({HTFA_RANK_SUBJECTS} subjects, "
+        f"{HTFA_RANK_ITERS[0]} x {HTFA_RANK_ITERS[1]} iterations): rank "
+        f"seconds {rank_secs}, one process {secs:.3f} s; each rank bit for "
+        f"bit the one-process fit: {same}")
+    if not all(same):
+        for r in ranks:
+            diff = max(float(np.abs(a - b).max()) for a, b in
+                       zip(r["fields"], htfa_fields(one)))
+            log(f"    max |rank - one process| {diff:.3e}")
+        fail("phase 30: the two-rank HTFA fit differs from one process")
+
+
+def enc_data(torch, dev, seed, n_bands=1):
+    """Phase 31's design X [T, F] ~ N(0, 1) and responses Y = X W + N(0,
+    1) with W's columns ~ N(0, 1/lambda*), lambda* log-uniform a voxel
+    (and a band) in [10^2.5, 10^4.5] (ridge) or [10^3, 10^4.5]
+    (banded): the best lambdas lie above the flat region where the
+    smaller ones tie (a lambda far below the Gram's eigenvalues, about
+    1,600-9,000 a band, changes the CV score by about 1e-6, float32's
+    own noise).  Made on ``dev``; float32 on the host."""
+    t, f, v = ENC_SHAPE
+    f = ENC_BANDED_F if n_bands > 1 else f
+    lo = 3.0 if n_bands > 1 else 2.5
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(t, f, generator=gen, device=dev)
+    y = torch.randn(t, v, generator=gen, device=dev)
+    width = f // n_bands
+    for b in range(n_bands):
+        lam = 10 ** (lo + (4.5 - lo) * torch.rand(v, generator=gen,
+                                                  device=dev))
+        w = torch.randn(width, v, generator=gen, device=dev) / lam.sqrt()
+        y += x[:, b * width:(b + 1) * width] @ w
+    return x.cpu().numpy(), y.cpu().numpy()
+
+
+def ridge_float64(torch, x, y, penalties, n_folds, dev):
+    """The CV of ridge with per-feature ``penalties`` [C, F] (a lambda
+    a feature: the banded scaling trick solved directly) in float64 on
+    ``dev`` by Cholesky solves: ``(scores [C, V], refit(rows) -> W [F,
+    V] at each voxel's penalty row)``.  The design and responses are
+    centred in float64."""
+    x = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    y = torch.as_tensor(y, dtype=torch.float64, device=dev)
+    x = x - x.mean(0)
+    y = y - y.mean(0)
+    t_f = x.shape[0] // n_folds
+    g_total, b_total = x.T @ x, x.T @ y
+    pen = torch.as_tensor(penalties, dtype=torch.float64, device=dev)
+    scores = torch.zeros((pen.shape[0], y.shape[1]), dtype=torch.float64,
+                         device=dev)
+    for k in range(n_folds):
+        xk, yk = x[k * t_f:(k + 1) * t_f], y[k * t_f:(k + 1) * t_f]
+        g, b = g_total - xk.T @ xk, b_total - xk.T @ yk
+        for c in range(pen.shape[0]):
+            chol = torch.linalg.cholesky(g + torch.diag(pen[c]))
+            pred = xk @ torch.cholesky_solve(b, chol)
+            pc, yc = pred - pred.mean(0), yk - yk.mean(0)
+            den = torch.sqrt((pc * pc).sum(0) * (yc * yc).sum(0))
+            scores[c] += torch.where(den > 0, (pc * yc).sum(0) / den, 0.0)
+
+    def refit(rows):
+        w = torch.zeros_like(b_total)
+        for c in np.unique(rows):
+            cols = torch.as_tensor(np.nonzero(rows == c)[0], device=dev)
+            chol = torch.linalg.cholesky(g_total + torch.diag(pen[c]))
+            w[:, cols] = torch.cholesky_solve(b_total[:, cols], chol)
+        return w.cpu().numpy()
+
+    return (scores / n_folds).cpu().numpy(), refit
+
+
+def scaled_eigh_cv(torch, x, y, scales, n_folds, dev):
+    """The JAX package's banded CV (``encoding/ridge.py``'s
+    ``_banded_sweep_program``) in float32 on ``dev``: per candidate, an
+    ``eigh`` of the scaled train Grams ``diag(s) G diag(s)`` and a
+    ridge at lambda 1, for the columns of ``y``.  Returns [C, V]."""
+    from brainiak_tpu_torch.encoding import ridge as tridge
+
+    x = torch.as_tensor(x, device=dev)
+    y = torch.as_tensor(y, device=dev)
+    x, y = x - x.mean(0), y - y.mean(0)
+    t_f = x.shape[0] // n_folds
+    x_folds, y_folds, g_tr, b_tr, _ = tridge._fold_algebra(
+        x, y, x.T @ x, n_folds, t_f, torch.float32)
+    out = []
+    for s in torch.as_tensor(scales, device=dev):
+        evals, q = torch.linalg.eigh(g_tr * s[None, :, None] *
+                                     s[None, None, :])
+        evals = torch.clamp(evals, min=0.0)
+        a = torch.einsum('kfg,kfv->kgv', q, b_tr * s[None, :, None])
+        p = torch.einsum('ktf,kfg->ktg', x_folds * s[None, None, :], q)
+        pred = torch.einsum('ktf,kfv->ktv', p, a / (evals[..., None] + 1.0))
+        out.append(tridge._fold_scores(pred, y_folds).mean(0))
+    return torch.stack(out).cpu().numpy()
+
+
+def enc_fit(torch, fit, *args):
+    """One call of an encoder's ``fit``: (model, seconds, peak MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = fit(*args)
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def run_encoding_phase(torch, smi, rows, dev="cuda"):
+    """Phase 31, the encoding tier: ``RidgeEncoder`` at T=4,000, F=2,048,
+    V=65,536, ``DEFAULT_LAMBDAS``, 5 folds, ``lambda_block=2``, against a
+    float64 Cholesky CV on the card for 2,048 voxels; on a 4-position
+    voxel mesh of the card with the distla budget at 1 MiB, so that its
+    Gram takes the ring (K5, 4 steps x 4 positions); then
+    ``BandedRidgeEncoder`` at F=1,024 in two bands of 512, 7 x 7
+    candidates, ``candidate_block=4``, against the float64 CV.  Sets
+    the launches of K5's row at the ridge's shape."""
+    import os
+
+    from brainiak_tpu_torch.encoding import (DEFAULT_LAMBDAS,
+                                             BandedRidgeEncoder,
+                                             RidgeEncoder)
+    from brainiak_tpu_torch.encoding import ridge as tridge
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    t, f, v = ENC_SHAPE
+    nc = ENC_CHECK
+    t0 = time.perf_counter()
+    x, y = enc_data(torch, dev, SEED + 70)
+    log(f"phase 31, the encoding tier ({smi}): RidgeEncoder T={t}, F={f}, "
+        f"V={v}, lambdas {DEFAULT_LAMBDAS}, 5 folds, lambda_block="
+        f"{ENC_BLOCK}; data made in {time.perf_counter() - t0:.1f} s")
+    enc, secs, peak = enc_fit(torch, RidgeEncoder(
+        lambda_block=ENC_BLOCK, device=dev).fit, x, y)
+    log(f"  fit {secs:.3f} s, peak device memory {peak:.1f} MiB")
+    grid = enc.lambdas_
+    t0 = time.perf_counter()
+    cv64, refit = ridge_float64(torch, x, y[:, :nc],
+                                np.repeat(grid[:, None], f, axis=1), 5,
+                                dev)
+    lam64 = grid[np.argmax(cv64, axis=0)]
+    sel = np.searchsorted(grid, enc.lambda_[:nc])
+    w64 = refit(sel)
+    cv_err = float(np.abs(enc.cv_scores_[:, :nc] - cv64).max())
+    agree = float(np.mean(enc.lambda_[:nc] == lam64))
+    w_err = float(np.abs(enc.W_[:, :nc] - w64).max() / np.abs(w64).max())
+    log(f"  against float64 on {nc} voxels ({time.perf_counter() - t0:.1f} "
+        f"s): cv_scores_ max |d| {cv_err:.3e} (atol {ENC_CV_ATOL}), lambda_ "
+        f"equal on {agree:.4f} (>= {ENC_AGREE}), W_ at the selected lambdas "
+        f"max |d| / max |W| {w_err:.3e} (rtol {ENC_W_RTOL}); lambdas "
+        f"selected {dict(zip(*np.unique(enc.lambda_, return_counts=True)))}")
+    if not (cv_err <= ENC_CV_ATOL and agree >= ENC_AGREE and
+            w_err <= ENC_W_RTOL):
+        fail("phase 31: RidgeEncoder is off the float64 CV")
+    # the Gram on the ring of a 4-position mesh of the card; one sweep
+    # block profiled
+    sweep, box = tridge._sweep, {}
+
+    def profiled(*args, **kw):
+        if "counts" not in box:
+            box["counts"] = step_counts(
+                torch, lambda: sweep(*args, **kw).cpu())
+        return sweep(*args, **kw)
+
+    mesh = make_mesh(("voxel",), (4,), devices=[dev] * 4)
+    prev = os.environ.get(distla.BUDGET_ENV)
+    os.environ[distla.BUDGET_ENV] = str(ENC_BUDGET)
+    tridge._sweep = profiled
+    kr.reset_launches()
+    try:
+        ring, secs, _ = enc_fit(torch, RidgeEncoder(
+            lambda_block=ENC_BLOCK, mesh=mesh, device=dev).fit, x, y)
+    finally:
+        tridge._sweep = sweep
+        if prev is None:
+            del os.environ[distla.BUDGET_ENV]
+        else:
+            os.environ[distla.BUDGET_ENV] = prev
+    k5 = {r: kr.launches(r) for r in (None, "tc", "split")}
+    agree = float(np.mean(ring.lambda_ == enc.lambda_))
+    w_err = float(np.abs(ring.W_ - enc.W_).max() / np.abs(enc.W_).max())
+    launches, syncs, _ = box["counts"]
+    log(f"  on a 4-position voxel mesh (distla budget {ENC_BUDGET} bytes): "
+        f"{secs:.3f} s with one sweep block profiled, K5 launches "
+        f"{k5[None]} ({k5['tc']} tensor-core, {k5['split']} splits); "
+        f"lambda_ equal to the meshless fit's on {agree:.5f}, W_ max |d| / "
+        f"max |W| {w_err:.3e}; a sweep block of {ENC_BLOCK} lambdas: "
+        f"{launches} kernel launches, {syncs} host syncs")
+    if not (k5[None] == k5["tc"] == 16 and agree >= ENC_AGREE and
+            w_err <= ENC_W_RTOL):
+        fail("phase 31: the meshed RidgeEncoder did not run K5 16 times or "
+             "is off the meshless fit")
+    rows["ring_mma_ridge"]["launches"] = k5["tc"]
+    del enc, ring, x, y
+    torch.cuda.empty_cache()
+    # banded: two bands of 512
+    x, y = enc_data(torch, dev, SEED + 71, n_bands=2)
+    bands = np.repeat(np.arange(2), ENC_BANDED_F // 2)
+    banded, secs, peak = enc_fit(torch, BandedRidgeEncoder(
+        bands, candidate_block=ENC_CAND_BLOCK, device=dev).fit, x, y)
+    cand = banded.candidates_
+    log(f"  BandedRidgeEncoder F={ENC_BANDED_F} in two bands, "
+        f"{cand.shape[0]} candidates in blocks of {ENC_CAND_BLOCK}: fit "
+        f"{secs:.3f} s, peak device memory {peak:.1f} MiB")
+    t0 = time.perf_counter()
+    cv64, _ = ridge_float64(torch, x, y[:, :nc], cand[:, bands], 5, dev)
+    rows64 = cand[np.argmax(cv64, axis=0)]
+    agree = float(np.mean(np.all(banded.lambda_[:nc] == rows64, axis=1)))
+    cv_err = float(np.abs(banded.cv_scores_[:, :nc] - cv64).max())
+    log(f"  against float64 on {nc} voxels ({time.perf_counter() - t0:.1f} "
+        f"s): lambda_ rows equal on {agree:.4f} (>= {ENC_AGREE}), "
+        f"cv_scores_ max |d| {cv_err:.3e}")
+    if not agree >= ENC_AGREE:
+        fail("phase 31: BandedRidgeEncoder selects other lambdas than the "
+             "float64 CV")
+    # the JAX package's route (an eigh of the scaled Gram a candidate),
+    # which the port does not take: reported, not gated
+    t0 = time.perf_counter()
+    cv_eigh = scaled_eigh_cv(torch, x, y[:, :nc], 1.0 / np.sqrt(
+        cand[:, bands]), 5, dev)
+    agree = float(np.mean(np.all(
+        cand[np.argmax(cv_eigh, axis=0)] == rows64, axis=1)))
+    log(f"  the JAX package's route on the same {nc} voxels (an eigh of "
+        f"the scaled Gram a candidate and fold, float32; "
+        f"{time.perf_counter() - t0:.1f} s): candidates equal to the "
+        f"float64 CV's on {agree:.4f}, cv_scores max |d| "
+        f"{float(np.abs(cv_eigh - cv64).max()):.3e}")
+    del banded, x, y
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -4820,9 +5489,10 @@ def main():
         log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")
     del srm_phase_data
     torch.cuda.empty_cache()
+    htfa_ranks = []
     for label, phase in (
-            ("23, two ranks over gloo", lambda: run_gloo_ranks(
-                torch, smi, single_fits, mesh_accs, rows)),
+            ("23, two ranks over gloo", lambda: htfa_ranks.extend(
+                run_gloo_ranks(torch, smi, single_fits, mesh_accs, rows))),
             ("24, searchlight", lambda: run_searchlight_phase(torch, smi)),
             ("25, MVPA voxel selection", lambda: run_mvpa_phase(torch,
                                                                 smi))):
@@ -4834,7 +5504,11 @@ def main():
     for label, phase in (
             ("27, resampling nulls", lambda: run_stats_phase(torch, smi)),
             ("28, event segmentation", lambda: run_eventseg_phase(torch,
-                                                                 smi))):
+                                                                 smi)),
+            ("29, TFA", lambda: run_tfa_phase(torch, smi)),
+            ("30, HTFA", lambda: run_htfa_phase(torch, smi, htfa_ranks)),
+            ("31, the encoding tier", lambda: run_encoding_phase(
+                torch, smi, rows))):
         t0 = time.perf_counter()
         phase()
         log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")
@@ -4892,7 +5566,8 @@ def main():
     k5_tc = ("brainiak_tpu/ops/kernels/ring.py:116",
              csrc + "ring_mma_tc.cu")
     origin.update(ring_mma=k5_tc, ring_mma_n4=k5_tc, ring_mma_v8192=k5_tc,
-                  ring_mma_v4096=k5_tc, ring_split=k5_tc, ring_mma_ffma=k5)
+                  ring_mma_v4096=k5_tc, ring_mma_ridge=k5_tc,
+                  ring_split=k5_tc, ring_mma_ffma=k5)
     # no path forces ring_mma.cu
     rows["ring_mma_ffma"]["launches"] = 0
     kernels = [dict(name=name, route="cuda", source=origin[name][1],

@@ -2014,3 +2014,71 @@ def test_eventseg_cuda_matches_cpu(cuda):
     seg_cpu, ll_cpu = cpu.find_events(held)
     np.testing.assert_allclose(seg, seg_cpu, atol=1e-8)
     assert np.isclose(ll, ll_cpu, rtol=1e-10)
+
+
+def test_factoranalysis_cuda_matches_cpu(cuda, monkeypatch):
+    """TFA and HTFA fits on the card against the same fits on the CPU
+    (float64, the same fixed seeding: the recovered centres within 0.05
+    grid units), and HTFA on a 2-position subject mesh of the card bit
+    for bit the meshless fit there."""
+    from brainiak_tpu_torch.factoranalysis import HTFA, TFA
+    from brainiak_tpu_torch.parallel import make_mesh
+    from torch_card_workers import fixed_centers_widths, make_rbf_subjects
+
+    monkeypatch.setattr(TFA, "init_centers_widths", fixed_centers_widths)
+    X, R, _, _ = make_rbf_subjects(3)
+    kw = dict(K=2, max_iter=4, threshold=0.1, max_num_voxel=512,
+              max_num_tr=60)
+    fits = [TFA(device=d, **kw).fit(X[0], R[0]) for d in ("cuda", "cpu")]
+    np.testing.assert_allclose(
+        *(np.sort(f.get_centers(f.local_posterior_), axis=0)
+          for f in fits), atol=0.05)
+    hkw = dict(K=2, n_subj=3, max_global_iter=2, max_local_iter=2,
+               threshold=0.5, voxel_ratio=1.0, tr_ratio=1.0,
+               max_voxel=512, max_tr=60)
+    out = []
+    for dev, mesh in (("cuda", None),
+                      ("cuda", make_mesh(("subject",), (2,),
+                                         devices=["cuda"] * 2)),
+                      ("cpu", None)):
+        np.random.seed(0)
+        out.append(HTFA(device=dev, mesh=mesh, **hkw).fit(X, R))
+    np.testing.assert_array_equal(out[1].global_posterior_,
+                                  out[0].global_posterior_)
+    np.testing.assert_array_equal(out[1].local_weights_,
+                                  out[0].local_weights_)
+    np.testing.assert_allclose(out[0].local_posterior_[:6],
+                               out[2].local_posterior_[:6], atol=0.05)
+
+
+def test_ridge_ring_cuda(cuda, monkeypatch):
+    """RidgeEncoder on the card against the CPU fit (float32: W within
+    1e-4 of max|W|, the same lambdas), then with its Gram on the SUMMA
+    ring of a 4-position mesh of the card: K5 launched 16 times (4 steps
+    x 4 positions) and W within 1e-4 of max|W| of the meshless fit."""
+    from brainiak_tpu_torch.encoding import RidgeEncoder
+    from brainiak_tpu_torch.ops import distla
+    from brainiak_tpu_torch.ops.kernels import ring as kr
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(200, 64).astype(np.float32)
+    y = (x @ (rng.randn(64, 300) / 8) + 2.0 * rng.randn(200, 300)) \
+        .astype(np.float32)
+    kw = dict(lambdas=(10.0, 100.0, 1000.0), n_folds=5)
+    gpu = RidgeEncoder(device="cuda", **kw).fit(x, y)
+    cpu = RidgeEncoder(device="cpu", **kw).fit(x, y)
+    scale = np.abs(cpu.W_).max()
+    assert np.mean(gpu.lambda_ == cpu.lambda_) >= 0.99
+    same = gpu.lambda_ == cpu.lambda_
+    np.testing.assert_allclose(gpu.W_[:, same], cpu.W_[:, same], rtol=0,
+                               atol=1e-4 * scale)
+    monkeypatch.setenv(distla.BUDGET_ENV, "1")
+    kr.reset_launches()
+    ring = RidgeEncoder(device="cuda", mesh=make_mesh(
+        ("voxel",), (4,), devices=["cuda"] * 4), **kw).fit(x, y)
+    assert kr.launches() == kr.launches("tc") == 16
+    assert np.mean(ring.lambda_ == gpu.lambda_) >= 0.99
+    same = ring.lambda_ == gpu.lambda_
+    np.testing.assert_allclose(ring.W_[:, same], gpu.W_[:, same], rtol=0,
+                               atol=1e-4 * scale)

@@ -401,6 +401,13 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.ops.masked\n"
         "import brainiak_tpu_torch.eventseg\n"
         "import brainiak_tpu_torch.eventseg.event\n"
+        "import brainiak_tpu_torch.ops.rbf\n"
+        "import brainiak_tpu_torch.factoranalysis\n"
+        "import brainiak_tpu_torch.factoranalysis.tfa\n"
+        "import brainiak_tpu_torch.factoranalysis.htfa\n"
+        "import brainiak_tpu_torch.factoranalysis._kmeans\n"
+        "import brainiak_tpu_torch.encoding\n"
+        "import brainiak_tpu_torch.encoding.ridge\n"
         "from brainiak_tpu_torch.isc import bootstrap_isc, \\\n"
         "    permutation_isc, timeshift_isc, phaseshift_isc\n"
         "from brainiak_tpu_torch.stats import NullEngine\n"

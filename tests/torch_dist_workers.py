@@ -12,7 +12,8 @@ import torch
 
 from tests.parallel.dist_workers import (make_fcma_data, make_isc_data,
                                          make_isfc_data)
-from tests.torch_card_workers import make_detsrm_data
+from tests.torch_card_workers import (fixed_centers_widths, make_detsrm_data,
+                                      make_rbf_subjects)
 
 #: the ring data: [T, V], V not a multiple of the 4 positions
 RING_SHAPE = (16, 30)
@@ -282,3 +283,64 @@ def searchlight_worker(process_id, num_processes):
     sl.distribute(data, mask)
     return sl.run_searchlight_jax(mean_masked, batch_size=64)
 
+
+
+# -- HTFA and the ridge encoder across processes -------------------------
+# (test_torch_factoranalysis.py, test_torch_encoding.py)
+
+#: HTFA's settings on the two-rank subject mesh: 3 subjects on 4
+#: positions, so the subject count is padded up and the pad dropped
+HTFA_KW = dict(K=2, n_subj=3, max_global_iter=2, max_local_iter=1,
+               threshold=0.5, voxel_ratio=1.0, tr_ratio=1.0,
+               max_voxel=512, max_tr=60)
+
+
+def htfa_worker(process_id, num_processes):
+    """HTFA on a 4-position subject mesh of two ranks (3 subjects), and
+    the meshless fit in the same process; both with the fixed
+    seeding."""
+    from brainiak_tpu_torch.factoranalysis import HTFA, tfa
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    torch.set_num_threads(1)
+    tfa.TFA.init_centers_widths = fixed_centers_widths
+    X, R, _, _ = make_rbf_subjects(HTFA_KW["n_subj"])
+    out = {}
+    for label, mesh in (("mesh", make_mesh(("subject",), (-1,))),
+                        ("single", None)):
+        np.random.seed(0)
+        model = HTFA(mesh=mesh, device="cpu", **HTFA_KW).fit(X, R)
+        out[label] = (model.global_posterior_, model.local_posterior_,
+                      model.local_weights_)
+    return out
+
+
+def make_ridge_data(t=40, f=8, v=12, seed=9, noise=0.5):
+    """``tests/encoding/test_ridge.py``'s design and responses."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(t, f).astype(np.float32)
+    w = (rng.randn(f, v) / np.sqrt(f)).astype(np.float32)
+    y = (x @ w + noise * rng.randn(t, v)).astype(np.float32)
+    return x, y
+
+
+def ridge_worker(process_id, num_processes):
+    """``RidgeEncoder`` with its Gram on the SUMMA ring of a 4-position
+    voxel mesh of two ranks (the distla budget at one byte), and the
+    meshless fit in the same process."""
+    import os
+
+    from brainiak_tpu_torch.encoding import RidgeEncoder
+    from brainiak_tpu_torch.ops.distla import BUDGET_ENV
+    from brainiak_tpu_torch.parallel import make_mesh
+
+    torch.set_num_threads(1)
+    os.environ[BUDGET_ENV] = "1"
+    x, y = make_ridge_data()
+    out = {}
+    for label, mesh in (("mesh", make_mesh(("voxel",), (-1,))),
+                        ("single", None)):
+        enc = RidgeEncoder(lambdas=(1.0, 10.0), n_folds=4, mesh=mesh,
+                           device="cpu").fit(x, y)
+        out[label] = (enc.W_, enc.lambda_, enc.cv_scores_)
+    return out

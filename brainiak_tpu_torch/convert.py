@@ -7,23 +7,37 @@ its maps ``w_`` and shared response ``s_`` (with ``sigma_s_``,
 ``mu_``, ``rho2_`` and ``logprob_``), a DetSRM's ``w_``, ``s_`` and
 ``objective_``; an RSRM's ``w_``, ``s_``, ``r_`` and ``objective_``,
 an SS-SRM's ``w_``, ``s_``, ``theta_``, ``bias_`` and ``classes_``, a
-FastSRM's ``basis_list``.  The functions here read a ``brainiak_tpu`` object by
-its attributes (duck typing, without importing the JAX package) and
-build the port's counterpart, so that both compute the same thing.
+FastSRM's ``basis_list``.  A matrix-normal covariance is its class and
+constructor arguments, its parameters a tree of arrays (dicts and
+lists); a fitted ``MatnormalRegression``'s state is ``beta_`` and the
+fitted covariance parameters, an ``MNRSA``'s ``L_``, ``U_``, ``C_``,
+``X_0_`` and its parameters; an inverted encoding model's its
+configuration, channels and ``W_``.  The functions here read a
+``brainiak_tpu`` object by its attributes (duck typing, without
+importing the JAX package) and build the port's counterpart, so that
+both compute the same thing.
 """
 
 import numpy as np
 
+from .device import resolve_device
 from .fcma.classifier import Classifier
 from .fcma.voxelselector import VoxelSelector
 from .funcalign.fastsrm import FastSRM
 from .funcalign.rsrm import RSRM
 from .funcalign.srm import SRM, DetSRM
 from .funcalign.sssrm import SSSRM
+from .matnormal import covs as mn_covs
+from .matnormal.mnrsa import MNRSA
+from .matnormal.regression import MatnormalRegression
+from .matnormal.utils import place
+from .reconstruct.iem import InvertedEncoding1D, InvertedEncoding2D
 
 __all__ = ["classifier_from_jax", "detsrm_from_jax", "fastsrm_from_jax",
-           "rsrm_from_jax", "srm_from_jax", "sssrm_from_jax",
-           "voxel_selector_from_jax"]
+           "iem_from_jax", "matnormal_cov_from_jax",
+           "matnormal_params_from_jax", "matnormal_regression_from_jax",
+           "mnrsa_from_jax", "rsrm_from_jax", "srm_from_jax",
+           "sssrm_from_jax", "voxel_selector_from_jax"]
 
 #: fitted attributes of the SRM estimators: per-subject lists, arrays,
 #: then floats
@@ -153,4 +167,126 @@ def fastsrm_from_jax(model, device="cuda"):
     if model.basis_list is not None:
         out.basis_list = [b if isinstance(b, str) else np.asarray(b)
                           for b in model.basis_list]
+    return out
+
+
+def _sized(cov):
+    return dict(size=cov.size)
+
+
+def _given_or_sized(name):
+    def args(cov):
+        given = getattr(cov, "_" + name + "0")
+        return {name: np.asarray(given)} if given is not None \
+            else dict(size=cov.size)
+    return args
+
+
+#: the port's constructor arguments of each JAX covariance class
+_COV_ARGS = {
+    "CovIdentity": _sized,
+    "CovUnconstrainedCholeskyWishartReg": _sized,
+    "CovIsotropic": lambda c: dict(size=c.size, var=c._var0),
+    "CovDiagonal": lambda c: dict(size=c.size, diag_var=c._diag_var0),
+    "CovDiagonalGammaPrior": lambda c: dict(
+        size=c.size, sigma=c._diag_var0, alpha=c.alpha, beta=c.beta),
+    "CovAR1": lambda c: dict(
+        size=c.size, rho=c._rho0, sigma=c._sigma0,
+        scan_onsets=np.cumsum([0] + [int(r) for r in c.run_sizes[:-1]])),
+    "CovUnconstrainedCholesky": _given_or_sized("Sigma"),
+    "CovUnconstrainedInvCholesky": _given_or_sized("invSigma"),
+    "CovKroneckerFactored": lambda c: dict(
+        sizes=list(c.sizes), Sigmas=c._Sigmas0, mask=c.mask),
+}
+
+
+def matnormal_cov_from_jax(cov):
+    """The port's covariance object of the JAX package's ``cov``: the
+    class of the same name, built from the same constructor arguments
+    (so ``init_params`` draws the same numbers)."""
+    name = type(cov).__name__
+    return getattr(mn_covs, name)(**_COV_ARGS[name](cov))
+
+
+def matnormal_params_from_jax(params, device="cuda", dtype=None):
+    """A covariance or model parameter tree of the JAX package (dicts
+    and lists of arrays) as the same tree of tensors on ``device``
+    (``dtype``: the arrays' own by default)."""
+    return place(params, dtype, resolve_device(device))
+
+
+def matnormal_regression_from_jax(model, device="cuda"):
+    """The port's
+    :class:`~brainiak_tpu_torch.matnormal.regression.MatnormalRegression`
+    with the JAX package's ``model``'s covariances and configuration
+    and, if it was fit, its ``beta_``, fitted covariance parameters and
+    ``final_loss_``, so that ``predict`` and ``calibrate`` give what
+    ``model``'s give."""
+    out = MatnormalRegression(
+        matnormal_cov_from_jax(model.time_cov),
+        matnormal_cov_from_jax(model.space_cov), optimizer=model.optMethod,
+        optCtrl=model.optCtrl, max_iters=model.max_iters, device=device)
+    if hasattr(model, "beta_"):
+        out.n_c = model.n_c
+        out.beta_ = np.asarray(model.beta_)
+        out.time_params_ = matnormal_params_from_jax(model.time_params_,
+                                                     device)
+        out.space_params_ = matnormal_params_from_jax(model.space_params_,
+                                                      device)
+        out.final_loss_ = float(model.final_loss_)
+    return out
+
+
+def mnrsa_from_jax(model, device="cuda"):
+    """The port's :class:`~brainiak_tpu_torch.matnormal.mnrsa.MNRSA`
+    with the JAX package's ``model``'s covariances and configuration
+    and, if it was fit, its ``L_``, ``U_``, ``C_``, ``X_0_`` (and
+    ``naive_U_``), fitted covariance parameters and ``final_loss_``."""
+    out = MNRSA(matnormal_cov_from_jax(model.time_cov),
+                matnormal_cov_from_jax(model.space_cov),
+                n_nureg=model.n_nureg, optimizer=model.optMethod,
+                optCtrl=model.optCtrl, max_iters=model.max_iters,
+                device=device)
+    if hasattr(model, "U_"):
+        out.n_c = model.n_c
+        for name in ("L_", "U_", "C_", "X_0_", "naive_U_"):
+            if hasattr(model, name):
+                setattr(out, name, np.asarray(getattr(model, name)))
+        out.time_params_ = matnormal_params_from_jax(model.time_params_,
+                                                     device)
+        out.space_params_ = matnormal_params_from_jax(model.space_params_,
+                                                      device)
+        out.final_loss_ = float(model.final_loss_)
+    return out
+
+
+def iem_from_jax(model, device="cuda"):
+    """The port's
+    :class:`~brainiak_tpu_torch.reconstruct.iem.InvertedEncoding1D` or
+    ``InvertedEncoding2D`` with the configuration and channels of the
+    JAX package's ``model`` and, if it was fit, its ``W_`` (in its own
+    dtype), so that ``predict`` and ``score`` give what ``model``'s
+    give."""
+    if hasattr(model, "stimulus_mode"):
+        out = InvertedEncoding1D(
+            n_channels=model.n_channels, channel_exp=model.channel_exp,
+            stimulus_mode=model.stimulus_mode,
+            range_start=model.range_start, range_stop=model.range_stop,
+            channel_density=model.channel_density,
+            stimulus_resolution=model.stim_res, device=device)
+        for name in ("channels_", "channel_centers_"):
+            if hasattr(model, name):
+                setattr(out, name, np.asarray(getattr(model, name)))
+    else:
+        out = InvertedEncoding2D(
+            model.stim_fov[0], model.stim_fov[1],
+            [len(model.stim_pixels[0]), len(model.stim_pixels[1])],
+            stim_radius=model.stim_radius_px,
+            chan_xlim=model.channel_limits[0],
+            chan_ylim=model.channel_limits[1],
+            channels=None if model.channels is None
+            else np.asarray(model.channels),
+            channel_exp=model.channel_exp, device=device)
+    if hasattr(model, "W_"):
+        out.W_ = np.asarray(model.W_)
     return out

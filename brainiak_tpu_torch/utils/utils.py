@@ -15,8 +15,9 @@ import os
 
 import numpy as np
 
-__all__ = ["array_correlation", "concatenate_not_none", "from_sym_2_tri",
-           "from_tri_2_sym", "usable_cpu_count"]
+__all__ = ["array_correlation", "circ_dist", "concatenate_not_none",
+           "cov2corr", "from_sym_2_tri", "from_tri_2_sym",
+           "usable_cpu_count"]
 
 logger = logging.getLogger(__name__)
 
@@ -102,3 +103,28 @@ def from_sym_2_tri(symm):
     """
     symm = np.asarray(symm)
     return symm[np.triu_indices_from(symm)]
+
+
+def circ_dist(x, y):
+    """Pairwise circular distance (radians) between two equal-size vectors.
+
+    Reference contract: utils/utils.py:48-66.
+    """
+    x = np.asarray(x)
+    y = np.asarray(y)
+    if x.size != y.size:
+        raise ValueError("Input sizes must match to compute pairwise "
+                         "comparisons.")
+    return np.angle(np.exp(1j * (x - y)))
+
+
+def cov2corr(cov):
+    """Convert a covariance matrix to a correlation matrix.
+
+    Reference contract: utils/utils.py:185-206.
+    """
+    cov = np.asarray(cov)
+    if cov.ndim != 2:
+        raise ValueError("covariance matrix should be 2D array")
+    inv_sd = 1.0 / np.sqrt(np.diag(cov))
+    return cov * inv_sd[None, :] * inv_sd[:, None]

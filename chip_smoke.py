@@ -4,7 +4,8 @@ classification, the SUMMA ring Gram, ISC/ISFC, SRM, the FCMA file
 front end, RSRM, SS-SRM, FastSRM, FCMA on a mesh, the SRM family and
 FCMA on two ranks, the searchlight, MVPA voxel selection, the
 resampling statistics, event segmentation, TFA and HTFA, the encoding
-tier) on one CUDA card.
+tier, the matrix-normal models, the inverted encoding models and the
+hyperparameter optimizer) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -371,6 +372,31 @@ first one that goes wrong:
    ``lambda_`` rows equal to the float64 CV's on >= 99% of 2,048
    voxels; fit seconds and peak memory, the launches and syncs of a
    sweep block.
+32. ``MatnormalRegression`` (run, as 33-34, after phase 31): T=600 in
+   two runs (``CovAR1(600, scan_onsets=[0, 300])``), 16 conditions, a
+   16 x 16 x 8 voxel box with ``CovKroneckerFactored([16, 16, 8],
+   mask=)``, the mask the inscribed ellipsoid (1,104 voxels); planted
+   beta, AR(1) noise (rho 0.5) smooth in space; fits in float32 and
+   float64 on the card (300 L-BFGS iterations at most): the float64
+   loss at the float32 optimum within 1e-4 of the float64 optimum's,
+   corr(beta-hat, beta) > 0.9 over the kept voxels, rho-hat and
+   ``calibrate``'s corr with the design printed, max|beta32 - beta64| /
+   max|beta64|; seconds, iterations, peak memory, the launches and
+   syncs of an iteration (profiled fits of 2 iterations less 1).
+33. ``MNRSA``: the same T and runs, V=2,048 with ``CovDiagonal``, 16
+   conditions whose U has 4 blocks of 4 (0.8 inside a block),
+   ``n_nureg=5``, fits in float32 and float64 (1,000 L-BFGS iterations
+   at most: at 300 the fits stop short of the optimum): the same loss
+   gate, the off-diagonal corr of ``C_`` with U > 0.7, max|U32 - U64|
+   / max|U64|, and the same timings.
+34. ``InvertedEncoding1D`` (6 channels, half-circular) and
+   ``InvertedEncoding2D`` (an 8 x 8 square grid over [-6, 6] x [-5, 5]
+   at 121 x 101 pixels) on 480 trials x 2,000 voxels, 360 to train and
+   120 to test, in float32 and float64: median held-out errors under
+   20 degrees and 2.0 units, float32 predictions equal to float64's on
+   >= 95%; then ``fmin`` with 40 evaluations over the 2-D model's
+   channel FWHM in [1, 2.5], each a float32 fit and a held-out score on
+   the card (the training discs' masks made once).
 26. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
@@ -5282,6 +5308,398 @@ def run_encoding_phase(torch, smi, rows, dev="cuda"):
     torch.cuda.empty_cache()
 
 
+# phases 32-34: the matrix-normal tier, the inverted encoding models and
+# the hyperparameter optimizer
+MN_TRS = 600
+MN_ONSETS = [0, 300]     # two runs
+MN_CONDITIONS = 16
+MN_BOX = [16, 16, 8]     # 2,048 voxels; the inscribed ellipsoid kept
+MN_RHO = 0.5             # the planted AR(1) coefficient
+MN_LOSS_RTOL = 1e-4      # float64 loss at the float32 optimum vs float64's
+MN_BETA_CORR = 0.9       # corr(beta-hat, beta), the JAX test's kind of bar
+MNRSA_VOXELS = 2048
+MNRSA_NUREG = 5
+# L-BFGS iterations of the MNRSA fits: at the JAX default of 300 the
+# float64 fit stops 13,000 nats (5e-3) short of its optimum on this data;
+# by 1,000 both precisions are within 1e-6 of it (float64 on the CPU:
+# 1,000 iterations 2429952.56, 3,000 2429918.68)
+MNRSA_ITERS = 1000
+MNRSA_CORR = 0.7         # off-diagonal corr of C_ with U (the JAX test's)
+IEM_TRIALS = 480
+IEM_TRAIN = 360
+IEM_VOXELS = 2000
+IEM_RADIUS = 1.5         # the 2-D stimuli's disc radius (stimulus units)
+IEM_1D_DEG = 20.0        # median held-out error (degrees), 1-D
+IEM_2D_UNITS = 2.0       # median held-out error (stimulus units), 2-D
+IEM_AGREE = 0.95         # float32 predictions equal to float64's
+HPO_EVALS = 40
+HPO_RANDOM = 10          # fmin's random evaluations before the TPE ones
+# the channel FWHM searched (stimulus units): beyond about 2.9 the
+# channels overlap so that the fit's weights fail its condition check
+HPO_FWHM = (1.0, 2.5)
+
+
+def mn_ellipsoid():
+    """The ellipsoid inscribed in the ``MN_BOX`` voxel box, flat."""
+    idx = np.indices(MN_BOX).reshape(3, -1).T
+    half = np.asarray(MN_BOX) / 2.0
+    return (((idx + 0.5 - half) / half) ** 2).sum(1) <= 1.0
+
+
+def mn_ar1_noise(rng, n_v):
+    """AR(1) noise with ``MN_RHO`` and unit variance, restarted at each
+    of ``MN_ONSETS``: [MN_TRS, n_v]."""
+    out = np.empty((MN_TRS, n_v))
+    for start, stop in zip(MN_ONSETS, MN_ONSETS[1:] + [MN_TRS]):
+        out[start] = rng.randn(n_v)
+        for t in range(start + 1, stop):
+            out[t] = MN_RHO * out[t - 1] + \
+                np.sqrt(1 - MN_RHO ** 2) * rng.randn(n_v)
+    return out
+
+
+def matnormal_data(seed):
+    """Phase 32's data: a design X [600, 16] ~ N(0, 1), beta [16, 2048]
+    ~ N(0, 1), and AR(1) noise (rho 0.5, per run) made smooth in space
+    by a Kronecker factor of exp(-|i - j| / 2) along each box axis,
+    scaled to 2: Y = X beta + noise."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(MN_TRS, MN_CONDITIONS)
+    beta = rng.randn(MN_CONDITIONS, int(np.prod(MN_BOX)))
+    noise = mn_ar1_noise(rng, beta.shape[1]).reshape([MN_TRS] + MN_BOX)
+    for axis, n in enumerate(MN_BOX):
+        d = np.abs(np.subtract.outer(np.arange(n), np.arange(n)))
+        chol = np.linalg.cholesky(np.exp(-d / 2.0))
+        noise = np.moveaxis(np.tensordot(chol, noise, (1, axis + 1)), 0,
+                            axis + 1)
+    return X, X @ beta + 2.0 * noise.reshape(MN_TRS, -1), beta
+
+
+def mnrsa_data(seed):
+    """Phase 33's data: the design X [600, 16] ~ N(0, 1), U of 4 blocks
+    of 4 (1 on the diagonal, 0.8 inside a block), W = chol(U) N(0, 1)
+    [16, 2048], and AR(1) noise (rho 0.5, per run) of a standard
+    deviation 1-3 a voxel: Y = X W + noise."""
+    rng = np.random.RandomState(seed)
+    U = np.kron(np.eye(4), np.full((4, 4), 0.8) + 0.2 * np.eye(4))
+    X = rng.randn(MN_TRS, MN_CONDITIONS)
+    W = np.linalg.cholesky(U) @ rng.randn(MN_CONDITIONS, MNRSA_VOXELS)
+    sd = 1.0 + 2.0 * rng.rand(MNRSA_VOXELS)
+    return X, X @ W + mn_ar1_noise(rng, MNRSA_VOXELS) * sd, U
+
+
+def lbfgs_counting():
+    """A context counting the port's L-BFGS iterations (two-loop
+    directions) and its objective evaluations while it is open."""
+    import contextlib
+
+    from brainiak_tpu_torch.ops import optimize
+
+    @contextlib.contextmanager
+    def counting():
+        counts = {"iterations": 0, "evaluations": 0}
+        two_loop, value_and_grad = optimize._two_loop, \
+            optimize._value_and_grad
+
+        def counted_two_loop(*args):
+            counts["iterations"] += 1
+            return two_loop(*args)
+
+        def counted_value_and_grad(*args):
+            counts["evaluations"] += 1
+            return value_and_grad(*args)
+
+        optimize._two_loop = counted_two_loop
+        optimize._value_and_grad = counted_value_and_grad
+        try:
+            yield counts
+        finally:
+            optimize._two_loop = two_loop
+            optimize._value_and_grad = value_and_grad
+
+    return counting()
+
+
+def mn_fit(torch, make, fit_args, dtype):
+    """A matrix-normal estimator's ``_fit`` in ``dtype``: (model,
+    seconds, peak MiB, L-BFGS iterations, objective evaluations)."""
+    model = make()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with lbfgs_counting() as counts:
+        t0 = time.perf_counter()
+        model._fit(*fit_args, dtype)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return (model, secs, torch.cuda.max_memory_allocated() / 2 ** 20,
+            counts["iterations"], counts["evaluations"])
+
+
+def mn_iteration_counts(torch, make, fit_args):
+    """Kernel launches and host syncs of one float32 L-BFGS iteration:
+    a profiled fit of 2 iterations less one of 1."""
+    out = []
+    for iters in (1, 2):
+        def fit():
+            model = make()
+            model.max_iters = iters
+            model._fit(*fit_args, torch.float32)
+            torch.cuda.synchronize()
+        launches, syncs, _ = step_counts(torch, fit)
+        out.append((launches, syncs))
+    return out[1][0] - out[0][0], out[1][1] - out[0][1]
+
+
+def mn_report(label, fits, per_iter):
+    for name, (model, secs, peak, iters, evals) in fits.items():
+        log(f"  {label} {name} fit: {secs:.3f} s, {iters} L-BFGS "
+            f"iterations ({evals} objective evaluations), "
+            f"{secs / max(iters, 1) * 1e3:.3f} ms an iteration, peak device "
+            f"memory {peak:.1f} MiB, final loss {model.final_loss_!r}")
+    log(f"  a float32 iteration: {per_iter[0]} kernel launches, "
+        f"{per_iter[1]} host syncs")
+
+
+def loss64_gate(label, loss_at_32, loss_64):
+    rel = abs(loss_at_32 - loss_64) / abs(loss_64)
+    log(f"  float64 loss at the float32 optimum {loss_at_32!r}, at the "
+        f"float64 optimum {loss_64!r}: {rel:.3e} relative (rtol "
+        f"{MN_LOSS_RTOL})")
+    if not rel <= MN_LOSS_RTOL:
+        fail(f"{label}: the float32 optimum is off the float64 one")
+
+
+def run_matnormal_phase(torch, smi, dev="cuda"):
+    """Phase 32: ``MatnormalRegression`` with ``CovAR1(600,
+    scan_onsets=[0, 300])`` time and ``CovKroneckerFactored([16, 16,
+    8], mask=ellipsoid)`` space covariances on planted data
+    (``matnormal_data``), fit in float32 and in float64 on the card:
+    the float64 loss at the float32 optimum within ``MN_LOSS_RTOL`` of
+    the float64 optimum's, corr(beta-hat, beta) over the kept voxels
+    above ``MN_BETA_CORR`` (both fits), rho-hat, ``calibrate``'s corr
+    with the design; seconds, iterations, peak memory, the launches
+    and syncs of an iteration."""
+    from brainiak_tpu_torch.matnormal import MatnormalRegression, covs
+    from brainiak_tpu_torch.matnormal.utils import place
+
+    mask = mn_ellipsoid()
+    X, Y, beta = matnormal_data(SEED + 80)
+    log(f"phase 32, MatnormalRegression ({smi}): T={MN_TRS} in runs at "
+        f"{MN_ONSETS}, {MN_CONDITIONS} conditions, a {MN_BOX} box with "
+        f"{int(mask.sum())} voxels kept, AR(1) rho {MN_RHO} planted")
+
+    def make():
+        return MatnormalRegression(
+            covs.CovAR1(MN_TRS, scan_onsets=MN_ONSETS),
+            covs.CovKroneckerFactored(list(MN_BOX), mask=mask), device=dev)
+
+    fits = {name: mn_fit(torch, make, (X, Y, True), dtype)
+            for name, dtype in (("float32", torch.float32),
+                                ("float64", torch.float64))}
+    mn_report("MatnormalRegression", fits,
+              mn_iteration_counts(torch, make, (X, Y, True)))
+    m32, m64 = fits["float32"][0], fits["float64"][0]
+    x64 = torch.as_tensor(X, dtype=torch.float64, device=dev)
+    y64 = torch.as_tensor(Y, dtype=torch.float64, device=dev)
+    at32 = place({"beta": m32.beta_, "time": m32.time_params_,
+                  "space": m32.space_params_}, torch.float64, dev)
+    loss64_gate("phase 32", float(-m64.logp(x64, y64, at32)),
+                m64.final_loss_)
+    keep = mask
+    for name, model in (("float32", m32), ("float64", m64)):
+        corr = np.corrcoef(model.beta_[:, keep].ravel(),
+                           beta[:, keep].ravel())[0, 1]
+        rho = float(2 * torch.sigmoid(model.time_params_["rho_unc"][0]) - 1)
+        x_hat = model.calibrate(Y)
+        cal = np.corrcoef(x_hat.ravel(), X.ravel())[0, 1]
+        log(f"  {name}: corr(beta-hat, beta) {corr:.6f} over the kept "
+            f"voxels, rho-hat {rho:.6f}, calibrate's corr with X {cal:.6f}")
+        if not corr > MN_BETA_CORR:
+            fail(f"phase 32: the {name} fit does not recover beta")
+    b32, b64 = m32.beta_[:, keep], m64.beta_[:, keep]
+    log(f"  max|beta32 - beta64| / max|beta64| "
+        f"{np.abs(b32 - b64).max() / np.abs(b64).max():.3e}")
+
+
+def run_mnrsa_phase(torch, smi, dev="cuda"):
+    """Phase 33: ``MNRSA`` with the same time covariance, a
+    ``CovDiagonal(2048)`` space covariance and ``n_nureg=5`` on planted
+    data (``mnrsa_data``), fit in float32 and in float64 on the card:
+    the float64 loss at the float32 optimum within ``MN_LOSS_RTOL``,
+    the off-diagonal corr of ``C_`` with U above ``MNRSA_CORR`` (both
+    fits), max|U32 - U64| / max|U64|; seconds, iterations, peak memory,
+    the launches and syncs of an iteration."""
+    from brainiak_tpu_torch.matnormal import MNRSA, covs
+    from brainiak_tpu_torch.matnormal.utils import (flatten_cholesky_unique,
+                                                    place)
+
+    X, Y, U = mnrsa_data(SEED + 81)
+    log(f"phase 33, MNRSA ({smi}): T={MN_TRS} in runs at {MN_ONSETS}, "
+        f"V={MNRSA_VOXELS}, {MN_CONDITIONS} conditions in 4 blocks of 4, "
+        f"n_nureg={MNRSA_NUREG}")
+
+    def make():
+        return MNRSA(covs.CovAR1(MN_TRS, scan_onsets=MN_ONSETS),
+                     covs.CovDiagonal(MNRSA_VOXELS), n_nureg=MNRSA_NUREG,
+                     max_iters=MNRSA_ITERS, device=dev)
+
+    fits = {name: mn_fit(torch, make, (Y, X, True), dtype)
+            for name, dtype in (("float32", torch.float32),
+                                ("float64", torch.float64))}
+    mn_report("MNRSA", fits, mn_iteration_counts(torch, make, (Y, X, True)))
+    m32, m64 = fits["float32"][0], fits["float64"][0]
+    at32 = place({"L_flat": flatten_cholesky_unique(
+                      m32.L_.astype(np.float64)),
+                  "X_0": m32.X_0_, "time": m32.time_params_,
+                  "space": m32.space_params_}, torch.float64, dev)
+    x64 = torch.as_tensor(X, dtype=torch.float64, device=dev)
+    y64 = torch.as_tensor(Y, dtype=torch.float64, device=dev)
+    loss64_gate("phase 33", float(-m64.logp(x64, y64, at32)),
+                m64.final_loss_)
+    iu = np.triu_indices(MN_CONDITIONS, 1)
+    for name, model in (("float32", m32), ("float64", m64)):
+        corr = np.corrcoef(model.C_[iu], U[iu])[0, 1]
+        log(f"  {name}: off-diagonal corr of C_ with U {corr:.6f}")
+        if not corr > MNRSA_CORR:
+            fail(f"phase 33: the {name} fit does not recover U's blocks")
+    log(f"  max|U32 - U64| / max|U64| "
+        f"{np.abs(m32.U_ - m64.U_).max() / np.abs(m64.U_).max():.3e}")
+
+
+def iem_1d_data(seed):
+    """1-D IEM data: orientations on a 1-degree grid in [0, 180), voxels
+    a positive mix of the model's 6 channels plus N(0, 0.5) noise."""
+    from brainiak_tpu_torch.reconstruct import InvertedEncoding1D
+
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 180, IEM_TRIALS).astype(float)
+    probe = InvertedEncoding1D(n_channels=6, device="cpu")
+    probe.channels_, _ = probe._define_channels()
+    C = probe._define_trial_activations(y)
+    X = C @ rng.rand(IEM_VOXELS, 6).T + 0.5 * rng.randn(IEM_TRIALS,
+                                                          IEM_VOXELS)
+    return X, y
+
+
+def iem_2d_model(dev, fwhm=None):
+    from brainiak_tpu_torch.reconstruct import InvertedEncoding2D
+
+    model = InvertedEncoding2D([-6, 6], [-5, 5], [121, 101],
+                               stim_radius=IEM_RADIUS, device=dev)
+    model.define_basis_functions_sqgrid(8, channel_size=fwhm)
+    return model
+
+
+def iem_2d_data(seed):
+    """2-D IEM data: disc stimuli of radius ``IEM_RADIUS`` centred
+    uniformly over the field of view [-6, 6] x [-5, 5] (so that every
+    channel of the grid, the edge ones too, is driven), voxels a
+    positive mix of the 8 x 8 channels' responses (scaled to a largest
+    response of 1, as the 1-D channels' are) plus N(0, 0.5) noise."""
+    rng = np.random.RandomState(seed)
+    centers = np.column_stack([rng.uniform(-6, 6, IEM_TRIALS),
+                               rng.uniform(-5, 5, IEM_TRIALS)])
+    C = iem_2d_model("cpu")._define_trial_activations(centers)
+    C = C / C.max()
+    X = C @ rng.rand(IEM_VOXELS, C.shape[1]).T + \
+        0.5 * rng.randn(IEM_TRIALS, IEM_VOXELS)
+    return X, centers
+
+
+def iem_fit(torch, model, X, y, dtype):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model._fit(X, y, dtype)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def run_iem_phase(torch, smi, dev="cuda"):
+    """Phase 34: ``InvertedEncoding1D`` (6 channels, half-circular) and
+    ``InvertedEncoding2D`` (an 8 x 8 square grid over [-6, 6] x [-5, 5]
+    at 121 x 101 pixels) on 480 trials x 2,000 voxels, trained on 360
+    and tested on 120, in float32 and float64 on the card: the median
+    held-out error under ``IEM_1D_DEG`` / ``IEM_2D_UNITS``, the float32
+    predictions equal to float64's on at least ``IEM_AGREE``; then
+    ``fmin`` over the 2-D model's channel FWHM, ``HPO_EVALS``
+    evaluations, each a float32 fit and a held-out score on the card."""
+    import scipy.stats
+
+    from brainiak_tpu_torch.hyperparamopt import fmin
+    from brainiak_tpu_torch.reconstruct import InvertedEncoding1D
+
+    tr, te = slice(0, IEM_TRAIN), slice(IEM_TRAIN, IEM_TRIALS)
+    X1, y1 = iem_1d_data(SEED + 82)
+    X2, y2 = iem_2d_data(SEED + 83)
+    log(f"phase 34, IEM and HPO ({smi}): {IEM_TRIALS} trials x "
+        f"{IEM_VOXELS} voxels, {IEM_TRAIN} to train")
+    cases = (
+        ("InvertedEncoding1D", lambda: InvertedEncoding1D(
+            n_channels=6, stimulus_mode='halfcircular', device=dev),
+         X1, y1, lambda p, y: np.abs(((p - y) + 90) % 180 - 90),
+         IEM_1D_DEG, "degrees"),
+        ("InvertedEncoding2D", lambda: iem_2d_model(dev), X2, y2,
+         lambda p, y: np.linalg.norm(p - y, axis=1), IEM_2D_UNITS,
+         "units"))
+    for label, make, X, y, err_of, bar, unit in cases:
+        preds = {}
+        for name, dtype in (("float32", torch.float32),
+                            ("float64", torch.float64)):
+            model = make()
+            secs = iem_fit(torch, model, X[tr], y[tr], dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds[name] = model.predict(X[te])
+            pred_secs = time.perf_counter() - t0
+            err = np.median(err_of(preds[name], y[te]))
+            log(f"  {label} {name}: fit {secs:.3f} s, predict "
+                f"{pred_secs:.3f} s, median held-out error {err:.4f} {unit}")
+            if not err < bar:
+                fail(f"phase 34: {label} {name} misses its held-out bar")
+        same = float(np.mean(np.all(
+            np.atleast_2d(preds["float32"].T == preds["float64"].T),
+            axis=0)))
+        log(f"  {label}: float32 predictions equal to float64's on "
+            f"{same:.4f} of the held-out trials")
+        if same < IEM_AGREE:
+            fail(f"phase 34: {label}'s float32 predictions are off float64")
+
+    # the training discs' pixel masks do not depend on the channels: each
+    # evaluation passes its design C = masks @ channelsᵀ to ``fit``
+    probe = iem_2d_model("cpu")
+    flat_x, flat_y = probe.xp.reshape(-1), probe.yp.reshape(-1)
+    masks = (np.sqrt((flat_x[None] - y2[tr, :1]) ** 2 +
+                     (flat_y[None] - y2[tr, 1:]) ** 2) <= IEM_RADIUS) * 1.0
+    if not np.allclose(masks @ probe.channels.T,
+                       probe._define_trial_activations(y2[tr])):
+        fail("phase 34: the masks are not the model's")
+
+    def loss(params):
+        model = iem_2d_model(dev, params['fwhm'])
+        model.fit(X2[tr], y2[tr], C=masks @ model.channels.T)
+        return float(np.median(np.linalg.norm(model.predict(X2[te]) - y2[te],
+                                              axis=1)))
+
+    np.random.seed(SEED + 84)
+    trials = []
+    lo, hi = HPO_FWHM
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = fmin(loss, {'fwhm': {'dist': scipy.stats.uniform(lo, hi - lo),
+                                'lo': lo, 'hi': hi}},
+                max_evals=HPO_EVALS, trials=trials,
+                init_random_evals=HPO_RANDOM)
+    secs = time.perf_counter() - t0
+    log(f"  fmin over the channel FWHM in {HPO_FWHM}: {len(trials)} "
+        f"evaluations in {secs:.3f} s ({secs / len(trials):.3f} s each); "
+        f"best FWHM {best['fwhm']:.4f}, median held-out error "
+        f"{best['loss']:.4f} units (the default FWHM's: "
+        f"{loss({'fwhm': None}):.4f})")
+    if len(trials) != HPO_EVALS or not best['loss'] < IEM_2D_UNITS:
+        fail("phase 34: fmin did not run its evaluations or find a "
+             "channel size under the 2-D bar")
+
+
 def main():
     import torch
 
@@ -5508,7 +5926,11 @@ def main():
             ("29, TFA", lambda: run_tfa_phase(torch, smi)),
             ("30, HTFA", lambda: run_htfa_phase(torch, smi, htfa_ranks)),
             ("31, the encoding tier", lambda: run_encoding_phase(
-                torch, smi, rows))):
+                torch, smi, rows)),
+            ("32, MatnormalRegression", lambda: run_matnormal_phase(torch,
+                                                                    smi)),
+            ("33, MNRSA", lambda: run_mnrsa_phase(torch, smi)),
+            ("34, IEM and HPO", lambda: run_iem_phase(torch, smi))):
         t0 = time.perf_counter()
         phase()
         log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")

@@ -2082,3 +2082,102 @@ def test_ridge_ring_cuda(cuda, monkeypatch):
     same = ring.lambda_ == gpu.lambda_
     np.testing.assert_allclose(ring.W_[:, same], gpu.W_[:, same], rtol=0,
                                atol=1e-4 * scale)
+
+
+def test_matnormal_cuda_matches_cpu(cuda):
+    """MatnormalRegression (AR(1) time, masked Kronecker space) and
+    MNRSA fits on the card against the same fits on the CPU in float64
+    (the same initial parameters: the regression's loss within 1e-8
+    relative and beta within 1e-4 of max|beta|; MNRSA's loss within
+    1e-6 and U within 1e-3 of max|U| at 1,000 iterations), and the
+    float32 fits on the card within 1e-4 of the float64 loss."""
+    from brainiak_tpu_torch.matnormal import MNRSA, MatnormalRegression
+    from brainiak_tpu_torch.matnormal import covs
+
+    rng = np.random.RandomState(0)
+    n_t, n_c, sizes = 80, 3, [2, 3, 2]
+    mask = np.array([1, 1, 0, 1, 1, 1, 0, 1, 1, 0, 1, 1])
+    X = rng.randn(n_t, n_c)
+    beta = rng.randn(n_c, 12)
+    Y = X @ beta + 0.3 * rng.randn(n_t, 12)
+    fits = {}
+    for dev, dtype in (("cuda", torch.float64), ("cpu", torch.float64),
+                       ("cuda", torch.float32)):
+        model = MatnormalRegression(
+            covs.CovAR1(n_t, scan_onsets=[0, 40]),
+            covs.CovKroneckerFactored(sizes, mask=mask), device=dev)
+        fits[dev, dtype] = model._fit(X, Y, True, dtype)
+    gpu, cpu = fits["cuda", torch.float64], fits["cpu", torch.float64]
+    assert abs(gpu.final_loss_ - cpu.final_loss_) <= \
+        1e-8 * abs(cpu.final_loss_)
+    np.testing.assert_allclose(gpu.beta_, cpu.beta_, rtol=0,
+                               atol=1e-4 * np.abs(cpu.beta_).max())
+    f32 = fits["cuda", torch.float32]
+    assert abs(f32.final_loss_ - cpu.final_loss_) <= \
+        1e-4 * abs(cpu.final_loss_)
+    np.testing.assert_allclose(gpu.calibrate(Y), cpu.calibrate(Y), rtol=0,
+                               atol=1e-6 * np.abs(cpu.calibrate(Y)).max())
+
+    # tests/matnormal/test_matnormal.py's MNRSA data, where fits from one
+    # start reach one optimum (its likelihood is not convex)
+    rng = np.random.RandomState(3)
+    U = np.array([[1.0, 0.8, 0.0, 0.0], [0.8, 1.0, 0.0, 0.0],
+                  [0.0, 0.0, 1.0, 0.8], [0.0, 0.0, 0.8, 1.0]])
+    Xd = rng.randn(150, 4)
+    Yd = Xd @ (np.linalg.cholesky(U) @ rng.randn(4, 12)) \
+        + 0.5 * rng.randn(150, 12)
+    rsa = {}
+    for dev, dtype in (("cuda", torch.float64), ("cpu", torch.float64),
+                       ("cuda", torch.float32)):
+        rsa[dev, dtype] = MNRSA(covs.CovIdentity(150), covs.CovIsotropic(12),
+                                n_nureg=2, max_iters=1000,
+                                device=dev)._fit(Yd, Xd, True, dtype)
+    gpu, cpu = rsa["cuda", torch.float64], rsa["cpu", torch.float64]
+    assert abs(gpu.final_loss_ - cpu.final_loss_) <= \
+        1e-6 * abs(cpu.final_loss_)
+    np.testing.assert_allclose(gpu.U_, cpu.U_, rtol=0,
+                               atol=1e-3 * np.abs(cpu.U_).max())
+    f32 = rsa["cuda", torch.float32]
+    assert abs(f32.final_loss_ - cpu.final_loss_) <= \
+        1e-4 * abs(cpu.final_loss_)
+    np.testing.assert_allclose(f32.C_, cpu.C_, rtol=0, atol=1e-2)
+
+
+def test_iem_cuda_matches_cpu(cuda):
+    """InvertedEncoding1D and 2D fits on the card against the CPU in
+    float64 (W_ within 1e-10 relative, predictions equal), and the
+    float32 fits' predictions close to them."""
+    from brainiak_tpu_torch.reconstruct import (InvertedEncoding1D,
+                                                InvertedEncoding2D)
+
+    rng = np.random.RandomState(0)
+    y = np.repeat(np.linspace(0, 150, 6), 20)
+    prefs = rng.rand(200) * 180
+    X = np.cos(np.deg2rad(2 * (y[:, None] - prefs[None]))) ** 2 \
+        + 0.2 * rng.randn(y.size, 200)
+    fits = [InvertedEncoding1D(device=d)._fit(X, y, t) for d, t in
+            (("cuda", torch.float64), ("cpu", torch.float64),
+             ("cuda", torch.float32))]
+    np.testing.assert_allclose(fits[0].W_, fits[1].W_, rtol=1e-10,
+                               atol=1e-10 * np.abs(fits[1].W_).max())
+    np.testing.assert_array_equal(fits[0].predict(X), fits[1].predict(X))
+    err = np.abs(((fits[2].predict(X) - y) + 90) % 180 - 90)
+    assert np.median(err) < 20
+
+    centers = rng.rand(120, 2) * 8 + 1
+    models = []
+    for dev in ("cuda", "cpu", "cuda"):
+        m = InvertedEncoding2D([0, 10], [0, 10], 21, stim_radius=1.5,
+                               device=dev)
+        m.define_basis_functions_sqgrid(5)
+        models.append(m)
+    C = models[1]._define_trial_activations(centers)
+    Xc = C @ rng.rand(60, 25).T + 0.1 * rng.randn(120, 60)
+    for m, t in zip(models, (torch.float64, torch.float64, torch.float32)):
+        m._fit(Xc, centers, t)
+    np.testing.assert_allclose(models[0].W_, models[1].W_, rtol=1e-10,
+                               atol=1e-10 * np.abs(models[1].W_).max())
+    np.testing.assert_array_equal(models[0].predict(Xc),
+                                  models[1].predict(Xc))
+    err = np.linalg.norm(models[2].predict(Xc) - centers, axis=1)
+    assert np.median(err) < 2.0

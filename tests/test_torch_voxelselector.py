@@ -408,6 +408,17 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import brainiak_tpu_torch.factoranalysis._kmeans\n"
         "import brainiak_tpu_torch.encoding\n"
         "import brainiak_tpu_torch.encoding.ridge\n"
+        "import brainiak_tpu_torch.utils.kronecker_solvers\n"
+        "import brainiak_tpu_torch.matnormal\n"
+        "import brainiak_tpu_torch.matnormal.covs\n"
+        "import brainiak_tpu_torch.matnormal.matnormal_likelihoods\n"
+        "import brainiak_tpu_torch.matnormal.mnrsa\n"
+        "import brainiak_tpu_torch.matnormal.regression\n"
+        "import brainiak_tpu_torch.matnormal.utils\n"
+        "import brainiak_tpu_torch.reconstruct\n"
+        "import brainiak_tpu_torch.reconstruct.iem\n"
+        "import brainiak_tpu_torch.hyperparamopt\n"
+        "import brainiak_tpu_torch.hyperparamopt.hpo\n"
         "from brainiak_tpu_torch.isc import bootstrap_isc, \\\n"
         "    permutation_isc, timeshift_isc, phaseshift_isc\n"
         "from brainiak_tpu_torch.stats import NullEngine\n"

@@ -4,8 +4,8 @@ classification, the SUMMA ring Gram, ISC/ISFC, SRM, the FCMA file
 front end, RSRM, SS-SRM, FastSRM, FCMA on a mesh, the SRM family and
 FCMA on two ranks, the searchlight, MVPA voxel selection, the
 resampling statistics, event segmentation, TFA and HTFA, the encoding
-tier, the matrix-normal models, the inverted encoding models and the
-hyperparameter optimizer) on one CUDA card.
+tier, the matrix-normal models, the inverted encoding models, the
+hyperparameter optimizer and the fMRI simulator) on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -397,6 +397,19 @@ first one that goes wrong:
    >= 95%; then ``fmin`` with 40 evaluations over the 2-D model's
    channel FWHM in [1, 2.5], each a float32 fit and a held-out score on
    the card (the training discs' masks made once).
+35. The fMRI simulator (``utils/fmrisim.py``; draws on the host,
+   arithmetic on the card in float64): ``generate_noise`` at 24 x 24 x
+   16, 60 TRs, matched, from ``np.random.seed(SEED + 81)`` on the card
+   and on the CPU, within 1e-9 of max|noise|, the fit loops reading
+   their stopping rule as many times, the calibrated exponents equal;
+   ``generate_stream(rng=SEED)`` at the default settings likewise.  Then
+   a 3 mm EPI run, 64 x 64 x 36 voxels x 300 TRs, TR 2 s, matched to
+   SFNR 90 and SNR 50 with drift 1 and AR(1) 0.5: noise >= 0, the
+   brain's mean over 10 times the rest's, its SNR and SFNR within
+   0.3x-3x of target, one host sync a fit iteration (sync debug mode);
+   ``calc_noise`` of it: AR within 0.15 of 0.5, FWHM within 35% of 4;
+   seconds split into host draws, uploads and the rest, peak memory,
+   and one profiled temporal fit iteration's device time and launches.
 26. The ingest split: one ``normalize_epochs`` call on 32 whole-brain
    epochs, split into host stack, upload, K2 and download (last, so
    that its pinned buffer, which PyTorch's host allocator keeps, is
@@ -5700,6 +5713,265 @@ def run_iem_phase(torch, smi, dev="cuda"):
              "channel size under the 2-D bar")
 
 
+SIM_SMALL = (24, 24, 16)   # step 1: the card against the CPU
+SIM_SMALL_TRS = 60
+SIM_GRID = (64, 64, 36)    # a 3 mm EPI volume, 147,456 voxels
+SIM_TRS = 300
+SIM_TR = 2.0
+SIM_AGREE = 1e-9           # card vs CPU in float64, of max|noise|
+SIM_AR_ATOL = 0.15         # calc_noise's AR coefficient against 0.5
+SIM_FWHM_RTOL = 0.35       # calc_noise's FWHM against 4 voxels
+SIM_DRAWS = ("randn", "normal", "rand", "permutation", "choice")
+
+
+class SimTally:
+    """A context that splits fmrisim runs by the host clock: seconds in
+    NumPy's global-stream draws, seconds in ``fmrisim._upload`` (the
+    pinned staging copy and the enqueue of the asynchronous copy), the
+    stopping-rule readings of each fit loop (``_snr``, ``_sfnr``) and,
+    with ``syncs``, the host syncs inside the fit loops under
+    ``torch.cuda.set_sync_debug_mode("warn")``.  The wrappers are taken
+    off on exit."""
+
+    def __init__(self, torch, sim, syncs=False):
+        self.torch, self.sim, self.count_syncs = torch, sim, syncs
+        self.draws = self.uploads = 0.0
+        self.readings = {"_snr": 0, "_sfnr": 0}
+        self.syncs = 0
+        self.where = {}
+        self.stacks = {}
+        self._saved = []
+
+    def _patch(self, owner, name, make):
+        inner = getattr(owner, name)
+        self._saved.append((owner, name, inner))
+        setattr(owner, name, make(inner))
+
+    def _timed(self, field):
+        def make(inner):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return inner(*args, **kwargs)
+                finally:
+                    setattr(self, field, getattr(self, field)
+                            + time.perf_counter() - t0)
+            return call
+        return make
+
+    def _counted(self, name):
+        def make(inner):
+            def call(*args, **kwargs):
+                self.readings[name] += 1
+                return inner(*args, **kwargs)
+            return call
+        return make
+
+    def _synced(self, inner):
+        import traceback
+        import warnings
+
+        torch = self.torch
+
+        def seen(message, category, filename, lineno, *rest):
+            if "synchroniz" not in str(message):
+                return
+            self.syncs += 1
+            at = f"{filename.rpartition('/')[2]}:{lineno}"
+            if at not in self.where:
+                # the Python stack that led to it, for the log
+                self.stacks[at] = " <- ".join(
+                    f"{f.filename.rpartition('/')[2]}:{f.lineno} {f.name}"
+                    for f in reversed(traceback.extract_stack()[-9:-1]))
+            self.where[at] = self.where.get(at, 0) + 1
+
+        def call(*args, **kwargs):
+            # switched on outside the recording: turning it on may warn
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("always")
+                    warnings.showwarning = seen
+                    return inner(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return call
+
+    def __enter__(self):
+        for name in SIM_DRAWS:
+            self._patch(np.random, name, self._timed("draws"))
+        self._patch(self.sim, "_upload", self._timed("uploads"))
+        for name in self.readings:
+            self._patch(self.sim, name, self._counted(name))
+        if self.count_syncs:
+            for name in ("_fit_spatial", "_fit_temporal"):
+                self._patch(self.sim, name, self._synced)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, inner in reversed(self._saved):
+            setattr(owner, name, inner)
+        return False
+
+
+def sim_card_vs_cpu(torch, sim, smi, dev):
+    """Phase 35, step 1: matched noise at ``SIM_SMALL`` from one seed on
+    the card and on the CPU (within ``SIM_AGREE``, as many fit readings,
+    equal calibrated exponents); then ``generate_stream(rng=SEED)`` at
+    the default settings on both."""
+    from brainiak_tpu_torch.utils.fmrisim_real_time_generator import \
+        generate_stream
+
+    dims = np.array(SIM_SMALL)
+    runs = {}
+    for d in (dev, "cpu"):
+        mask, template = sim.mask_brain(dims, mask_self=False, device=d)
+        np.random.seed(SEED + 81)
+        with SimTally(torch, sim) as tally:
+            noise = sim.generate_noise(dims, np.zeros((SIM_SMALL_TRS, 1)),
+                                       SIM_TR, template, mask,
+                                       {'matched': 1}, device=d)
+        runs[d] = (noise.cpu().numpy(), dict(tally.readings))
+    (card, card_reads), (host, host_reads) = runs[dev], runs["cpu"]
+    err = float(np.abs(card - host).max() / np.abs(host).max())
+    key = (tuple(SIM_SMALL), 4.0)
+    exps = [sim._SPECTRAL_CALIBRATION[key + (torch.device(d).type,)]
+            for d in (dev, "cpu")]
+    log(f"  step 1 ({smi}): generate_noise {SIM_SMALL} x {SIM_SMALL_TRS} "
+        f"TRs, matched, card vs CPU max|d| / max|noise| {err:.3e}; fit "
+        f"readings (SNR, SFNR) card {card_reads['_snr']}, "
+        f"{card_reads['_sfnr']}, CPU {host_reads['_snr']}, "
+        f"{host_reads['_sfnr']}; calibrated exponent card {exps[0]!r}, "
+        f"CPU {exps[1]!r}")
+    if not err <= SIM_AGREE:
+        fail("phase 35: the card's noise is off the CPU's")
+    if card_reads != host_reads:
+        fail("phase 35: the fit loops ran a different number of "
+             "iterations on the card")
+    if exps[0] != exps[1]:
+        fail("phase 35: the calibrated exponents differ")
+    t0 = time.perf_counter()
+    card = generate_stream(rng=SEED, device=dev)
+    t_card = time.perf_counter() - t0
+    host = generate_stream(rng=SEED, device="cpu")
+    err = float(np.abs(card.brain - host.brain).max()
+                / np.abs(host.brain).max())
+    same = all(np.array_equal(getattr(card, n), getattr(host, n))
+               for n in ("mask", "roi_a", "roi_b", "labels"))
+    log(f"  step 1 ({smi}): generate_stream(rng={SEED}) {card.brain.shape}"
+        f" in {t_card:.3f} s on the card, card vs CPU max|d| / max|brain| "
+        f"{err:.3e}, mask, ROIs and labels equal: {same}")
+    if not err <= SIM_AGREE or not same:
+        fail("phase 35: the card's stream is off the CPU's")
+
+
+def run_fmrisim_phase(torch, smi, dev="cuda"):
+    """Phase 35, the fMRI simulator (``utils/fmrisim.py`` and its
+    real-time generator; no kernel).  Step 1, :func:`sim_card_vs_cpu`.
+    Step 2, ``generate_noise`` at ``SIM_GRID`` x ``SIM_TRS`` TRs, TR
+    ``SIM_TR``, matched, drift_sigma 1, AR 0.5, MA 0, the default SFNR
+    90 and SNR 50, on the packaged template: noise >= 0, the brain's
+    mean over 10 times the rest's, the port's SNR and SFNR of it within
+    0.3x-3x of their targets; ``calc_noise`` of it: the AR coefficient
+    within ``SIM_AR_ATOL`` of 0.5, the FWHM within ``SIM_FWHM_RTOL`` of
+    4.  Its seconds split into host draws, uploads and the rest (the
+    enqueue of the device work and the waits on it), the fit loops'
+    readings and host syncs, peak device memory; then one profiled
+    temporal fit iteration's body (temporal and system noise redrawn
+    and combined): device busy time and launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brainiak_tpu_torch.utils import fmrisim as sim
+
+    log(f"phase 35, the fMRI simulator ({smi})")
+    sim_card_vs_cpu(torch, sim, smi, dev)
+
+    grid = np.array(SIM_GRID)
+    mask, template = sim.mask_brain(grid, mask_self=False, device=dev)
+    noise_dict = {'drift_sigma': 1, 'auto_reg_rho': [0.5],
+                  'ma_rho': [0.0], 'matched': 1}
+    stim = np.zeros((SIM_TRS, 1))
+    np.random.seed(SEED + 85)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with SimTally(torch, sim, syncs=True) as tally:
+        t0 = time.perf_counter()
+        noise = sim.generate_noise(grid, stim, SIM_TR, template, mask,
+                                   noise_dict, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reads = tally.readings["_snr"] + tally.readings["_sfnr"]
+    log(f"  step 2 ({smi}): generate_noise {SIM_GRID} x {SIM_TRS} TRs "
+        f"(matched, drift 1, AR 0.5): {wall:.3f} s = host draws "
+        f"{tally.draws:.3f} + uploads {tally.uploads:.3f} + the rest "
+        f"{wall - tally.draws - tally.uploads:.3f}; fit readings SNR "
+        f"{tally.readings['_snr']}, SFNR {tally.readings['_sfnr']}; host "
+        f"syncs in the fit loops {tally.syncs} "
+        f"({tally.syncs / max(reads, 1):.2f} a reading, at {tally.where}); "
+        f"peak device memory {peak:.3f} GiB")
+    if tally.syncs != reads:
+        for at, stack in tally.stacks.items():
+            log(f"    sync at {at}: {stack}")
+        fail("phase 35: a fit iteration synced more than once")
+    inside = mask > 0
+    brain = float(noise[inside].mean())
+    rest = float(noise[~inside].mean())
+    snr = sim._calc_snr(noise, mask, device=dev)
+    sfnr = sim._calc_sfnr(noise, mask, device=dev)
+    log(f"  step 2 ({smi}): min {float(noise.min()):.6f}, brain mean "
+        f"{brain:.4f}, non-brain mean {rest:.4f}; SNR {snr:.4f} "
+        f"(target 50), SFNR {sfnr:.4f} (target 90)")
+    if float(noise.min()) < 0 or not brain > 10 * rest:
+        fail("phase 35: the noise has negative values or no brain")
+    if not (0.3 * 50 < snr < 3 * 50 and 0.3 * 90 < sfnr < 3 * 90):
+        fail("phase 35: the SNR or SFNR is off its target")
+
+    np.random.seed(SEED + 86)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = sim.calc_noise(noise, mask, template, device=dev)
+    secs = time.perf_counter() - t0
+    log(f"  step 2 ({smi}): calc_noise in {secs:.3f} s: AR "
+        f"{est['auto_reg_rho'][0]:.6f}, MA {est['ma_rho'][0]:.6f}, FWHM "
+        f"{est['fwhm']:.6f}, SFNR {est['sfnr']:.4f}, SNR {est['snr']:.4f}, "
+        f"max activity {est['max_activity']:.4f}")
+    if abs(est['auto_reg_rho'][0] - 0.5) > SIM_AR_ATOL or \
+            abs(est['fwhm'] - 4) > SIM_FWHM_RTOL * 4:
+        fail("phase 35: calc_noise does not recover the AR coefficient "
+             "or the FWHM")
+    del noise
+
+    full = sim._noise_dict_update(dict(noise_dict))
+    brain_mask = sim._Mask(mask)
+    base = template * full['max_activity']
+    drift = torch.zeros(SIM_TRS, dtype=torch.float64, device=dev)
+    dims_tr = tuple(SIM_GRID) + (SIM_TRS,)
+
+    def temporal_iteration():
+        noise_temporal = sim._generate_noise_temporal(
+            stim, SIM_TR, dims_tr, None, brain_mask, full, device=dev)
+        system = sim._generate_noise_system(dims_tr, 1.0, 1.0, device=dev)
+        return sim._combine(base, drift, system, noise_temporal, 1.0)
+
+    temporal_iteration()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        temporal_iteration()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = sorted(((us, n, name) for name, (us, n)
+                      in device_events(torch, prof)), reverse=True)
+    host, _ = launch_counts(torch, prof)
+    busy = sum(us for us, _, _ in kernels) / 1e3
+    log(f"  a temporal fit iteration's body ({smi}): {wall_ms:.3f} ms "
+        f"(profiled), device busy {busy:.3f} ms, {host} host launches")
+    for us, n, name in kernels[:5]:
+        log(f"    {us / 1e3:9.3f} ms {n:6d}x {name[:80]}")
+
+
 def main():
     import torch
 
@@ -5930,7 +6202,9 @@ def main():
             ("32, MatnormalRegression", lambda: run_matnormal_phase(torch,
                                                                     smi)),
             ("33, MNRSA", lambda: run_mnrsa_phase(torch, smi)),
-            ("34, IEM and HPO", lambda: run_iem_phase(torch, smi))):
+            ("34, IEM and HPO", lambda: run_iem_phase(torch, smi)),
+            ("35, the fMRI simulator", lambda: run_fmrisim_phase(torch,
+                                                                 smi))):
         t0 = time.perf_counter()
         phase()
         log(f"phase {label} ({smi}): {time.perf_counter() - t0:.1f} s")

@@ -2181,3 +2181,50 @@ def test_iem_cuda_matches_cpu(cuda):
                                   models[1].predict(Xc))
     err = np.linalg.norm(models[2].predict(Xc) - centers, axis=1)
     assert np.median(err) < 2.0
+
+
+def test_fmrisim_cuda_matches_cpu(cuda, monkeypatch):
+    """The simulator's matched noise at 24 x 24 x 16, 60 TRs, from one
+    seed on the card and on the CPU: within 1e-9 of max|noise|, the fit
+    loops reading their stopping rule as many times, the calibrated
+    exponents equal; then ``generate_stream(rng=0)`` at the default
+    settings, the same scan on both."""
+    from brainiak_tpu_torch.utils import fmrisim as sim
+    from brainiak_tpu_torch.utils.fmrisim_real_time_generator import \
+        generate_stream
+
+    readings = {}
+    for name in ("_snr", "_sfnr"):
+        inner = getattr(sim, name)
+
+        def counted(*args, _inner=inner, _name=name, **kwargs):
+            out = _inner(*args, **kwargs)
+            readings[out.device.type, _name] = \
+                readings.get((out.device.type, _name), 0) + 1
+            return out
+
+        monkeypatch.setattr(sim, name, counted)
+    dims = np.array([24, 24, 16])
+    noise = {}
+    for dev in ("cuda", "cpu"):
+        mask, template = sim.mask_brain(dims, mask_self=False, device=dev)
+        np.random.seed(81)
+        noise[dev] = sim.generate_noise(dims, np.zeros((60, 1)), 2, template,
+                                        mask, {'matched': 1}, device=dev)
+        assert noise[dev].device.type == dev
+    want = noise["cpu"].numpy()
+    np.testing.assert_allclose(noise["cuda"].cpu().numpy(), want, rtol=0,
+                               atol=1e-9 * np.abs(want).max())
+    for name in ("_snr", "_sfnr"):
+        assert readings["cuda", name] == readings["cpu", name] > 0
+    key = (tuple(int(d) for d in dims), 4.0)
+    assert sim._SPECTRAL_CALIBRATION[key + ("cuda",)] == \
+        sim._SPECTRAL_CALIBRATION[key + ("cpu",)]
+
+    card = generate_stream(rng=0, device="cuda")
+    host = generate_stream(rng=0, device="cpu")
+    np.testing.assert_allclose(card.brain, host.brain, rtol=0,
+                               atol=1e-9 * np.abs(host.brain).max())
+    for name in ("mask", "roi_a", "roi_b", "labels"):
+        np.testing.assert_array_equal(getattr(card, name),
+                                      getattr(host, name))

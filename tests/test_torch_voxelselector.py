@@ -424,6 +424,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "from brainiak_tpu_torch.stats import NullEngine\n"
         "import brainiak_tpu_torch.utils.utils\n"
         "import brainiak_tpu_torch.utils.checkpoint\n"
+        "import brainiak_tpu_torch.utils.fmrisim\n"
+        "import brainiak_tpu_torch.utils.fmrisim_real_time_generator\n"
         "import brainiak_tpu_torch.obs\n"
         "import brainiak_tpu_torch.obs.flight\n"
         "import brainiak_tpu_torch.obs.metrics\n"
